@@ -1,0 +1,396 @@
+#!/usr/bin/env python3
+"""Drive the envpool_torch port once on one CUDA card and check it.
+
+Usage, from the root of a checkout, on a machine with an NVIDIA H100 and
+nvcc (``/usr/local/cuda``):
+
+  python3 chip_smoke.py
+
+Phases (any failure exits non-zero before the result lines):
+  1. the card's name and power limit (``nvidia-smi``);
+  2. build the CUDA kernels from ``envpool_torch/csrc`` (nvcc, sm_90a);
+  3. each kernel against its plain PyTorch version on the card, at the
+     main path's shapes (CarRacing-v2, 1024 envs, 8 tracks), bit-exact, with
+     times from CUDA events and the byte bound;
+  4. the main path: ``make_gymnasium("CarRacing-v2", num_envs=1024)`` on the
+     card, reset + 300 steps; a pool with ``max_episode_steps=64`` over 150
+     steps (every lane auto-resets twice); an async pool (batch 256) for 20
+     steps; a 100-step ``xla()`` loop and ``commit()``. The sampler's launch
+     count must grow by exactly two per render;
+  5. the card against the port on the CPU: the card pool's snapshot loaded
+     into a CPU pool, one step each with the same actions;
+  6. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
+
+Without a CUDA device, or outside a checkout, it fails and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+N_ENVS = 1024
+MAIN_STEPS = 300
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, device memory
+INT_OPS_PER_S = 67e12          # H100 SXM, CUDA cores (fp32 rate)
+SAMPLER_OPS_PER_PIXEL = 12     # 4 subtract+wrap pairs, 2 index multiply-adds
+
+
+def log(*args) -> None:
+  print(*args, flush=True)
+
+
+def card_line() -> str:
+  res = subprocess.run(
+    ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+    capture_output=True, text=True, timeout=60, check=True,
+  )
+  return res.stdout.strip().splitlines()[0]
+
+
+def sync(torch, device) -> None:
+  if torch.device(device).type == "cuda":
+    torch.cuda.synchronize()
+
+
+def time_cuda(torch, fn, reps: int, warmup: int = 3) -> float:
+  """Mean milliseconds of ``fn`` over ``reps`` runs, by CUDA events."""
+  for _ in range(warmup):
+    fn()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  torch.cuda.synchronize()
+  start.record()
+  for _ in range(reps):
+    fn()
+  end.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(end) / reps
+
+
+def random_actions(rng, n: int) -> np.ndarray:
+  return np.stack([
+    rng.uniform(-1, 1, n), rng.uniform(0, 1, n), rng.uniform(0, 1, n)
+  ], 1).astype(np.float32)
+
+
+# --------------------------------------------------------------- phase 3
+
+
+def sampler_inputs(torch, rng, bank, s_dim: int, n: int, device):
+  rows_b, cols_b = bank.shape
+  scal = np.stack([
+    rng.integers(0, (rows_b - s_dim) // 8 + 1, n),
+    rng.integers(0, (cols_b - s_dim) // 128 + 1, n),
+  ], 1)
+  shifts = [rng.integers(-s_dim, s_dim + 1, (n, s_dim)) for _ in range(4)]
+  rows = rng.integers(-32, s_dim + 32, (n, 96))
+  cols = rng.integers(-32, s_dim + 32, (n, 96))
+  return [
+    torch.from_numpy(x.astype(np.int32)).to(device)
+    for x in (scal, *shifts, rows, cols)
+  ]
+
+
+def check_sampler(torch, device) -> dict:
+  """The sampler kernel against its plain version at the main path's
+  shapes: the fine bank (S=384) and the coarse bank (S=256) of 8 tracks."""
+  from envpool_torch.envs.box2d import car_racing, sampler
+
+  banks = car_racing._device_bank(SEED, 8, device)
+  rng = np.random.default_rng(SEED)
+  res = {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+  byte_ms = op_ms = 0.0
+  for path, s_dim in (("fine", car_racing.FINE_WIN), ("coarse", car_racing.COARSE_WIN)):
+    bank = banks[path]
+    inputs = sampler_inputs(torch, rng, bank, s_dim, N_ENVS, device)
+    got = sampler.fused_sample(bank, *inputs)
+    want = sampler.sample_plain(bank, *inputs)
+    torch.cuda.synchronize()
+    err = int((got.int() - want.int()).abs().max())
+    if not torch.equal(got, want):
+      raise AssertionError(f"sampler {path}: kernel != plain, max err {err}")
+    ms = time_cuda(torch, lambda: sampler.fused_sample(bank, *inputs), 50)
+    plain_ms = time_cuda(torch, lambda: sampler.sample_plain(bank, *inputs), 10)
+    rows, cols = inputs[5], inputs[6]
+    in_r = ((rows >= 0) & (rows < s_dim)).sum(1)
+    in_c = ((cols >= 0) & (cols < s_dim)).sum(1)
+    pixels = int((in_r * in_c).sum())            # in-window pixels: one bank byte
+    n_bytes = (
+      sum(t.numel() * t.element_size() for t in inputs)
+      + pixels + got.numel() * got.element_size()
+    )
+    b_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    o_ms = 1e3 * SAMPLER_OPS_PER_PIXEL * pixels / INT_OPS_PER_S
+    bound_ms = max(b_ms, o_ms)
+    byte_ms += b_ms
+    op_ms += o_ms
+    log(f"sampler {path}: S={s_dim} N={N_ENVS} bank={tuple(bank.shape)} "
+        f"bit-exact, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms * 1e3:.2f} us ({n_bytes} B), library none")
+    res[f"ms_{path}"] = ms
+    res[f"plain_ms_{path}"] = plain_ms
+    res[f"bound_ms_{path}"] = bound_ms
+    res["max_abs_err"] = max(res["max_abs_err"], err)
+    res["ms"] += ms
+    res["plain_ms"] += plain_ms
+    res["bound_ms"] += bound_ms
+  res["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
+  return res
+
+
+# --------------------------------------------------------------- phase 4
+
+
+def renders_for(done_before: np.ndarray) -> int:
+  """Sampler launches of one advance: two for the step when a lane steps,
+  two for the reset when a lane resets."""
+  return 2 * int((~done_before).any()) + 2 * int(done_before.any())
+
+
+def run_sync(torch, envpool_torch, sampler, device, steps, seed, **kw):
+  """reset + ``steps`` steps; checks outputs and the exact launch count.
+  Returns (env, last actions, env-steps/s, launches, per-lane resets)."""
+  rng = np.random.default_rng(seed)
+  sampler.fused_sample.launches = 0
+  env = envpool_torch.make_gymnasium(
+    "CarRacing-v2", num_envs=N_ENVS, seed=SEED, device=device, **kw
+  )
+  obs, info = env.reset()
+  expected = 2
+  assert obs.shape == (N_ENVS, 96, 96, 3) and obs.dtype == np.uint8
+  done = np.zeros(N_ENVS, bool)
+  resets = np.zeros(N_ENVS, int)
+  acts = [random_actions(rng, N_ENVS) for _ in range(steps)]
+  sync(torch, device)
+  t0 = time.perf_counter()
+  for a in acts:
+    expected += renders_for(done)
+    obs, rew, term, trunc, info = env.step(a)
+    done = term | trunc
+    resets += info["elapsed_step"] == 0
+  secs = time.perf_counter() - t0
+  assert obs.shape == (N_ENVS, 96, 96, 3) and obs.dtype == np.uint8
+  assert np.isfinite(rew).all() and rew.dtype == np.float32
+  assert np.all(obs[:, 95, :48] == 0)        # indicator bar background
+  launches = sampler.fused_sample.launches
+  if launches != expected:
+    raise AssertionError(f"sampler launches {launches}, expected {expected}")
+  return env, acts[-1], steps * N_ENVS / secs, launches, resets
+
+
+def run_async(envpool_torch, sampler, device, iters=20, batch=256):
+  """An async pool: ``iters`` recv/send rounds of ``batch``-env cohorts."""
+  rng = np.random.default_rng(SEED + 2)
+  sampler.fused_sample.launches = 0
+  env = envpool_torch.make_gymnasium(
+    "CarRacing-v2", num_envs=N_ENVS, batch_size=batch, seed=SEED, device=device
+  )
+  env.async_reset()
+  expected = 2 * (N_ENVS // batch)
+  done = np.zeros(N_ENVS, bool)
+  seen = []
+  for _ in range(iters):
+    obs, rew, term, trunc, info = env.recv()
+    ids = info["env_id"]
+    assert obs.shape == (batch, 96, 96, 3) and np.isfinite(rew).all()
+    done[ids] = term | trunc
+    seen.append(ids)
+    expected += renders_for(done[ids])
+    env.send(random_actions(rng, batch), ids)
+  order = np.stack(seen[: N_ENVS // batch]).ravel()
+  assert np.array_equal(np.sort(order), np.arange(N_ENVS)), "cohorts lost envs"
+  if sampler.fused_sample.launches != expected:
+    raise AssertionError(
+      f"async launches {sampler.fused_sample.launches}, expected {expected}"
+    )
+  return sampler.fused_sample.launches
+
+
+def run_functional(torch, env, sampler, steps=100):
+  """A ``steps``-step ``xla()`` loop on the device, then ``commit``."""
+  rng = np.random.default_rng(SEED + 3)
+  acts = torch.from_numpy(
+    np.stack([random_actions(rng, N_ENVS) for _ in range(steps)])
+  ).to(env.device)
+  handle, recv, send, step = env.xla()
+  keys = env.spec._state_keys
+  done_i, elapsed_i = keys.index("done"), keys.index("elapsed_step")
+  before = env.save_state()
+  done = before.done
+  sampler.fused_sample.launches = 0
+  expected = 0
+  sync(torch, env.device)
+  t0 = time.perf_counter()
+  for i in range(steps):
+    expected += renders_for(done)
+    handle = send(handle, acts[i])
+    done = handle.out[done_i].cpu().numpy()
+  sync(torch, env.device)
+  secs = time.perf_counter() - t0
+  if sampler.fused_sample.launches != expected:
+    raise AssertionError(
+      f"xla() launches {sampler.fused_sample.launches}, expected {expected}"
+    )
+  env.commit(handle)
+  after = env.save_state()
+  np.testing.assert_array_equal(after.elapsed, handle.out[elapsed_i].cpu().numpy())
+  assert not np.array_equal(after.env["pos"], before.env["pos"])
+  return steps * N_ENVS / secs, sampler.fused_sample.launches
+
+
+def profile_steps(torch, env, steps=10):
+  """Trace ``steps`` ``xla()`` steps; returns (device kernel microseconds
+  per step, [(kernel name, us per step, launches per step)], busiest
+  first). Only device-side events count, so nothing is counted twice."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+
+  rng = np.random.default_rng(SEED + 5)
+  acts = torch.from_numpy(
+    np.stack([random_actions(rng, N_ENVS) for _ in range(steps + 1)])
+  ).to(env.device)
+  handle, _, send, _ = env.xla()
+  handle = send(handle, acts[0])
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for i in range(1, steps + 1):
+      handle = send(handle, acts[i])
+    torch.cuda.synchronize()
+  rows = [
+    (e.key, e.self_device_time_total / steps, e.count / steps)
+    for e in prof.key_averages()
+    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+  ]
+  rows.sort(key=lambda r: -r[1])
+  return sum(r[1] for r in rows), rows
+
+
+# --------------------------------------------------------------- phase 5
+
+
+def card_vs_cpu(envpool_torch, env, action) -> dict:
+  """The card pool's snapshot through one step on the card and on the CPU."""
+  snap = env.save_state()
+  cpu = envpool_torch.make_gymnasium(
+    "CarRacing-v2", num_envs=N_ENVS, seed=SEED, device="cpu"
+  )
+  cpu.load_state(snap)
+  want = cpu.step(action)
+  got = env.step(action)
+  for i in (2, 3):
+    np.testing.assert_array_equal(got[i], want[i])
+  for k in ("env_id", "elapsed_step", "tile_visited_count"):
+    np.testing.assert_array_equal(got[-1][k], want[-1][k])
+  rew_err = float(np.abs(got[1] - want[1]).max())
+  assert rew_err <= 1e-4, rew_err
+  obs_eq = float((got[0] == want[0]).all(-1).mean())
+  assert obs_eq >= 0.995, obs_eq
+  g_st, w_st = env.save_state(), cpu.save_state()
+  for k in ("track_id", "visited", "visited_count", "new_lap"):
+    np.testing.assert_array_equal(g_st.env[k], w_st.env[k], err_msg=k)
+  np.testing.assert_array_equal(g_st.rng, w_st.rng)
+  pos_err = float(np.abs(g_st.env["pos"] - w_st.env["pos"]).max())
+  return {"obs_equal": obs_eq, "reward_max_err": rew_err, "pos_max_err": pos_err}
+
+
+def main() -> int:
+  import torch
+
+  if not torch.cuda.is_available():
+    print("chip_smoke: no CUDA device", file=sys.stderr)
+    return 1
+  sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+  import envpool_torch
+  from envpool_torch import _build
+  from envpool_torch.envs.box2d import sampler
+
+  device = "cuda"
+  t_start = time.perf_counter()
+  # 1. the card
+  card = card_line()
+  log(card)
+  kind = torch.cuda.get_device_name(0)
+  log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
+
+  # 2. build
+  build_s = _build.build()
+  log(f"build: {build_s:.2f} s")
+  for name, text in _build.build_log.items():
+    for line in text.splitlines():
+      if "registers" in line or "spill" in line or "error" in line:
+        log(f"  {name}: {line.strip()}")
+
+  # 3. kernel vs plain
+  kres = check_sampler(torch, device)
+
+  # 4. main path
+  env, last_action, sps, launches, _ = run_sync(
+    torch, envpool_torch, sampler, device, MAIN_STEPS, SEED + 1
+  )
+  log(f"main path: {N_ENVS} envs, reset + {MAIN_STEPS} steps, "
+      f"{sps:.1f} env-steps/s via make_gymnasium step (host copies), "
+      f"sampler launches {launches} [{card}]")
+  _, _, sps64, launches64, resets = run_sync(
+    torch, envpool_torch, sampler, device, 150, SEED + 4, max_episode_steps=64
+  )
+  assert resets.min() >= 2, f"a lane auto-reset {resets.min()} times"
+  log(f"auto-reset pool: max_episode_steps=64, 150 steps, every lane reset "
+      f">= {resets.min()} times, {sps64:.1f} env-steps/s, launches {launches64}")
+  launches_async = run_async(envpool_torch, sampler, device)
+  log(f"async pool: batch 256 of {N_ENVS}, 20 recv/send, launches {launches_async}")
+  sps_xla, launches_xla = run_functional(torch, env, sampler)
+  log(f"xla() loop: 100 steps + commit, {sps_xla:.1f} env-steps/s on the device "
+      f"(no host copies of outputs), launches {launches_xla} [{card}]")
+
+  busy_us, rows = profile_steps(torch, env)
+  step_us = 1e6 * N_ENVS / sps_xla
+  if busy_us > 0:
+    log(f"profile: xla() step of {N_ENVS} envs, device kernels "
+        f"{busy_us:.1f} us per step in {sum(r[2] for r in rows):.0f} launches; "
+        f"untraced step {step_us:.1f} us, so the device idles "
+        f"{100 * (1 - busy_us / step_us):.1f}% [{card}]")
+    for name, us, count in rows[:12]:
+      log(f"  {us:9.1f} us/step {count:6.1f} launches/step  {name[:100]}")
+  else:
+    log("profile: the profiler saw no device time (not measured)")
+
+  # 5. card vs CPU port
+  cmp = card_vs_cpu(envpool_torch, env, last_action)
+  log(f"card vs cpu port, one step of {N_ENVS} envs: obs equal "
+      f"{cmp['obs_equal']:.6f}, reward max err {cmp['reward_max_err']:.3g}, "
+      f"pos max err {cmp['pos_max_err']:.3g}, integer fields exact")
+
+  # 6. results
+  log(f"total {time.perf_counter() - t_start:.1f} s")
+  kernel = {
+    "name": "car_racing_sampler",
+    "route": "cuda",
+    "source": "envpool_torch/csrc/car_racing_sampler.cu",
+    "replaces": "envpool_tpu/envs/box2d/car_racing.py:532",
+    "launches": launches,
+    "max_abs_err": kres["max_abs_err"],
+    "ms": kres["ms"],
+    "plain_ms": kres["plain_ms"],
+    "bound_ms": kres["bound_ms"],
+    "bound_by": kres["bound_by"],
+    "library_ms": None,
+    "unit": "one render: one fine (S=384) + one coarse (S=256) launch, N=1024",
+    **{k: v for k, v in kres.items() if k.endswith(("_fine", "_coarse"))},
+  }
+  log(json.dumps({"kernels": [kernel]}))
+  log(json.dumps({
+    "ok": True,
+    "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},
+  }))
+  return 0
+
+
+if __name__ == "__main__":
+  sys.exit(main())

@@ -1,0 +1,448 @@
+"""TorchEnvPool — the batched execution engine of the port.
+
+Counterpart of ``envpool_tpu/core/pool.py::TpuEnvPool``. Env state is a dict
+of ``[num_envs, ...]`` tensors on one device; one ``advance`` steps every
+lane with the family's batched functions, auto-reset is a per-lane select
+on the done flags, and partial batches are env-id masks. PyTorch runs
+eagerly, so the three entry points of the JAX package (full advance,
+masked advance, forced reset) are plain methods over the same ``advance``.
+
+Semantics reproduced exactly (see tests/test_torch_*.py):
+- auto-reset: a done env's next scheduled step becomes Reset
+  (``envpool/core/env.h:162-172``), producing a FIRST timestep with
+  reward 0, done False, elapsed_step 0.
+- common field writes: done / discount=(1-done) / step_type FIRST=0 MID=1
+  LAST=2 / trunc = done && elapsed >= max_episode_steps / info:env_id /
+  elapsed_step (``envpool/core/env.h:196-222``).
+- sync mode: batch_size == num_envs steps all envs in lockstep; sending a
+  subset of env_id steps only those.
+- async mode (batch_size < num_envs): ``send(action, env_id)`` enqueues a
+  masked step for that cohort on the device stream, the result is queued,
+  and ``recv`` pops in FIFO order.
+- per-env RNG: key_i = fold_in(PRNGKey(seed), env_id) with the threefry
+  port (``prng.py``), so both packages draw the same numbers.
+
+Auto-reset form. ``TpuEnvPool`` wraps the reset in
+``jax.lax.cond(jnp.any(need_reset), ...)``. Here the test is made on the
+host: one device-to-host read of two flags per advance decides whether the
+batch needs the step, the reset, or both. The alternative, computing the
+reset every step and selecting it, would render every CarRacing frame
+twice. Either way the RNG consumption is identical: step and reset share
+the same ``sub`` keys, as in the JAX package.
+
+Not ported yet: multiplayer pools, container-typed state fields and the
+env-side auto-reset families (``env_resets``) raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from collections import deque, namedtuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from . import prng
+from .env import FuncEnv
+from .env_spec import EnvSpec
+from .spec import ContainerSpec
+
+# Pool-level per-env bookkeeping carried between steps. ``env`` is the
+# batched env-state dict; ``rng`` the [N, 2] int64 threefry keys; ``done``
+# means "this lane auto-resets on its next scheduled step".
+PoolState = namedtuple("PoolState", ["env", "rng", "elapsed", "done"])
+
+# The functional interface returned by ``xla()``: the handle carries the
+# pool state plus the most recent batch of outputs, so ``recv`` is pure.
+XlaHandle = namedtuple("XlaHandle", ["pool", "out"])
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+  """Map ``fn`` over the leaves of dict/namedtuple trees of equal shape."""
+  if isinstance(tree, dict):
+    return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+  if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+    return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+  return fn(tree, *rest)
+
+
+def _select(mask: torch.Tensor, a: Any, b: Any) -> Any:
+  """Per-lane tree select: mask[i] ? a[i] : b[i] with right-broadcast."""
+
+  def sel(x, y):
+    return torch.where(mask.reshape(mask.shape + (1,) * (x.ndim - 1)), x, y)
+
+  return tree_map(sel, a, b)
+
+
+def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
+  """None means the card; asking for the card without one raises."""
+  device = torch.device("cuda" if device is None else device)
+  if device.type == "cuda" and not torch.cuda.is_available():
+    raise RuntimeError(
+      "envpool_torch pools run on CUDA by default and no CUDA device is "
+      "available; pass device='cpu' to run on the CPU"
+    )
+  return device
+
+
+def state_from_numpy(state: Any, device: Union[str, torch.device]) -> PoolState:
+  """A host pool-state tree (``save_state()`` of either package) -> device.
+
+  The JAX package's snapshot is a ``PoolState`` of numpy arrays with the
+  same env-dict keys and uint32 ``[N, 2]`` keys; checkpointers may turn
+  the namedtuple into a dict.
+  """
+  if isinstance(state, dict) and set(state) == set(PoolState._fields):
+    state = PoolState(**state)
+
+  def to_dev(x):
+    x = np.array(x)  # a writable copy: snapshots may be read-only views
+    if x.dtype == np.uint32:
+      x = x.astype(np.int64)
+    return torch.from_numpy(x).to(device)
+
+  return PoolState(
+    env=tree_map(to_dev, state.env),
+    rng=to_dev(np.asarray(state.rng, np.uint32)),
+    elapsed=to_dev(np.asarray(state.elapsed, np.int32)),
+    done=to_dev(np.asarray(state.done, np.bool_)),
+  )
+
+
+def _to_numpy(x: torch.Tensor) -> np.ndarray:
+  return x.detach().cpu().numpy()
+
+
+class TorchEnvPool:
+  """Batched env pool with envpool's send/recv/step/reset API on one device."""
+
+  _spec: EnvSpec
+
+  def __init__(
+    self, spec: EnvSpec, device: Union[None, str, torch.device] = None
+  ) -> None:
+    self._spec = spec
+    self.spec = spec
+    self.device = resolve_device(device)
+    cfg = spec.config
+    self._cfg = cfg
+    self._env_cls: FuncEnv = spec._env_cls
+    self._num_envs = int(cfg.num_envs)
+    self._batch_size = int(cfg.batch_size) or self._num_envs
+    if int(cfg.max_num_players) > 1:
+      raise NotImplementedError(
+        "multiplayer pools (max_num_players > 1) are not ported yet"
+      )
+    if any(isinstance(s, ContainerSpec) for s in spec._state_spec):
+      raise NotImplementedError("container-typed state fields are not ported yet")
+    if getattr(self._env_cls, "env_resets", False):
+      raise NotImplementedError("env-side auto-reset families are not ported yet")
+    self._state_keys: List[str] = spec._state_keys
+    self._env_state_keys = [
+      k for k in self._state_keys
+      if k not in (
+        "info:env_id", "info:players.env_id", "elapsed_step", "done",
+        "reward", "discount", "step_type", "trunc"
+      )
+    ]
+    self._action_keys: List[str] = spec._action_keys
+    self._env_action_keys = [
+      k for k in self._action_keys if k not in ("env_id", "players.env_id")
+    ]
+    n = self._num_envs
+    self._env_ids = torch.arange(n, dtype=torch.int32, device=self.device)
+    self._zero_action = {
+      k: torch.zeros(
+        (n, *spec.action_array_spec[k].static_shape),
+        dtype=_torch_dtype(spec.action_array_spec[k].dtype),
+        device=self.device,
+      )
+      for k in self._env_action_keys
+    }
+    self._state: PoolState = self._init(int(cfg.seed))
+    # FIFO of device output lists pending recv
+    self._pending: deque = deque()
+    self._last_out: Optional[List[torch.Tensor]] = None
+
+  # ------------------------------------------------------------------ engine
+
+  def _init(self, seed: int) -> PoolState:
+    n = self._num_envs
+    base = prng.prng_key(seed, self.device).expand(n, 2)
+    keys = prng.fold_in(base, self._env_ids)
+    keys, sub = _split_keys(keys)
+    return PoolState(
+      env=self._env_cls.init(self._cfg, self._env_ids, sub),
+      rng=keys,
+      elapsed=torch.zeros(n, dtype=torch.int32, device=self.device),
+      # all envs report done so the first scheduled step auto-resets
+      done=torch.ones(n, dtype=torch.bool, device=self.device),
+    )
+
+  def _unpack_action(self, action_full: Dict[str, torch.Tensor]) -> Any:
+    if len(self._env_action_keys) == 1:
+      return action_full[self._env_action_keys[0]]
+    return action_full
+
+  def _advance(
+    self,
+    ps: PoolState,
+    action_full: Dict[str, torch.Tensor],
+    mask: Optional[torch.Tensor],
+    force_reset: bool,
+  ) -> Tuple[PoolState, List[torch.Tensor]]:
+    env_cls, cfg, n = self._env_cls, self._cfg, self._num_envs
+    rng, sub = _split_keys(ps.rng)
+    if force_reset:
+      need_reset = torch.ones(n, dtype=torch.bool, device=self.device)
+      run_step, run_reset = False, True
+    else:
+      need_reset = ps.done
+      live = need_reset if mask is None else need_reset & mask
+      stepping = ~need_reset if mask is None else ~need_reset & mask
+      # the host-side counterpart of the JAX package's lax.cond: one read
+      run_step, run_reset = (
+        bool(v) for v in torch.stack([stepping.any(), live.any()]).tolist()
+      )
+      run_step = run_step or not run_reset
+
+    if run_step:
+      st_env, st_obs, st_rew, st_term, st_info = env_cls.step(
+        cfg, ps.env, self._unpack_action(action_full), sub
+      )
+    if run_reset:
+      rs_env, rs_obs, rs_info = env_cls.reset(cfg, ps.env, sub)
+      if run_step:
+        env2 = _select(need_reset, rs_env, st_env)
+        obs = _select(need_reset, rs_obs, st_obs)
+        info = _select(need_reset, rs_info, st_info)
+      else:
+        # every lane that matters resets: the step's values are all
+        # discarded by the selects below, so it is not computed
+        env2, obs, info = rs_env, rs_obs, rs_info
+        st_rew = torch.zeros(n, dtype=torch.float32, device=self.device)
+        st_term = torch.zeros(n, dtype=torch.bool, device=self.device)
+    else:
+      env2, obs, info = st_env, st_obs, st_info
+    info = dict(info)
+
+    elapsed = torch.where(need_reset, 0, ps.elapsed + 1).to(torch.int32)
+    cap = env_cls.episode_cap(cfg, env2)
+    term = torch.where(need_reset, False, st_term.to(torch.bool))
+    done = torch.where(need_reset, False, term | (elapsed >= cap))
+    trunc = done & (elapsed >= cap)
+    reward = torch.where(need_reset, 0.0, st_rew).to(torch.float32)
+    step_type = torch.where(
+      need_reset, 0, torch.where(done, 2, 1)
+    ).to(torch.int32)
+    discount = (~done).to(torch.float32)
+    if "discount" in info:
+      # reserved info key: the env supplies its own discount
+      discount = info.pop("discount").to(torch.float32)
+
+    if mask is not None:
+      env2 = _select(mask, env2, ps.env)
+      rng = torch.where(mask[:, None], rng, ps.rng)
+      elapsed2 = torch.where(mask, elapsed, ps.elapsed)
+      done2 = torch.where(mask, done, ps.done)
+    else:
+      elapsed2, done2 = elapsed, done
+    new_ps = PoolState(env=env2, rng=rng, elapsed=elapsed2, done=done2)
+
+    out: Dict[str, torch.Tensor] = {
+      "info:env_id": self._env_ids,
+      "info:players.env_id": self._env_ids,
+      "elapsed_step": elapsed,
+      "done": done,
+      "reward": reward,
+      "discount": discount,
+      "step_type": step_type,
+      "trunc": trunc,
+    }
+    for k in self._env_state_keys:
+      if k == "obs":
+        out[k] = obs
+      elif k.startswith("obs:"):
+        out[k] = obs[k[4:]]
+      elif k.startswith("info:"):
+        out[k] = info[k[5:]]
+      else:  # bare env-specific top-level key
+        out[k] = info[k]
+    return new_ps, [out[k] for k in self._state_keys]
+
+  def _mask(self, env_id: torch.Tensor) -> torch.Tensor:
+    mask = torch.zeros(self._num_envs, dtype=torch.bool, device=self.device)
+    mask[env_id] = True
+    return mask
+
+  def _advance_masked(
+    self,
+    ps: PoolState,
+    action_b: Dict[str, torch.Tensor],
+    env_id: torch.Tensor,
+  ) -> Tuple[PoolState, List[torch.Tensor]]:
+    action_full = {}
+    for k in self._env_action_keys:
+      action_full[k] = self._zero_action[k].clone()
+      action_full[k][env_id] = action_b[k].to(action_full[k].dtype)
+    new_ps, outs = self._advance(ps, action_full, self._mask(env_id), False)
+    return new_ps, [o[env_id] for o in outs]
+
+  def _reset_masked(
+    self, ps: PoolState, env_id: torch.Tensor
+  ) -> Tuple[PoolState, List[torch.Tensor]]:
+    mask = self._mask(env_id)
+    # force-reset only masked lanes: merge into pool done flag first
+    forced = ps._replace(done=ps.done | mask)
+    new_ps, outs = self._advance(forced, self._zero_action, mask, False)
+    return new_ps, [o[env_id] for o in outs]
+
+  # ----------------------------------------------------------- low-level API
+
+  def _send(self, action_list: List[np.ndarray]) -> None:
+    """Enqueue one masked/full step for the given action batch.
+
+    ``action_list`` is ordered by ``_action_keys`` (env_id, players.env_id,
+    *env actions), the layout produced by ``EnvPoolMixin._from``.
+    """
+    adict = dict(zip(self._action_keys, action_list))
+    env_id = np.asarray(adict["env_id"])
+    action_b = {
+      k: torch.as_tensor(np.asarray(adict[k])).to(self.device)
+      for k in self._env_action_keys
+    }
+    if len(env_id) == self._num_envs and np.array_equal(
+      env_id, np.arange(self._num_envs, dtype=env_id.dtype)
+    ):
+      self._state, outs = self._advance(self._state, action_b, None, False)
+      self._pending.append(outs)
+    else:
+      dev_env_id = torch.as_tensor(env_id, dtype=torch.int64).to(self.device)
+      self._state, outs = self._advance_masked(
+        self._state, action_b, dev_env_id
+      )
+      self._pending.append(outs)
+    self._last_out = outs
+
+  def _recv(self) -> List[np.ndarray]:
+    """Pop the oldest pending batch and transfer it to host."""
+    if not self._pending:
+      raise RuntimeError("recv called with no pending send/reset")
+    return [_to_numpy(o) for o in self._pending.popleft()]
+
+  def _reset(self, env_id: np.ndarray) -> None:
+    """Enqueue a forced reset for the given env ids.
+
+    In async mode the ids are split into batch_size cohorts so each recv
+    returns one batch, matching the reference's StateBufferQueue.
+    """
+    env_id = np.asarray(env_id, dtype=np.int32)
+    if len(env_id) == self._num_envs and self._batch_size == self._num_envs:
+      self._state, outs = self._advance(
+        self._state, self._zero_action, None, True
+      )
+      self._pending.append(outs)
+      self._last_out = outs
+      return
+    bs = self._batch_size
+    for i in range(0, len(env_id), bs):
+      chunk = env_id[i:i + bs]
+      dev = torch.as_tensor(chunk, dtype=torch.int64).to(self.device)
+      self._state, outs = self._reset_masked(self._state, dev)
+      self._pending.append(outs)
+      self._last_out = outs
+
+  # -------------------------------------------------------------- functional
+
+  def xla(self) -> Tuple[XlaHandle, Callable, Callable, Callable]:
+    """Return ``(handle, recv, send, step)``: pure functions over a handle.
+
+    Counterpart of ``TpuEnvPool.xla``. The handle holds the pool state as
+    device tensors, so a rollout loop keeps everything on the device:
+
+      handle = send(handle, action, env_id=None)
+      handle, states = recv(handle)
+      handle, states = step(handle, action, env_id=None)
+
+    The handle is a snapshot: host-API sends after ``xla()`` do not affect
+    it, and its steps do not affect the host pool until ``commit``.
+    """
+    env_action_keys = self._env_action_keys
+    device = self.device
+
+    def _adict(action: Any) -> Dict[str, torch.Tensor]:
+      if not isinstance(action, dict):
+        action = {env_action_keys[0]: action}
+      return {
+        k: torch.as_tensor(action[k]).to(device) for k in env_action_keys
+      }
+
+    def send(handle: XlaHandle, action: Any, env_id=None) -> XlaHandle:
+      action_b = _adict(action)
+      if env_id is None:
+        new_ps, outs = self._advance(handle.pool, action_b, None, False)
+      else:
+        env_id = torch.as_tensor(env_id).to(device=device, dtype=torch.int64)
+        new_ps, outs = self._advance_masked(handle.pool, action_b, env_id)
+      return XlaHandle(pool=new_ps, out=tuple(outs))
+
+    def recv(handle: XlaHandle) -> Tuple[XlaHandle, Tuple[torch.Tensor, ...]]:
+      return handle, handle.out
+
+    def step(handle: XlaHandle, action: Any, env_id=None):
+      return recv(send(handle, action, env_id))
+
+    if self._last_out is not None and len(
+      self._last_out[0]
+    ) == self._batch_size:
+      out0 = tuple(self._last_out)
+    else:
+      # zero-filled output slot shaped like one recv batch
+      out0 = tuple(
+        torch.zeros(
+          (self._batch_size, *s.static_shape), dtype=_torch_dtype(s.dtype),
+          device=device,
+        )
+        for s in self._spec._state_spec
+      )
+    pool0 = tree_map(torch.clone, self._state)
+    return XlaHandle(pool=pool0, out=out0), recv, send, step
+
+  def commit(self, handle: XlaHandle) -> None:
+    """Adopt an ``xla()`` handle's pool state as the host-side state."""
+    self._state = tree_map(torch.clone, handle.pool)
+    self._pending.clear()
+    self._last_out = None
+
+  # --------------------------------------------------------------- properties
+
+  @property
+  def config(self) -> Dict[str, Any]:
+    return dict(zip(self._spec._config_keys, self._spec._config_values))
+
+  def save_state(self) -> PoolState:
+    """Snapshot the pool state as numpy arrays, laid out like the JAX
+    package's ``save_state()`` (uint32 keys), so either package loads it."""
+    st = self._state
+    return PoolState(
+      env=tree_map(_to_numpy, st.env),
+      rng=_to_numpy(st.rng).astype(np.uint32),
+      elapsed=_to_numpy(st.elapsed),
+      done=_to_numpy(st.done),
+    )
+
+  def load_state(self, state: Any) -> None:
+    """Restore a snapshot produced by ``save_state`` of either package."""
+    self._state = state_from_numpy(state, self.device)
+    self._pending.clear()
+
+
+def _split_keys(rng: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Advance a [N, 2] batch of keys, returning (carry, use)."""
+  both = prng.split(rng, 2)
+  return both[:, 0], both[:, 1]
+
+
+def _torch_dtype(dtype: Any) -> torch.dtype:
+  return torch.from_numpy(np.zeros((), dtype=dtype)).dtype

@@ -1,0 +1,116 @@
+"""Threefry-2x32 counter-based PRNG, bit-compatible with ``jax.random``.
+
+A port of jax 0.9.0's default key stream (``jax/_src/prng.py``:
+``threefry_2x32``, ``threefry_seed``, ``threefry_fold_in``,
+``_threefry_split_foldlike``, ``_threefry_random_bits_partitionable``; and
+``jax/_src/random.py::_randint``) under ``jax_threefry_partitionable=True``,
+that jax's default. The JAX package derives per-env keys with it
+(``pool.py``) and families draw from it (``car_racing.py`` picks the track
+with ``randint``), so the port must reproduce it bit for bit to start from
+the same seed in the same state.
+
+Keys are raw ``[..., 2]`` tensors of uint32 values held in ``int64``
+(torch's uint32 has no arithmetic on every device); all arithmetic is done
+in int64 and masked to 32 bits, so the functions run unchanged on CPU and
+CUDA tensors. Every function is batched over leading dimensions: the
+``vmap`` of the JAX package becomes a batch dimension.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple, Union
+
+import torch
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
+  return ((x << d) | (x >> (32 - d))) & _M32
+
+
+def threefry2x32(
+  k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+  """The Threefry-2x32 hash (20 rounds), broadcasting over all inputs."""
+  ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+  x = [(x1 + ks[0]) & _M32, (x2 + ks[1]) & _M32]
+  for i in range(5):
+    for r in _ROTATIONS[i % 2]:
+      x[0] = (x[0] + x[1]) & _M32
+      x[1] = _rotl(x[1], r) ^ x[0]
+    x[0] = (x[0] + ks[(i + 1) % 3]) & _M32
+    x[1] = (x[1] + ks[(i + 2) % 3] + i + 1) & _M32
+  return x[0], x[1]
+
+
+def prng_key(seed: int, device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+  """``jax.random.PRNGKey(seed)`` for an int32-range seed: ``[2]`` int64."""
+  seed = int(seed)
+  # 32-bit mode: the seed is an int32, its high word shifts out to 0
+  return torch.tensor([0, seed & _M32], dtype=torch.int64, device=device)
+
+
+def fold_in(keys: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+  """``jax.random.fold_in`` batched: keys ``[..., 2]``, data ``[...]``."""
+  data = torch.as_tensor(data, device=keys.device).to(torch.int64) & _M32
+  b1, b2 = threefry2x32(
+    keys[..., 0], keys[..., 1], torch.zeros_like(data), data
+  )
+  return torch.stack([b1, b2], dim=-1)
+
+
+def _iota_counts(batch: Sequence[int], shape: Sequence[int], device):
+  n = 1
+  for s in shape:
+    n *= int(s)
+  lo = torch.arange(n, dtype=torch.int64, device=device).reshape(tuple(shape))
+  lo = lo.reshape((1,) * len(batch) + tuple(shape))
+  return torch.zeros_like(lo), lo
+
+
+def _bits_pair(keys: torch.Tensor, shape: Sequence[int]):
+  """The two threefry output words for counters 0..prod(shape)-1."""
+  shape = tuple(int(s) for s in shape)
+  batch = keys.shape[:-1]
+  hi, lo = _iota_counts(batch, shape, keys.device)
+  k1 = keys[..., 0].reshape(batch + (1,) * len(shape))
+  k2 = keys[..., 1].reshape(batch + (1,) * len(shape))
+  return threefry2x32(k1, k2, hi, lo)
+
+
+def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
+  """``jax.random.split(key, num)`` batched: ``[..., 2] -> [..., num, 2]``."""
+  b1, b2 = _bits_pair(keys, (num,))
+  return torch.stack([b1, b2], dim=-1)
+
+
+def random_bits(keys: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
+  """32-bit ``jax.random.bits`` batched: ``[..., 2] -> [..., *shape]``."""
+  b1, b2 = _bits_pair(keys, shape)
+  return b1 ^ b2
+
+
+def randint(
+  keys: torch.Tensor, shape: Sequence[int], minval: int, maxval: int
+) -> torch.Tensor:
+  """``jax.random.randint(key, shape, minval, maxval)`` (int32) batched.
+
+  Same algorithm as ``jax/_src/random.py::_randint``: two 32-bit draws
+  from the halves of ``split(key)``, combined modulo the span.
+  """
+  i32 = torch.iinfo(torch.int32)
+  lo = max(min(int(minval), i32.max), i32.min)
+  hi = max(min(int(maxval), i32.max), i32.min)
+  sub = split(keys, 2)
+  higher = random_bits(sub[..., 0, :], shape)
+  lower = random_bits(sub[..., 1, :], shape)
+  span = (hi - lo) & _M32 if hi > lo else 1
+  multiplier = (2**16) % span
+  multiplier = ((multiplier * multiplier) & _M32) % span
+  offset = ((higher % span) * multiplier + (lower % span)) & _M32
+  offset = offset % span
+  out = (lo + offset) & _M32
+  out = torch.where(out >= 2**31, out - 2**32, out)
+  return out.to(torch.int32)

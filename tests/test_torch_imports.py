@@ -1,0 +1,56 @@
+"""The port stands alone: it imports without jax (and without optree,
+gymnasium and dm_env), and no file of it imports jax or envpool_tpu."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_CHILD = """
+import sys
+for name in ("jax", "jaxlib", "optree", "gymnasium", "dm_env", "envpool_tpu"):
+  sys.modules[name] = None
+import numpy as np
+import envpool_torch
+assert envpool_torch.list_all_envs() == ["CarRacing-v2"]
+env = envpool_torch.make_gymnasium(
+  "CarRacing-v2", num_envs=2, seed=0, n_tracks=1, device="cpu"
+)
+obs, info = env.reset()
+assert obs.shape == (2, 96, 96, 3), obs.shape
+obs, rew, term, trunc, info = env.step(np.zeros((2, 3), np.float32))
+assert info["elapsed_step"].tolist() == [1, 1]
+print("ok")
+"""
+
+
+def test_imports_without_jax():
+  env = dict(os.environ, PYTHONPATH=str(ROOT))
+  res = subprocess.run(
+    [sys.executable, "-c", _CHILD], cwd=ROOT, env=env, capture_output=True,
+    text=True, timeout=240,
+  )
+  assert res.returncode == 0, res.stderr
+  assert res.stdout.strip().endswith("ok")
+
+
+def _imported_roots(path: Path):
+  tree = ast.parse(path.read_text(), filename=str(path))
+  for node in ast.walk(tree):
+    if isinstance(node, ast.Import):
+      for alias in node.names:
+        yield alias.name.split(".")[0]
+    elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+      yield node.module.split(".")[0]
+
+
+def test_no_jax_or_reference_imports():
+  files = sorted((ROOT / "envpool_torch").rglob("*.py"))
+  files.append(ROOT / "chip_smoke.py")
+  assert len(files) > 10
+  for path in files:
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "envpool_tpu", "optree"}, path
