@@ -12,10 +12,10 @@ Tracks are a host-generated bank (``car_track.py``, numpy). The render's
 two background banks, the four pre-rotated copies of every track's fine
 1024^2 bitmap and of its zero-padded 256^2 coarse mipmap, are built once
 per (seed, n_tracks, device) as uint8 palette+1 (0 = black): 32 MiB and
-2 MiB at the default 8 tracks. Every render samples both banks with the
-background sampler (``sampler.py``: a CUDA kernel on the card), two
-launches per render, and keeps the fine sample once the first-second zoom
-animation is over.
+2 MiB at the default 8 tracks. Every render's background comes from one
+call of the background sampler (``sampler.py``: one CUDA kernel launch on
+the card), which takes the coarse bank during the first-second zoom
+animation and the fine bank after it, per env, and applies the palette.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from envpool_torch.core.spec import ArraySpec
 
 from . import car_track
 from .car_track import BITMAP_RES, COARSE_RES, PALETTE, PLAYFIELD, SCALE
-from .sampler import fused_sample
+from .sampler import fused_background
 
 FPS = 50.0
 DT = 1.0 / FPS
@@ -414,8 +414,7 @@ def _mv(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
   return a[:, :, 0] * v[:, None, 0] + a[:, :, 1] * v[:, None, 1]
 
 
-def _sample_rotated(
-  bank_rot: torch.Tensor,   # [4*T*S, S] uint8 palette+1 bank (0 = black)
+def _rotated_inputs(
   n_tracks: int,
   track_id: torch.Tensor,   # [N] int32
   s_full: int,              # per-track bitmap size S in the bank
@@ -426,8 +425,9 @@ def _sample_rotated(
   pivot: torch.Tensor,      # rotation pivot in full coords [N, 2]
   quad_b: torch.Tensor,     # [4, 2] offsets of the rot90 maps for s_full
   quad_a: torch.Tensor,     # [4, 2, 2]
-) -> torch.Tensor:
-  """96x96 nearest sampling along the affine p -> M p + q0 (batched port of
+) -> Tuple[torch.Tensor, ...]:
+  """One path's sampler inputs ``(scal, s1, s2, s3, s4, rows, cols)`` for
+  96x96 nearest sampling along the affine p -> M p + q0 (batched port of
   the JAX package's ``_sample_rotated``): pick the pre-rotated quadrant
   bank, window around the mapped pivot at (8, 128)-aligned offsets, factor
   the residual |angle| <= 45 deg rotation into integer shears, and let the
@@ -484,20 +484,11 @@ def _sample_rotated(
     torch.div(flat_row, 8, rounding_mode="floor"),
     torch.div(ws[:, 1], 128, rounding_mode="floor"),
   ], dim=-1).to(torch.int32)
-  return fused_sample(bank_rot, scal, s1, s2, s1, s4, rows, cols)
+  return scal, s1, s2, s1, s4, rows, cols
 
 
-def _render_v2(
-  bank, n_tracks, track_id, pos, vel, angle, omega, joint_angle,
-  wheel_omega, t,
-) -> torch.Tensor:
-  """Batched gather-free 96x96x3 render (``_render_v2_impl`` of the JAX
-  package): the background from the fine bank (steady zoom) or the coarse
-  mipmap (first-second zoom animation), then the car and indicator
-  overlays."""
-  dev = pos.device
-  n = pos.shape[0]
-  k = _constants(dev)
+def _view(pos: torch.Tensor, angle: torch.Tensor, t: torch.Tensor):
+  """The render's view: (zoom, cos, sin of the view angle, translation)."""
   zoom = (
     0.1 * SCALE * torch.clamp(1.0 - t, min=0.0)
     + ZOOM * SCALE * torch.clamp(t, max=1.0)
@@ -506,19 +497,27 @@ def _render_v2(
   cv, sv = torch.cos(-angle), torch.sin(-angle)   # rot_v = [[cv,-sv],[sv,cv]]
   trans0 = cv * scroll[:, 0] + (-sv) * scroll[:, 1] + WINDOW_W / 2.0
   trans1 = sv * scroll[:, 0] + cv * scroll[:, 1] + WINDOW_H / 4.0
+  return zoom, cv, sv, trans0, trans1
 
-  def world_of(x_s, y_s, shape):
-    # (window px - trans) / zoom, times rot_v from the right
-    tr0, tr1, zm = (v.reshape(shape) for v in (trans0, trans1, zoom))
-    c, s = cv.reshape(shape), sv.reshape(shape)
-    sx = (x_s - tr0) / zm
-    sy = (y_s - tr1) / zm
-    return sx * c + sy * s, sx * (-s) + sy * c
+
+def _world_of(view, x_s, y_s, shape):
+  """Window pixel -> world: (window px - trans) / zoom, times rot_v from
+  the right; the per-env view reshaped to ``shape``."""
+  zoom, cv, sv, trans0, trans1 = (v.reshape(shape) for v in view)
+  sx = (x_s - trans0) / zoom
+  sy = (y_s - trans1) / zoom
+  return sx * cv + sy * sv, sx * (-sv) + sy * cv
+
+
+def _background_inputs(bank, n_tracks, track_id, pos, view):
+  n = pos.shape[0]
+  dev = pos.device
+  k = _constants(dev)
 
   def bm_coords(i, j, res):
     x_s = (j + 0.5) * (WINDOW_W / STATE_W)
     y_s = WINDOW_H - (i + 0.5) * (WINDOW_H / STATE_H)
-    w0, w1 = world_of(x_s, y_s, (n,))
+    w0, w1 = _world_of(view, x_s, y_s, (n,))
     return torch.stack([(w1 + PLAYFIELD) / res, (w0 + PLAYFIELD) / res], -1)
 
   res_f = 2 * PLAYFIELD / BITMAP_RES
@@ -531,10 +530,10 @@ def _render_v2(
   center = torch.stack([
     (pos[:, 1] + PLAYFIELD) / res_f, (pos[:, 0] + PLAYFIELD) / res_f
   ], -1)
-  idx_fine = _sample_rotated(
-    bank["fine"], n_tracks, track_id, BITMAP_RES, FINE_WIN, m_i, m_j, q00,
-    center, k["quad_b_fine"], k["quad_a"],
-  )
+  fine = (bank["fine"], *_rotated_inputs(
+    n_tracks, track_id, BITMAP_RES, FINE_WIN, m_i, m_j, q00, center,
+    k["quad_b_fine"], k["quad_a"],
+  ))
 
   # coarse path: whole playfield mipmap, zero-padded to 256, pivot at the
   # map center
@@ -542,22 +541,51 @@ def _render_v2(
   m_ic = bm_coords(1.0, 0.0, res_c) - q00c
   m_jc = bm_coords(0.0, 1.0, res_c) - q00c
   pad_c = (COARSE_WIN - COARSE_RES) // 2
-  idx_coarse = _sample_rotated(
-    bank["coarse"], n_tracks, track_id, COARSE_WIN, COARSE_WIN, m_ic, m_jc,
-    q00c + pad_c,
+  coarse = (bank["coarse"], *_rotated_inputs(
+    n_tracks, track_id, COARSE_WIN, COARSE_WIN, m_ic, m_jc, q00c + pad_c,
     torch.full((n, 2), (COARSE_WIN - 1) / 2.0, device=dev),
     k["quad_b_coarse"], k["quad_a"],
-  )
+  ))
 
   # steady zoom covers <= 192 * res_f meters per axis; else coarse
+  zoom = view[0]
   view_w = torch.div(
     torch.full_like(zoom, STATE_W * (WINDOW_W / STATE_W)), zoom
   )
   use_fine = view_w * 1.5 < 192 * res_f
-  color_idx1 = torch.where(use_fine[:, None, None], idx_fine, idx_coarse)
-  img = k["palette1"][color_idx1.long()]                   # [N, 96, 96, 3]
+  return fine, coarse, use_fine
 
-  world = world_of(k["x_s"], k["y_s"], (n, 1, 1))
+
+def background_inputs(
+  seed: int, n_tracks: int, st: Dict[str, torch.Tensor]
+) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...], torch.Tensor]:
+  """The background kernel's inputs for the render of env state ``st`` (its
+  ``track_id``, ``pos``, ``angle`` and ``t``) on ``st``'s device: the fine
+  and coarse paths ``(bank, scal, s1, s2, s3, s4, rows, cols)`` and the
+  per-env ``use_fine``. ``sampler.fused_background`` of these is the
+  render's background before the overlays."""
+  pos = st["pos"]
+  bank = _device_bank(int(seed), int(n_tracks), pos.device)
+  view = _view(pos, st["angle"], st["t"])
+  return _background_inputs(bank, int(n_tracks), st["track_id"], pos, view)
+
+
+def _render_v2(
+  bank, n_tracks, track_id, pos, vel, angle, omega, joint_angle,
+  wheel_omega, t,
+) -> torch.Tensor:
+  """Batched gather-free 96x96x3 render (``_render_v2_impl`` of the JAX
+  package): the background from the fine bank (steady zoom) or the coarse
+  mipmap (first-second zoom animation), chosen per env inside one kernel
+  launch, then the car and indicator overlays."""
+  n = pos.shape[0]
+  k = _constants(pos.device)
+  view = _view(pos, angle, t)
+  fine, coarse, use_fine = _background_inputs(
+    bank, n_tracks, track_id, pos, view
+  )
+  img = fused_background(fine, coarse, use_fine, k["palette1"])  # [N,96,96,3]
+  world = _world_of(view, k["x_s"], k["y_s"], (n, 1, 1))
   return _overlays(
     img, world, k["y_png"], k["x_s"], pos, vel, angle, omega, joint_angle,
     wheel_omega,

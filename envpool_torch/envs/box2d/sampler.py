@@ -1,33 +1,44 @@
-"""CarRacing background sampler: the CUDA kernel's wrapper and plain version.
+"""CarRacing background: the CUDA kernel's wrapper and plain version.
 
 Replaces ``envpool_tpu/envs/box2d/car_racing.py``'s ``_fused_render_kernel``,
-``_fused_sample_batched`` and ``_fused_sample``. The function, for env e and
-output pixel (i, j), in closed form (see ``csrc/car_racing_sampler.cu``):
+``_fused_sample_batched`` and ``_fused_sample``, with the path select and
+palette of ``_render_v2_impl`` (``:827-835``). One path's sampler, for env e
+and output pixel (i, j), in closed form (see ``csrc/car_racing_sampler.cu``):
 
   r, c = rows[e, i], cols[e, j]; 0 if either lies outside [0, S)
   r = (r - s4[e, c]) mod S;  c = (c - s3[e, r]) mod S
   r = (r - s2[e, c]) mod S;  c = (c - s1[e, r]) mod S
-  out[e, i, j] = bank[8 * scal[e, 0] + r, 128 * scal[e, 1] + c]
+  idx[e, i, j] = bank[8 * scal[e, 0] + r, 128 * scal[e, 1] + c]
 
-``bank`` is the uint8 palette+1 track bank (0 = black), so the output is a
-uint8 palette+1 index. An env whose window does not lie inside the bank
-gets 0 everywhere (both versions), so no read leaves the bank.
+``bank`` is the uint8 palette+1 track bank (0 = black), so ``idx`` is a
+palette+1 index. An env whose window does not lie inside the bank gets 0
+everywhere (both versions), so no read leaves the bank. The background of a
+render takes, per env, the fine path's ``idx`` where ``use_fine`` and the
+coarse path's elsewhere, and looks it up in ``palette`` (``[P, 3]`` uint8,
+an index >= P is black): ``[N, H, W, 3]`` uint8.
+
+A path is the tuple ``(bank, scal, s1, s2, s3, s4, rows, cols)``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Sequence
 
 import torch
 
 from envpool_torch import _build
+
+H = W = 96          # the kernel's output size (a compile-time constant there)
+MAX_WINDOW = 4096   # the kernel keeps 4 int16 shift rows of S in shared memory
+MAX_PALETTE = 256
 
 
 def sample_plain(
   bank: torch.Tensor, scal: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor,
   s3: torch.Tensor, s4: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
 ) -> torch.Tensor:
-  """The sampler in plain PyTorch indexing: ``[N, H, W]`` uint8."""
+  """One path's sampler in plain PyTorch indexing: ``[N, H, W]`` uint8."""
   n, s = s1.shape
   h, w = rows.shape[1], cols.shape[1]
   r = rows.long()[:, :, None].expand(n, h, w)
@@ -51,65 +62,119 @@ def sample_plain(
   return torch.where(inside & window_ok, out, 0).to(torch.uint8)
 
 
+def background_plain(
+  fine: Sequence[torch.Tensor], coarse: Sequence[torch.Tensor],
+  use_fine: torch.Tensor, palette: torch.Tensor,
+) -> torch.Tensor:
+  """The background in plain PyTorch: both paths through ``sample_plain``,
+  the per-env select, the palette lookup. ``[N, H, W, 3]`` uint8."""
+  idx = torch.where(
+    use_fine[:, None, None], sample_plain(*fine), sample_plain(*coarse)
+  ).long()
+  idx = torch.where(idx < palette.shape[0], idx, palette.shape[0])
+  black = torch.zeros((1, 3), dtype=torch.uint8, device=palette.device)
+  return torch.cat([palette, black])[idx]
+
+
+class _Path(ctypes.Structure):
+  """``struct Path`` of ``csrc/car_racing_sampler.cu``."""
+
+  _fields_ = [
+    ("bank", ctypes.c_void_p), ("bank_rows", ctypes.c_longlong),
+    ("bank_cols", ctypes.c_int), ("s", ctypes.c_int),
+    ("scal", ctypes.c_void_p), ("s1", ctypes.c_void_p),
+    ("s2", ctypes.c_void_p), ("s3", ctypes.c_void_p),
+    ("s4", ctypes.c_void_p), ("rows", ctypes.c_void_p),
+    ("cols", ctypes.c_void_p),
+  ]
+
+
 def _kernel():
   """The C entry point of ``csrc/car_racing_sampler.cu``, built at first use."""
-  fn = _build.load("car_racing_sampler").car_racing_sample
+  fn = _build.load("car_racing_sampler").car_racing_background
   if fn.argtypes is None:
-    fn.argtypes = (
-      [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
-      + [ctypes.c_void_p] * 8
-      + [ctypes.c_int] * 4
-      + [ctypes.c_void_p]
-    )
+    fn.argtypes = [
+      ctypes.POINTER(_Path), ctypes.POINTER(_Path), ctypes.c_void_p,
+      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+      ctypes.c_void_p,
+    ]
     fn.restype = ctypes.c_int
   return fn
 
 
-def _check(bank, scal, s1, s2, s3, s4, rows, cols) -> None:
-  tensors = (bank, scal, s1, s2, s3, s4, rows, cols)
-  if any(t.device != bank.device for t in tensors):
-    raise ValueError("sampler inputs must lie on one device")
-  if any(not t.is_contiguous() for t in tensors):
-    raise ValueError("sampler inputs must be contiguous")
-  if bank.dtype != torch.uint8 or bank.ndim != 2:
-    raise ValueError(f"bank must be 2-D uint8, got {bank.dtype} {tuple(bank.shape)}")
-  if any(t.dtype != torch.int32 for t in tensors[1:]):
-    raise ValueError("scal, shifts, rows and cols must be int32")
-  n, s = s1.shape
+def _check_path(name: str, path: Sequence[torch.Tensor], n: int) -> None:
+  if len(path) != 8:
+    raise ValueError(f"{name} must be (bank, scal, s1, s2, s3, s4, rows, cols)")
+  bank, scal, s1, s2, s3, s4, rows, cols = path
+  if bank.dtype != torch.uint8 or bank.ndim != 2 or bank.numel() == 0:
+    raise ValueError(
+      f"{name} bank must be non-empty 2-D uint8, got {bank.dtype} {tuple(bank.shape)}"
+    )
+  if any(t.dtype != torch.int32 for t in path[1:]):
+    raise ValueError(f"{name} scal, shifts, rows and cols must be int32")
+  if s1.ndim != 2 or s1.shape[0] != n:
+    raise ValueError(f"{name} s1 must be [N, S] with N={n}")
+  s = s1.shape[1]
   if scal.shape != (n, 2) or any(t.shape != (n, s) for t in (s2, s3, s4)):
-    raise ValueError("scal must be [N, 2] and s1..s4 [N, S]")
-  if rows.ndim != 2 or cols.ndim != 2 or rows.shape[0] != n or cols.shape[0] != n:
-    raise ValueError("rows must be [N, H] and cols [N, W]")
-  if (4 * s + rows.shape[1] + cols.shape[1]) * 4 > 48 * 1024:
-    raise ValueError(f"window S={s} exceeds the kernel's shared memory")
+    raise ValueError(f"{name} scal must be [N, 2] and s1..s4 [N, S]")
+  if rows.shape != (n, H) or cols.shape != (n, W):
+    raise ValueError(f"{name} rows and cols must be [N, {H}]")
+  if not 0 < s <= MAX_WINDOW or s * bank.shape[1] >= 2**31:
+    raise ValueError(f"{name} window S={s} is outside what the kernel takes")
 
 
-def fused_sample(
-  bank: torch.Tensor, scal: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor,
-  s3: torch.Tensor, s4: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+def _check(fine, coarse, use_fine, palette) -> None:
+  n = use_fine.shape[0]
+  _check_path("fine", fine, n)
+  _check_path("coarse", coarse, n)
+  if use_fine.dtype != torch.bool or use_fine.shape != (n,):
+    raise ValueError("use_fine must be [N] bool")
+  if palette.dtype != torch.uint8 or palette.ndim != 2 or palette.shape[1] != 3:
+    raise ValueError("palette must be [P, 3] uint8")
+  if not 0 < palette.shape[0] <= MAX_PALETTE:
+    raise ValueError(f"palette must have 1..{MAX_PALETTE} entries")
+  tensors = (*fine, *coarse, use_fine, palette)
+  if any(t.device != palette.device for t in tensors):
+    raise ValueError("background inputs must lie on one device")
+  if any(not t.is_contiguous() for t in tensors):
+    raise ValueError("background inputs must be contiguous")
+
+
+def _path_struct(path: Sequence[torch.Tensor]) -> _Path:
+  bank, scal, s1, s2, s3, s4, rows, cols = path
+  return _Path(
+    bank.data_ptr(), bank.shape[0], bank.shape[1], s1.shape[1],
+    *(t.data_ptr() for t in (scal, s1, s2, s3, s4, rows, cols)),
+  )
+
+
+def fused_background(
+  fine: Sequence[torch.Tensor], coarse: Sequence[torch.Tensor],
+  use_fine: torch.Tensor, palette: torch.Tensor,
 ) -> torch.Tensor:
-  """The sampler: the CUDA kernel for CUDA tensors, the plain version for
-  CPU tensors. ``fused_sample.launches`` counts kernel launches."""
-  _check(bank, scal, s1, s2, s3, s4, rows, cols)
-  if bank.device.type == "cpu":
-    return sample_plain(bank, scal, s1, s2, s3, s4, rows, cols)
-  if bank.device.type != "cuda":
-    raise ValueError(f"no sampler kernel for device {bank.device}")
-  n, s = s1.shape
-  h, w = rows.shape[1], cols.shape[1]
-  out = torch.empty((n, h, w), dtype=torch.uint8, device=bank.device)
+  """The background of one render, ``[N, H, W, 3]`` uint8: one CUDA kernel
+  launch for CUDA tensors, the plain version for CPU tensors.
+  ``fused_background.launches`` counts kernel launches."""
+  _check(fine, coarse, use_fine, palette)
+  dev = palette.device
+  if dev.type == "cpu":
+    return background_plain(fine, coarse, use_fine, palette)
+  if dev.type != "cuda":
+    raise ValueError(f"no background kernel for device {dev}")
+  n = use_fine.shape[0]
+  out = torch.empty((n, H, W, 3), dtype=torch.uint8, device=dev)
   fn = _kernel()
-  with torch.cuda.device(bank.device):
+  fine_s, coarse_s = _path_struct(fine), _path_struct(coarse)
+  with torch.cuda.device(dev):
     stream = torch.cuda.current_stream().cuda_stream
     err = fn(
-      bank.data_ptr(), bank.shape[0], bank.shape[1], scal.data_ptr(),
-      s1.data_ptr(), s2.data_ptr(), s3.data_ptr(), s4.data_ptr(),
-      rows.data_ptr(), cols.data_ptr(), out.data_ptr(), n, s, h, w, stream,
+      ctypes.byref(fine_s), ctypes.byref(coarse_s), use_fine.data_ptr(),
+      palette.data_ptr(), palette.shape[0], out.data_ptr(), n, stream,
     )
   if err != 0:
-    raise RuntimeError(f"car_racing_sample launch failed: CUDA error {err}")
-  fused_sample.launches += 1
+    raise RuntimeError(f"car_racing_background launch failed: CUDA error {err}")
+  fused_background.launches += 1
   return out
 
 
-fused_sample.launches = 0
+fused_background.launches = 0
