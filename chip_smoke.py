@@ -22,7 +22,20 @@ Phases (any failure exits non-zero before the result lines):
      kernel's launch count must grow by exactly one per render;
   5. the card against the port on the CPU: the card pool's snapshot loaded
      into a CPU pool, one step each with the same actions;
-  6. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
+  6. Sokoban-v0, the headline workload, at the width ``bench.py`` runs it:
+     ``make_gymnasium("Sokoban-v0", num_envs=16384, max_episode_steps=60,
+     levels_dir="", n_levels_to_load=1024)``, reset + 300 steps of random
+     actions in [-1, 3] (every lane must auto-reset, NaN rewards exactly at
+     the noops), timed through ``step`` and through a 300-step ``xla()``
+     loop; sequential mode on the sample levels (1024 envs, 200 steps: the
+     level indices follow the stream); a 256-env pool of each mode on the
+     card against the CPU port over 200 steps, every output field bit for
+     bit; one ``torch.profiler`` trace of ``xla()`` steps (device time,
+     launches per step, idle share). The Sokoban path has no hand-written
+     kernel (it has no Pallas counterpart; the fused step is queued);
+  7. CartPole-v1 at 8192 envs (``bench.py``'s width), the card against the
+     CPU port step for step, to float tolerance;
+  8. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or outside a checkout, it fails and prints no result.
 """
@@ -359,17 +372,15 @@ def run_functional(torch, env, sampler, steps=100):
   return steps * N_ENVS / secs, sampler.fused_background.launches
 
 
-def profile_steps(torch, env, steps=10):
-  """Trace ``steps`` ``xla()`` steps; returns (device kernel microseconds
-  per step, [(kernel name, us per step, launches per step)], busiest
-  first). Only device-side events count, so nothing is counted twice."""
+def profile_steps(torch, env, acts):
+  """Trace ``len(acts) - 1`` ``xla()`` steps after one untraced step;
+  returns (device kernel microseconds per step, [(kernel name, us per step,
+  launches per step)], busiest first). Only device-side events count, so
+  nothing is counted twice."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
 
-  rng = np.random.default_rng(SEED + 5)
-  acts = torch.from_numpy(
-    np.stack([random_actions(rng, N_ENVS) for _ in range(steps + 1)])
-  ).to(env.device)
+  steps = len(acts) - 1
   handle, _, send, _ = env.xla()
   handle = send(handle, acts[0])
   torch.cuda.synchronize()
@@ -384,6 +395,17 @@ def profile_steps(torch, env, steps=10):
   ]
   rows.sort(key=lambda r: -r[1])
   return sum(r[1] for r in rows), rows
+
+
+def log_profile(name, busy_us, rows, step_us, card) -> None:
+  if busy_us <= 0:
+    log(f"profile: {name}: the profiler saw no device time (not measured)")
+    return
+  log(f"profile: {name}, device kernels {busy_us:.1f} us per step in "
+      f"{sum(r[2] for r in rows):.0f} launches; untraced step {step_us:.1f} "
+      f"us, so the device idles {100 * (1 - busy_us / step_us):.1f}% [{card}]")
+  for kname, us, count in rows[:12]:
+    log(f"  {us:9.1f} us/step {count:6.1f} launches/step  {kname[:100]}")
 
 
 # --------------------------------------------------------------- phase 5
@@ -412,6 +434,204 @@ def card_vs_cpu(envpool_torch, env, action) -> dict:
   np.testing.assert_array_equal(g_st.rng, w_st.rng)
   pos_err = float(np.abs(g_st.env["pos"] - w_st.env["pos"]).max())
   return {"obs_equal": obs_eq, "reward_max_err": rew_err, "pos_max_err": pos_err}
+
+
+# --------------------------------------------------------------- phase 6
+
+SOKOBAN_ENVS = 16384
+SOKOBAN_STEPS = 300
+# bench.py's Sokoban-v0 cell (bench.py:309-317)
+SOKOBAN_KW = dict(max_episode_steps=60, levels_dir="", n_levels_to_load=1024)
+
+
+# one threefry-2x32 block in native 32-bit ops: 20 rounds of add, rotate
+# and xor, and 5 key injections
+THREEFRY_OPS = 120
+# threefry blocks per env in one random-mode step: the pool's split (2),
+# _fresh_episode's split (2), _load_level's split (2), two randint of a
+# split and two single-word draws (2 x 4), the cap's bits (1)
+SOKOBAN_THREEFRY_BLOCKS = 15
+
+
+def sokoban_step_bound(handle, done, action, dim=10):
+  """(byte ms, op ms, bytes) one fused Sokoban step could not go below:
+  the pool state read and written once, the actions read, every output
+  written once, one bank row read per terminal lane of this step; the
+  threefry blocks as 32-bit operations."""
+  from envpool_torch.core.pool import tree_map
+
+  sizes = []
+  tree_map(lambda t: sizes.append(t.numel() * t.element_size()), handle.pool)
+  outs = sum(o.numel() * o.element_size() for o in handle.out)
+  n_bytes = (2 * sum(sizes) + action.numel() * action.element_size() + outs
+             + int(done.sum()) * dim * dim)
+  ops = action.shape[0] * SOKOBAN_THREEFRY_BLOCKS * THREEFRY_OPS
+  return 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * ops / INT_OPS_PER_S, n_bytes
+
+
+def sokoban_levels_dir(envpool_torch) -> str:
+  return os.path.join(
+    os.path.dirname(envpool_torch.__file__), "envs", "sokoban", "sample_levels"
+  )
+
+
+def sokoban_actions(seed: int, steps: int, n: int) -> np.ndarray:
+  """Uniform actions in [-1, 3]: a quarter of them are noops."""
+  return np.random.default_rng(seed).integers(-1, 4, (steps, n)).astype(np.int32)
+
+
+def sokoban_headline(torch, envpool_torch, device, n=SOKOBAN_ENVS,
+                     steps=SOKOBAN_STEPS):
+  """Reset + ``steps`` random steps through ``step`` (outputs copied to the
+  host), then ``steps`` more through the ``xla()`` interface. Returns (env,
+  step-loop env-steps/s, xla() env-steps/s, terminal steps per lane)."""
+  env = envpool_torch.make_gymnasium(
+    "Sokoban-v0", num_envs=n, seed=SEED, device=device, **SOKOBAN_KW
+  )
+  obs, info = env.reset()
+  assert obs.shape == (n, 3, 10, 10) and obs.dtype == np.uint8
+  np.testing.assert_array_equal(info["elapsed_step"], 0)
+  acts = sokoban_actions(SEED + 7, steps, n)
+  dones = np.zeros(n, np.int64)
+  sync(torch, device)
+  t0 = time.perf_counter()
+  for a in acts:
+    obs, rew, term, trunc, info = env.step(a)
+    dones += term | trunc
+    if not np.array_equal(np.isnan(rew), a < 0):
+      raise AssertionError("Sokoban: NaN rewards are not exactly the noops")
+  secs = time.perf_counter() - t0
+  assert obs.shape == (n, 3, 10, 10) and obs.dtype == np.uint8
+  assert np.all(np.abs(rew[a >= 0]) < 15.0)
+  if dones.min() < 1:
+    raise AssertionError(f"Sokoban: {int((dones == 0).sum())} lanes never reset")
+
+  keys = env.spec._state_keys
+  dev_acts = torch.from_numpy(sokoban_actions(SEED + 8, steps, n)).to(device)
+  handle, recv, send, step = env.xla()
+  sync(torch, device)
+  t1 = time.perf_counter()
+  for i in range(steps):
+    handle = send(handle, dev_acts[i])
+  sync(torch, device)
+  secs_xla = time.perf_counter() - t1
+  rew = handle.out[keys.index("reward")].cpu().numpy()
+  np.testing.assert_array_equal(np.isnan(rew), dev_acts[-1].cpu().numpy() < 0)
+  bound = sokoban_step_bound(handle, handle.out[keys.index("done")], dev_acts[-1])
+  env.commit(handle)
+  return env, steps * n / secs, steps * n / secs_xla, dones, bound
+
+
+def sokoban_sequential(torch, envpool_torch, device, n=1024, steps=200):
+  """Sequential mode on the sample levels: lane e's k-th episode plays
+  stream position (e + k * n) mod n_levels, visible from the step that
+  ends episode k - 1 (reset-into-terminal-obs). Returns (env, episodes,
+  env-steps/s of the step loop)."""
+  from envpool_torch.envs.sokoban import level_loader
+
+  levels_dir = sokoban_levels_dir(envpool_torch)
+  bank = level_loader.load_bank(levels_dir, 10)
+  env = envpool_torch.make_gymnasium(
+    "Sokoban-v0", num_envs=n, seed=SEED, device=device,
+    levels_dir=levels_dir, load_sequentially=True,
+  )
+  episode = np.zeros(n, np.int64)
+  lanes = np.arange(n)
+
+  def check(info, t):
+    pos = (lanes + episode * n) % bank.n_levels
+    for key, table in (("level_idx", bank.level_idx),
+                       ("level_file_idx", bank.file_idx)):
+      if not np.array_equal(info[key], table[pos]):
+        raise AssertionError(f"sequential mode, step {t}: {key} off the stream")
+
+  _, info = env.reset()
+  check(info, 0)
+  secs = 0.0
+  for t, a in enumerate(sokoban_actions(SEED + 9, steps, n), 1):
+    t0 = time.perf_counter()
+    _, _, term, trunc, info = env.step(a)
+    secs += time.perf_counter() - t0
+    episode += term | trunc
+    check(info, t)
+  assert episode.min() >= 1, "a lane never finished an episode"
+  return env, int(episode.sum()), steps * n / secs
+
+
+def sokoban_card_vs_cpu(envpool_torch, device, n=256, steps=200) -> dict:
+  """A pool of each level mode on the card and on the CPU, same seed and
+  actions: every output field of reset + ``steps`` steps and the final
+  state equal bit for bit (NaN rewards in the same places)."""
+  modes = {
+    "random": SOKOBAN_KW,
+    "sequential": dict(levels_dir=sokoban_levels_dir(envpool_torch),
+                       load_sequentially=True),
+  }
+  acts = sokoban_actions(SEED + 10, steps, n)
+  res = {}
+  for mode, kw in modes.items():
+    runs = []
+    for dev in (device, "cpu"):
+      env = envpool_torch.make_gymnasium(
+        "Sokoban-v0", num_envs=n, seed=SEED, device=dev, **kw
+      )
+      env.async_reset()
+      outs = [env._recv()]
+      for a in acts:
+        env.send(a)
+        outs.append(env._recv())
+      runs.append((env.spec._state_keys, outs, env.save_state()))
+    (keys, got, g_st), (_, want, w_st) = runs
+    for t, (g, w) in enumerate(zip(got, want)):
+      for k, gv, wv in zip(keys, g, w):
+        assert gv.dtype == wv.dtype, (mode, t, k)
+        np.testing.assert_array_equal(gv, wv, err_msg=f"{mode} step {t} {k}")
+    for k in w_st.env:
+      np.testing.assert_array_equal(g_st.env[k], w_st.env[k], err_msg=k)
+    np.testing.assert_array_equal(g_st.rng, w_st.rng)
+    res[mode] = {
+      "fields": len(keys), "steps": steps,
+      "nan_rewards": int(sum(np.isnan(o[keys.index("reward")]).sum() for o in got)),
+      "terminals": int(sum(o[keys.index("done")].sum() for o in got)),
+    }
+  return res
+
+
+# --------------------------------------------------------------- phase 7
+
+
+def cartpole_card_vs_cpu(torch, envpool_torch, device, n=8192, steps=100) -> dict:
+  """CartPole-v1 on the card against the CPU port, step for step: before
+  each step the CPU pool loads the card pool's state, so each comparison
+  is one step from identical states (the pole's instability would grow an
+  ulp into any size over a free run). Returns errors and a step-loop rate."""
+  card = envpool_torch.make_gymnasium(
+    "CartPole-v1", num_envs=n, seed=SEED, device=device
+  )
+  cpu = envpool_torch.make_gymnasium(
+    "CartPole-v1", num_envs=n, seed=SEED, device="cpu"
+  )
+  g, w = card.reset(), cpu.reset()
+  np.testing.assert_array_equal(g[0], w[0])   # threefry uniform: bit-exact
+  acts = np.random.default_rng(SEED + 11).integers(0, 2, (steps, n)).astype(np.int32)
+  obs_err, resets = 0.0, 0
+  for a in acts:
+    cpu.load_state(card.save_state())
+    g, w = card.step(a), cpu.step(a)
+    obs_err = max(obs_err, float(np.abs(g[0] - w[0]).max()))
+    for i in (1, 2, 3):
+      np.testing.assert_array_equal(g[i], w[i])
+    np.testing.assert_array_equal(g[4]["elapsed_step"], w[4]["elapsed_step"])
+    resets += int((g[4]["elapsed_step"] == 0).sum())
+  if obs_err > 1e-5:
+    raise AssertionError(f"CartPole card vs cpu: obs error {obs_err}")
+  assert resets > 0
+  sync(torch, device)
+  t0 = time.perf_counter()
+  for a in acts:
+    card.step(a)
+  sps = steps * n / (time.perf_counter() - t0)
+  return {"obs_max_err": obs_err, "auto_resets": resets, "step_sps": sps}
 
 
 def main() -> int:
@@ -463,20 +683,15 @@ def main() -> int:
   log(f"xla() loop: 100 steps + commit, {sps_xla:.1f} env-steps/s on the device "
       f"(no host copies of outputs), launches {launches_xla} [{card}]")
 
-  busy_us, rows = profile_steps(torch, env)
-  step_us = 1e6 * N_ENVS / sps_xla
-  if busy_us > 0:
-    log(f"profile: xla() step of {N_ENVS} envs, device kernels "
-        f"{busy_us:.1f} us per step in {sum(r[2] for r in rows):.0f} launches; "
-        f"untraced step {step_us:.1f} us, so the device idles "
-        f"{100 * (1 - busy_us / step_us):.1f}% [{card}]")
-    for name, us, count in rows[:12]:
-      log(f"  {us:9.1f} us/step {count:6.1f} launches/step  {name[:100]}")
-    for name, us, count in rows:
-      if "car_racing_background" in name:
-        log(f"  background kernel: {us:.1f} us/step, {count:.1f} launches/step")
-  else:
-    log("profile: the profiler saw no device time (not measured)")
+  rng = np.random.default_rng(SEED + 5)
+  busy_us, rows = profile_steps(torch, env, torch.from_numpy(
+    np.stack([random_actions(rng, N_ENVS) for _ in range(11)])
+  ).to(device))
+  log_profile(f"CarRacing-v2 xla() step of {N_ENVS} envs", busy_us, rows,
+              1e6 * N_ENVS / sps_xla, card)
+  for name, us, count in rows:
+    if "car_racing_background" in name:
+      log(f"  background kernel: {us:.1f} us/step, {count:.1f} launches/step")
 
   # 5. card vs CPU port
   cmp = card_vs_cpu(envpool_torch, env, last_action)
@@ -484,7 +699,52 @@ def main() -> int:
       f"{cmp['obs_equal']:.6f}, reward max err {cmp['reward_max_err']:.3g}, "
       f"pos max err {cmp['pos_max_err']:.3g}, integer fields exact")
 
-  # 6. results
+  # 6. Sokoban-v0, the headline workload
+  t6 = time.perf_counter()
+  env, sps, sps_xla, dones, bound = sokoban_headline(torch, envpool_torch, device)
+  log(f"Sokoban-v0: {SOKOBAN_ENVS} envs, reset + {SOKOBAN_STEPS} steps of "
+      f"actions in [-1, 3]: every lane auto-reset ({int(dones.min())} to "
+      f"{int(dones.max())} terminal steps per lane), NaN rewards exactly at "
+      f"the noops; {sps:.1f} env-steps/s via make_gymnasium step (host "
+      f"copies), {sps_xla:.1f} env-steps/s in a {SOKOBAN_STEPS}-step xla() "
+      f"loop [{card}]")
+  busy_us, rows = profile_steps(torch, env, torch.from_numpy(
+    sokoban_actions(SEED + 12, 11, SOKOBAN_ENVS)
+  ).to(device))
+  log_profile(f"Sokoban-v0 xla() step of {SOKOBAN_ENVS} envs", busy_us, rows,
+              1e6 * SOKOBAN_ENVS / sps_xla, card)
+  byte_ms, op_ms, n_bytes = bound
+  log(f"Sokoban-v0 step bound (no fused kernel yet, queued): "
+      f"{1e3 * max(byte_ms, op_ms):.2f} us per step of {SOKOBAN_ENVS} envs "
+      f"({n_bytes} B, {'bytes' if byte_ms >= op_ms else 'operations'}; "
+      f"operations {1e3 * op_ms:.2f} us) against {busy_us:.1f} us of eager "
+      f"device kernels")
+  del env
+  env, episodes, sps_seq = sokoban_sequential(torch, envpool_torch, device)
+  log(f"Sokoban-v0 sequential mode: 1024 envs, 200 steps, {episodes} "
+      f"episodes, level_idx and level_file_idx on the stream at every step; "
+      f"{sps_seq:.1f} env-steps/s via step [{card}]")
+  busy_us, rows = profile_steps(torch, env, torch.from_numpy(
+    sokoban_actions(SEED + 13, 11, 1024)
+  ).to(device))
+  log_profile("Sokoban-v0 sequential-mode xla() step of 1024 envs", busy_us,
+              rows, 1e6 * 1024 / sps_seq, card)
+  del env
+  for mode, r in sokoban_card_vs_cpu(envpool_torch, device).items():
+    log(f"Sokoban-v0 card vs cpu port, {mode} mode, 256 envs: all {r['fields']} "
+        f"output fields of reset + {r['steps']} steps bit-exact "
+        f"({r['nan_rewards']} NaN rewards, {r['terminals']} terminal steps), "
+        f"final state equal")
+  log(f"Sokoban phases: {time.perf_counter() - t6:.1f} s")
+
+  # 7. CartPole-v1
+  cp = cartpole_card_vs_cpu(torch, envpool_torch, device)
+  log(f"CartPole-v1 card vs cpu port, 8192 envs, 100 steps from shared "
+      f"states: obs max err {cp['obs_max_err']:.3g}, rewards and integer "
+      f"fields exact, {cp['auto_resets']} auto-resets; step loop "
+      f"{cp['step_sps']:.1f} env-steps/s [{card}]")
+
+  # 8. results
   log(f"total {time.perf_counter() - t_start:.1f} s")
   main_case = kres["cases"]["real_fine"]
   kernel = {

@@ -17,10 +17,12 @@ see ``prng.py``):
   episode_cap(cfg, state) -> int or [N]
 
 ``obs`` is one tensor when the state spec has one "obs" key, otherwise a
-dict keyed without the "obs:" prefix. ``info`` is a dict matching the
-"info:..." spec keys (or empty). ``term`` is environment termination only;
-time-limit truncation is applied by the pool using ``episode_cap``. The
-device is the keys' device.
+dict keyed without the "obs:" prefix; a container field is a padded
+``(data, shape)`` pair. ``info`` is a dict matching the "info:..." spec
+keys (or empty). ``term`` is environment termination only; time-limit
+truncation is applied by the pool using ``episode_cap`` (families with
+``env_resets`` return ``done`` and ``trunc`` themselves). The device is the
+keys' device.
 """
 
 from __future__ import annotations
@@ -75,9 +77,21 @@ class FuncEnv:
   #: capitalized family name used to synthesize class names, e.g. "CarRacing"
   name: str = "Func"
 
-  #: env-side auto-reset (see ``envpool_tpu/core/env.py``); the port's pool
-  #: rejects such families until it has that branch
+  #: env-side auto-reset ("reset-into-terminal-obs", as in
+  #: ``envpool_tpu/core/env.py``). When True, ``step`` returns
+  #: ``(state, obs, reward, done, trunc, info)``: on a terminal lane
+  #: ``state``/``obs`` already belong to the next episode, and ``info``
+  #: carries the reserved key ``"elapsed_step"`` (in ``reset`` too), the
+  #: FINISHING episode's step counter. The pool then never schedules a
+  #: reset of its own (Sokoban, ``sokoban_envpool.cc:177-216``).
   env_resets: bool = False
+
+  #: static-shape multiplayer. When True and the pool has
+  #: ``max_num_players`` P > 1: per-player fields (leading -1 in the spec)
+  #: are ``[N, P, ...]``, the state keeps the live count in
+  #: ``state["num_players"]``, ``step`` gets ``[N, P]`` actions and returns
+  #: an ``[N, P]`` reward; the pool masks and compacts the padding.
+  multi_player: bool = False
 
   @staticmethod
   def default_config() -> Dict[str, Any]:

@@ -21,6 +21,16 @@ Semantics reproduced exactly (see tests/test_torch_*.py):
   and ``recv`` pops in FIFO order.
 - per-env RNG: key_i = fold_in(PRNGKey(seed), env_id) with the threefry
   port (``prng.py``), so both packages draw the same numbers.
+- env-side auto-reset families (``FuncEnv.env_resets``, Sokoban): the step
+  returns done/trunc and, on a terminal step, the next episode's state and
+  obs; the pool takes ``elapsed_step`` from the step's info, marks FIRST
+  only where it is 0, and never schedules a reset of its own.
+- static-shape multiplayer: per-player fields padded to
+  ``max_num_players`` with reward/discount masks on the device, per-player
+  action rows scattered on the host at ``send`` and padded rows compacted
+  away at ``recv``.
+- container fields: a padded ``(data, shape)`` pair on the device, a ragged
+  object column at ``recv``.
 
 Auto-reset form. ``TpuEnvPool`` wraps the reset in
 ``jax.lax.cond(jnp.any(need_reset), ...)``. Here the test is made on the
@@ -28,10 +38,8 @@ host: one device-to-host read of two flags per advance decides whether the
 batch needs the step, the reset, or both. The alternative, computing the
 reset every step and selecting it, would render every CarRacing frame
 twice. Either way the RNG consumption is identical: step and reset share
-the same ``sub`` keys, as in the JAX package.
-
-Not ported yet: multiplayer pools, container-typed state fields and the
-env-side auto-reset families (``env_resets``) raise ``NotImplementedError``.
+the same ``sub`` keys, as in the JAX package. For env-side auto-reset
+families the flags are set only on the first step and on forced resets.
 """
 
 from __future__ import annotations
@@ -58,11 +66,13 @@ XlaHandle = namedtuple("XlaHandle", ["pool", "out"])
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
-  """Map ``fn`` over the leaves of dict/namedtuple trees of equal shape."""
+  """Map ``fn`` over the leaves of dict/tuple/namedtuple trees of equal
+  shape (a container field is a plain ``(data, shape)`` tuple)."""
   if isinstance(tree, dict):
     return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-  if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-    return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+  if isinstance(tree, tuple):
+    mapped = (tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return type(tree)(*mapped) if hasattr(tree, "_fields") else tuple(mapped)
   return fn(tree, *rest)
 
 
@@ -130,14 +140,28 @@ class TorchEnvPool:
     self._env_cls: FuncEnv = spec._env_cls
     self._num_envs = int(cfg.num_envs)
     self._batch_size = int(cfg.batch_size) or self._num_envs
-    if int(cfg.max_num_players) > 1:
+    self._env_resets = bool(self._env_cls.env_resets)
+    self._max_players = int(cfg.max_num_players)
+    self._multi_player = self._max_players > 1
+    if self._multi_player:
+      if not self._env_cls.multi_player:
+        raise ValueError(
+          f"{self._env_cls.name} does not support max_num_players > 1"
+        )
+      if self._env_resets:
+        raise NotImplementedError(
+          "env-side auto-reset + multi-player is not supported"
+        )
+    self._container_keys = {
+      k for k, s in zip(spec._state_keys, spec._state_spec)
+      if isinstance(s, ContainerSpec)
+    }
+    if self._container_keys and self._multi_player:
+      # the static-shape engine supports container fields for single-player
+      # envs only, as the JAX package does
       raise NotImplementedError(
-        "multiplayer pools (max_num_players > 1) are not ported yet"
+        "container specs are not supported with max_num_players > 1"
       )
-    if any(isinstance(s, ContainerSpec) for s in spec._state_spec):
-      raise NotImplementedError("container-typed state fields are not ported yet")
-    if getattr(self._env_cls, "env_resets", False):
-      raise NotImplementedError("env-side auto-reset families are not ported yet")
     self._state_keys: List[str] = spec._state_keys
     self._env_state_keys = [
       k for k in self._state_keys
@@ -150,12 +174,14 @@ class TorchEnvPool:
     self._env_action_keys = [
       k for k in self._action_keys if k not in ("env_id", "players.env_id")
     ]
+    self._action_array_spec = spec.action_array_spec
     n = self._num_envs
     self._env_ids = torch.arange(n, dtype=torch.int32, device=self.device)
+    # per-player action fields (leading -1) get the padded player axis
     self._zero_action = {
       k: torch.zeros(
-        (n, *spec.action_array_spec[k].static_shape),
-        dtype=_torch_dtype(spec.action_array_spec[k].dtype),
+        (n, *self._action_field_shape(self._action_array_spec[k])),
+        dtype=_torch_dtype(self._action_array_spec[k].dtype),
         device=self.device,
       )
       for k in self._env_action_keys
@@ -166,6 +192,11 @@ class TorchEnvPool:
     self._last_out: Optional[List[torch.Tensor]] = None
 
   # ------------------------------------------------------------------ engine
+
+  def _action_field_shape(self, spec) -> Tuple[int, ...]:
+    if self._multi_player and spec.shape and spec.shape[0] == -1:
+      return (self._max_players, *spec.static_shape)
+    return spec.static_shape
 
   def _init(self, seed: int) -> PoolState:
     n = self._num_envs
@@ -207,10 +238,13 @@ class TorchEnvPool:
       )
       run_step = run_step or not run_reset
 
+    st_trunc = None
     if run_step:
-      st_env, st_obs, st_rew, st_term, st_info = env_cls.step(
-        cfg, ps.env, self._unpack_action(action_full), sub
-      )
+      res = env_cls.step(cfg, ps.env, self._unpack_action(action_full), sub)
+      if self._env_resets:
+        st_env, st_obs, st_rew, st_term, st_trunc, st_info = res
+      else:
+        st_env, st_obs, st_rew, st_term, st_info = res
     if run_reset:
       rs_env, rs_obs, rs_info = env_cls.reset(cfg, ps.env, sub)
       if run_step:
@@ -221,21 +255,39 @@ class TorchEnvPool:
         # every lane that matters resets: the step's values are all
         # discarded by the selects below, so it is not computed
         env2, obs, info = rs_env, rs_obs, rs_info
-        st_rew = torch.zeros(n, dtype=torch.float32, device=self.device)
+        rew_shape = (n, self._max_players) if self._multi_player else (n,)
+        st_rew = torch.zeros(rew_shape, dtype=torch.float32, device=self.device)
         st_term = torch.zeros(n, dtype=torch.bool, device=self.device)
+        st_trunc = st_term
     else:
       env2, obs, info = st_env, st_obs, st_info
     info = dict(info)
 
-    elapsed = torch.where(need_reset, 0, ps.elapsed + 1).to(torch.int32)
-    cap = env_cls.episode_cap(cfg, env2)
-    term = torch.where(need_reset, False, st_term.to(torch.bool))
-    done = torch.where(need_reset, False, term | (elapsed >= cap))
-    trunc = done & (elapsed >= cap)
-    reward = torch.where(need_reset, 0.0, st_rew).to(torch.float32)
-    step_type = torch.where(
-      need_reset, 0, torch.where(done, 2, 1)
-    ).to(torch.int32)
+    # st_rew is [n] single-player or [n, P] multiplayer
+    nr = need_reset.reshape(need_reset.shape + (1,) * (st_rew.ndim - 1))
+    reward = torch.where(nr, 0.0, st_rew).to(torch.float32)
+    if self._env_resets:
+      # the step already reset its terminal lanes and reports the finishing
+      # episode's counter (it restarts after the in-step reset and freezes
+      # on noops, which the pool cannot see)
+      elapsed = torch.where(need_reset, 0, info.pop("elapsed_step"))
+      done = torch.where(need_reset, False, st_term.to(torch.bool))
+      trunc = torch.where(need_reset, False, st_trunc.to(torch.bool))
+      # FIRST only right after an explicit reset; a terminal step is LAST
+      # although the env has already moved on
+      first = elapsed == 0
+      # the carried done flag never triggers a pool auto-reset
+      done_carry = torch.zeros_like(done)
+    else:
+      elapsed = torch.where(need_reset, 0, ps.elapsed + 1)
+      cap = env_cls.episode_cap(cfg, env2)
+      term = torch.where(need_reset, False, st_term.to(torch.bool))
+      done = torch.where(need_reset, False, term | (elapsed >= cap))
+      trunc = done & (elapsed >= cap)
+      first = need_reset
+      done_carry = done
+    elapsed = elapsed.to(torch.int32)
+    step_type = torch.where(first, 0, torch.where(done, 2, 1)).to(torch.int32)
     discount = (~done).to(torch.float32)
     if "discount" in info:
       # reserved info key: the env supplies its own discount
@@ -245,14 +297,27 @@ class TorchEnvPool:
       env2 = _select(mask, env2, ps.env)
       rng = torch.where(mask[:, None], rng, ps.rng)
       elapsed2 = torch.where(mask, elapsed, ps.elapsed)
-      done2 = torch.where(mask, done, ps.done)
+      done2 = torch.where(mask, done_carry, ps.done)
     else:
-      elapsed2, done2 = elapsed, done
+      elapsed2, done2 = elapsed, done_carry
     new_ps = PoolState(env=env2, rng=rng, elapsed=elapsed2, done=done2)
 
-    out: Dict[str, torch.Tensor] = {
+    players_env_id = self._env_ids
+    if self._multi_player:
+      # static-shape multiplayer: every per-player field is padded to
+      # max_num_players; the env keeps the live count in
+      # state["num_players"], rows past it get reward and discount 0, and
+      # ``_recv`` compacts them away
+      p = self._max_players
+      npl = env2["num_players"]
+      pmask = torch.arange(p, device=self.device)[None, :] < npl[:, None]
+      reward = torch.where(pmask, reward, 0.0)
+      discount = (pmask & (~done)[:, None]).to(torch.float32)
+      players_env_id = self._env_ids[:, None].expand(n, p)
+
+    out: Dict[str, Any] = {
       "info:env_id": self._env_ids,
-      "info:players.env_id": self._env_ids,
+      "info:players.env_id": players_env_id,
       "elapsed_step": elapsed,
       "done": done,
       "reward": reward,
@@ -269,7 +334,10 @@ class TorchEnvPool:
         out[k] = info[k[5:]]
       else:  # bare env-specific top-level key
         out[k] = info[k]
-    return new_ps, [out[k] for k in self._state_keys]
+    outs = [out[k] for k in self._state_keys]
+    if self._multi_player:
+      outs.append(npl)  # live player counts, for the host-side compaction
+    return new_ps, outs
 
   def _mask(self, env_id: torch.Tensor) -> torch.Tensor:
     mask = torch.zeros(self._num_envs, dtype=torch.bool, device=self.device)
@@ -287,7 +355,7 @@ class TorchEnvPool:
       action_full[k] = self._zero_action[k].clone()
       action_full[k][env_id] = action_b[k].to(action_full[k].dtype)
     new_ps, outs = self._advance(ps, action_full, self._mask(env_id), False)
-    return new_ps, [o[env_id] for o in outs]
+    return new_ps, _gather(outs, env_id)
 
   def _reset_masked(
     self, ps: PoolState, env_id: torch.Tensor
@@ -296,7 +364,7 @@ class TorchEnvPool:
     # force-reset only masked lanes: merge into pool done flag first
     forced = ps._replace(done=ps.done | mask)
     new_ps, outs = self._advance(forced, self._zero_action, mask, False)
-    return new_ps, [o[env_id] for o in outs]
+    return new_ps, _gather(outs, env_id)
 
   # ----------------------------------------------------------- low-level API
 
@@ -308,6 +376,8 @@ class TorchEnvPool:
     """
     adict = dict(zip(self._action_keys, action_list))
     env_id = np.asarray(adict["env_id"])
+    if self._multi_player:
+      adict = self._scatter_player_actions(adict)
     action_b = {
       k: torch.as_tensor(np.asarray(adict[k])).to(self.device)
       for k in self._env_action_keys
@@ -325,11 +395,69 @@ class TorchEnvPool:
       self._pending.append(outs)
     self._last_out = outs
 
-  def _recv(self) -> List[np.ndarray]:
+  def _scatter_player_actions(self, adict: Dict[str, Any]) -> Dict[str, Any]:
+    """[total_players, ...] per-player action rows -> [B, P, ...] padded.
+
+    Counterpart of ``TpuEnvPool._scatter_player_actions``: rows of the same
+    env fill consecutive player slots in arrival order, and the result is
+    ordered by the send's env_id cohort, so it feeds both the full-batch
+    path (env_id == arange) and the masked path.
+    """
+    players = np.asarray(adict["players.env_id"], dtype=np.int64)
+    cohort = np.asarray(adict["env_id"], dtype=np.int64)
+    # slot of each row within its env (stable cumulative count)
+    slots = np.zeros(len(players), dtype=np.int64)
+    counts: Dict[int, int] = {}
+    for i, e in enumerate(players.tolist()):
+      slots[i] = counts.get(e, 0)
+      counts[e] = slots[i] + 1
+    out = dict(adict)
+    for k in self._env_action_keys:
+      spec = self._action_array_spec[k]
+      if spec.shape and spec.shape[0] == -1:
+        full = np.zeros(
+          (self._num_envs, self._max_players, *spec.static_shape),
+          dtype=spec.dtype,
+        )
+        full[players, slots] = np.asarray(adict[k])
+        out[k] = full[cohort]
+    return out
+
+  def _compact_players(self, outs: List[Any]) -> List[Any]:
+    """Drop padded player rows at the host boundary: [B, P, ...] fields
+    with a per-player spec become [total_players, ...]."""
+    *state_vals, npl = outs
+    p = self._max_players
+    keep = (np.arange(p)[None, :] < npl[:, None]).ravel()
+    compacted = []
+    for val, spec in zip(state_vals, self._spec._state_spec):
+      if spec.shape and spec.shape[0] == -1:
+        val = val.reshape(val.shape[0] * p, *val.shape[2:])[keep]
+      compacted.append(val)
+    return compacted
+
+  def _recv(self) -> List[Any]:
     """Pop the oldest pending batch and transfer it to host."""
     if not self._pending:
       raise RuntimeError("recv called with no pending send/reset")
-    return [_to_numpy(o) for o in self._pending.popleft()]
+    host = []
+    # multiplayer appends a live-player-count column past the state keys
+    outs = self._pending.popleft()
+    keys = self._state_keys + [""] * (len(outs) - len(self._state_keys))
+    for k, o in zip(keys, outs):
+      if k in self._container_keys:
+        # padded (data, shape) -> ragged object column: each env's value
+        # sliced to its actual dims (the reference's container surface)
+        data, shp = _to_numpy(o[0]), _to_numpy(o[1])
+        col = np.empty(len(data), dtype=object)
+        for i in range(len(data)):
+          col[i] = data[i][tuple(slice(int(d)) for d in shp[i])]
+        host.append(col)
+      else:
+        host.append(_to_numpy(o))
+    if self._multi_player:
+      host = self._compact_players(host)
+    return host
 
   def _reset(self, env_id: np.ndarray) -> None:
     """Enqueue a forced reset for the given env ids.
@@ -368,6 +496,12 @@ class TorchEnvPool:
     The handle is a snapshot: host-API sends after ``xla()`` do not affect
     it, and its steps do not affect the host pool until ``commit``.
     """
+    if self._multi_player:
+      # same gate as the reference (envpool/core/py_envpool.h:220-238)
+      raise RuntimeError("xla() does not support multi-player envs")
+    if self._container_keys:
+      # same gate as the reference (py_envpool.h:226-231)
+      raise RuntimeError("xla() does not support container-type specs")
     env_action_keys = self._env_action_keys
     device = self.device
 
@@ -436,6 +570,11 @@ class TorchEnvPool:
     """Restore a snapshot produced by ``save_state`` of either package."""
     self._state = state_from_numpy(state, self.device)
     self._pending.clear()
+
+
+def _gather(outs: List[Any], env_id: torch.Tensor) -> List[Any]:
+  """The rows ``env_id`` of every output (container pairs included)."""
+  return [tree_map(lambda o: o[env_id], o) for o in outs]
 
 
 def _split_keys(rng: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

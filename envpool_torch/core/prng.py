@@ -3,11 +3,13 @@
 A port of jax 0.9.0's default key stream (``jax/_src/prng.py``:
 ``threefry_2x32``, ``threefry_seed``, ``threefry_fold_in``,
 ``_threefry_split_foldlike``, ``_threefry_random_bits_partitionable``; and
-``jax/_src/random.py::_randint``) under ``jax_threefry_partitionable=True``,
-that jax's default. The JAX package derives per-env keys with it
-(``pool.py``) and families draw from it (``car_racing.py`` picks the track
-with ``randint``), so the port must reproduce it bit for bit to start from
-the same seed in the same state.
+``jax/_src/random.py::_randint`` and ``_uniform``) under
+``jax_threefry_partitionable=True``, that jax's default. The JAX package
+derives per-env keys with it (``pool.py``) and families draw from it
+(``car_racing.py`` picks the track with ``randint``; ``sokoban.py`` draws
+levels with ``split``/``randint`` and episode caps with ``bits``;
+``cartpole.py`` resets with ``uniform``), so the port must reproduce it bit
+for bit to start from the same seed in the same state.
 
 Keys are raw ``[..., 2]`` tensors of uint32 values held in ``int64``
 (torch's uint32 has no arithmetic on every device); all arithmetic is done
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -114,3 +117,26 @@ def randint(
   out = (lo + offset) & _M32
   out = torch.where(out >= 2**31, out - 2**32, out)
   return out.to(torch.int32)
+
+
+def uniform(
+  keys: torch.Tensor, shape: Sequence[int], minval: float, maxval: float
+) -> torch.Tensor:
+  """float32 ``jax.random.uniform(key, shape, minval=, maxval=)`` batched.
+
+  Same algorithm as ``jax/_src/random.py::_uniform``: the top 23 of 32
+  random bits become the mantissa of a float in [1, 2), minus 1, scaled to
+  the range, then floored at ``minval``. XLA contracts the scale-and-shift
+  into one fused multiply-add (one rounding); float32 torch ops would round
+  twice and miss by up to thousands of ulps near 0 for a range like
+  (-0.05, 0.05). So it is done in float64, where the product of two float32
+  is exact, and rounded to float32 once: bit-exact against jax
+  (``tests/test_torch_engine.py``).
+  """
+  lo = np.float32(minval)
+  span = np.float32(maxval) - lo
+  bits = random_bits(keys, shape)
+  mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
+  floats = mant.view(torch.float32) - 1.0
+  scaled = (floats.double() * float(span) + float(lo)).float()
+  return torch.clamp_min(scaled, float(lo))

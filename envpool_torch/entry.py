@@ -1,3 +1,7 @@
-"""Entry point importing every ported family's registration."""
+"""Entry point importing every ported family's registration, in the JAX
+package's order (``envpool_tpu/entry.py``)."""
 
+import envpool_torch.envs.dummy.registration  # noqa: F401
+import envpool_torch.envs.classic_control.registration  # noqa: F401
 import envpool_torch.envs.box2d.registration  # noqa: F401
+import envpool_torch.envs.sokoban.registration  # noqa: F401

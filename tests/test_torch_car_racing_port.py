@@ -96,7 +96,9 @@ def test_default_device_is_cuda() -> None:
 
 
 def test_unported_features_raise() -> None:
-  with pytest.raises(NotImplementedError):
+  # the pool has every feature of the JAX package's now: a single-player
+  # family refuses max_num_players > 1 with the JAX package's ValueError
+  with pytest.raises(ValueError, match="max_num_players"):
     _make(max_num_players=2)
 
 

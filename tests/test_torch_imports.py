@@ -15,14 +15,23 @@ for name in ("jax", "jaxlib", "optree", "gymnasium", "dm_env", "envpool_tpu"):
   sys.modules[name] = None
 import numpy as np
 import envpool_torch
-assert envpool_torch.list_all_envs() == ["CarRacing-v2"]
-env = envpool_torch.make_gymnasium(
-  "CarRacing-v2", num_envs=2, seed=0, n_tracks=1, device="cpu"
-)
-obs, info = env.reset()
-assert obs.shape == (2, 96, 96, 3), obs.shape
-obs, rew, term, trunc, info = env.step(np.zeros((2, 3), np.float32))
-assert info["elapsed_step"].tolist() == [1, 1]
+assert envpool_torch.list_all_envs() == [
+  "Dummy-v0", "CartPole-v0", "CartPole-v1", "CarRacing-v2", "Sokoban-v0"
+], envpool_torch.list_all_envs()
+for task_id, kw, obs_shape, action in (
+  ("CarRacing-v2", dict(n_tracks=1), (2, 96, 96, 3), np.zeros((2, 3), np.float32)),
+  ("Sokoban-v0", dict(n_levels_to_load=4), (2, 3, 10, 10), np.zeros(2, np.int32)),
+  ("CartPole-v1", {}, (2, 4), np.zeros(2, np.int32)),
+  ("Dummy-v0", {}, (2, 2), np.zeros(2, np.int32)),
+):
+  env = envpool_torch.make_gymnasium(
+    task_id, num_envs=2, seed=0, device="cpu", **kw
+  )
+  obs, info = env.reset()
+  obs = obs["raw"] if isinstance(obs, dict) else obs
+  assert obs.shape == obs_shape, (task_id, obs.shape)
+  obs, rew, term, trunc, info = env.step(action)
+  assert info["elapsed_step"].tolist() == [1, 1], task_id
 print("ok")
 """
 
