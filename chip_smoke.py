@@ -35,7 +35,18 @@ Phases (any failure exits non-zero before the result lines):
      kernel (it has no Pallas counterpart; the fused step is queued);
   7. CartPole-v1 at 8192 envs (``bench.py``'s width), the card against the
      CPU port step for step, to float tolerance;
-  8. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
+  8. PPO (``envpool_torch.train``): ``examples/ppo_sokoban.py``'s
+     configuration (Sokoban-v0 as in phase 6, the full-width bf16
+     ``SokobanCNN()``, ``PPOConfig(num_steps=32, lr=2.5e-4)``), 3 iterations
+     at 1024 envs and 2 at 16384, each with its env-steps/s and its rollout
+     and update times by CUDA events, every metric finite, ``mean_reward``
+     in the Sokoban range, the parameters changed, then a rollout and an
+     update traced apart (launches, device time, idle share); one float32
+     iteration on the card against the CPU port from the same parameters
+     and key (TF32 off; equal actions >= 0.99, parameters within 1e-4); PPO
+     learning CartPole-v1 on the card with ``tests/test_learning.py``'s
+     configuration and asserts;
+  9. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or outside a checkout, it fails and prints no result.
 """
@@ -372,29 +383,40 @@ def run_functional(torch, env, sampler, steps=100):
   return steps * N_ENVS / secs, sampler.fused_background.launches
 
 
-def profile_steps(torch, env, acts):
-  """Trace ``len(acts) - 1`` ``xla()`` steps after one untraced step;
-  returns (device kernel microseconds per step, [(kernel name, us per step,
-  launches per step)], busiest first). Only device-side events count, so
-  nothing is counted twice."""
+def profile_call(torch, fn, per: int = 1):
+  """Trace one call of ``fn`` with ``torch.profiler``; returns (device
+  microseconds per ``per``, [(kernel name, us per ``per``, launches per
+  ``per``)], busiest first). Only device-side events count, so nothing is
+  counted twice."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
 
-  steps = len(acts) - 1
-  handle, _, send, _ = env.xla()
-  handle = send(handle, acts[0])
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-    for i in range(1, steps + 1):
-      handle = send(handle, acts[i])
+    fn()
     torch.cuda.synchronize()
   rows = [
-    (e.key, e.self_device_time_total / steps, e.count / steps)
+    (e.key, e.self_device_time_total / per, e.count / per)
     for e in prof.key_averages()
     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
   ]
   rows.sort(key=lambda r: -r[1])
   return sum(r[1] for r in rows), rows
+
+
+def profile_steps(torch, env, acts):
+  """Trace ``len(acts) - 1`` ``xla()`` steps after one untraced step, per
+  step (see ``profile_call``)."""
+  steps = len(acts) - 1
+  handle, _, send, _ = env.xla()
+  handle = send(handle, acts[0])
+
+  def run():
+    nonlocal handle
+    for i in range(1, steps + 1):
+      handle = send(handle, acts[i])
+
+  return profile_call(torch, run, steps)
 
 
 def log_profile(name, busy_us, rows, step_us, card) -> None:
@@ -634,6 +656,163 @@ def cartpole_card_vs_cpu(torch, envpool_torch, device, n=8192, steps=100) -> dic
   return {"obs_max_err": obs_err, "auto_resets": resets, "step_sps": sps}
 
 
+# --------------------------------------------------------------- phase 8
+
+# examples/ppo_sokoban.py:29-45: PPOConfig(num_steps=32, lr=2.5e-4), the
+# other fields at their defaults (2 epochs of 4 minibatches)
+PPO_STEPS = 32
+PPO_LR = 2.5e-4
+# a Sokoban step's reward lies in [step - box, step + box + finished]
+SOKOBAN_REWARD_RANGE = (-1.1, 10.9)
+# the CartPole learning check of tests/test_learning.py:20-43; the port's
+# own parameter draws at ppo_init seed 12 clear its bar on the CPU with a
+# margin (tests/test_torch_ppo.py::test_ppo_learns_cartpole)
+CARTPOLE_PPO_SEED = 12
+
+
+def ppo_sokoban(torch, envpool_torch, device, n, iters, card) -> dict:
+  """PPO over the full-width SokobanCNN (three 128-channel 3x3 convs, a
+  256-unit dense layer, bf16) on Sokoban-v0 at ``n`` envs: ``iters``
+  iterations timed (rollout and update by CUDA events, the iteration on the
+  host clock), then a rollout and an update traced apart by
+  ``torch.profiler``. Every metric must be
+  finite, ``mean_reward`` in the Sokoban range, the parameters changed."""
+  from envpool_torch.models import SokobanCNN
+  from envpool_torch.train import PPOConfig, make_ppo_train_step, ppo_init
+
+  pool = envpool_torch.make_gymnasium(
+    "Sokoban-v0", num_envs=n, seed=SEED, device=device, **SOKOBAN_KW
+  )
+  net = SokobanCNN()
+  cfg = PPOConfig(num_steps=PPO_STEPS, lr=PPO_LR)
+  state, tx = ppo_init(pool, net, cfg, seed=SEED)
+  step = make_ppo_train_step(pool, net, cfg, tx)
+  params0 = {k: v.clone() for k, v in state.params.items()}
+  torch.cuda.reset_peak_memory_stats()
+  res = {"iters": []}
+  for it in range(iters):
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    rollout = step.rollout(state)
+    ev[1].record()
+    state, metrics = step.update(state, rollout)
+    ev[2].record()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    m = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in m.values()):
+      raise AssertionError(f"PPO Sokoban {n} envs, iteration {it}: {m}")
+    lo, hi = SOKOBAN_REWARD_RANGE
+    if not lo <= m["mean_reward"] <= hi:
+      raise AssertionError(f"PPO Sokoban: mean_reward {m['mean_reward']}")
+    row = {"sps": n * PPO_STEPS / secs, "iter_ms": 1e3 * secs,
+           "rollout_ms": ev[0].elapsed_time(ev[1]),
+           "update_ms": ev[1].elapsed_time(ev[2]), **m}
+    res["iters"].append(row)
+    log(f"PPO Sokoban-v0 {n} envs, iteration {it}: {row['sps']:.1f} env-steps/s, "
+        f"{row['iter_ms']:.1f} ms (rollout {row['rollout_ms']:.1f} ms, update "
+        f"{row['update_ms']:.1f} ms by CUDA events); pg_loss {m['pg_loss']:.5f} "
+        f"v_loss {m['v_loss']:.5f} entropy {m['entropy']:.5f} mean_reward "
+        f"{m['mean_reward']:.5f} [{card}]")
+  changed = sum(not torch.equal(state.params[k], params0[k]) for k in params0)
+  if changed != len(params0):
+    raise AssertionError(f"PPO Sokoban: {len(params0) - changed} tensors unchanged")
+  res["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+  last = res["iters"][-1]
+  traced = {}
+  rollout = None
+
+  def run_rollout():
+    nonlocal rollout
+    rollout = step.rollout(state)
+
+  for phase, fn in (("rollout", run_rollout),
+                    ("update", lambda: step.update(state, rollout))):
+    busy_us, rows = profile_call(torch, fn)
+    wall_us = 1e3 * last[f"{phase}_ms"]
+    traced[phase] = {"busy_ms": busy_us / 1e3, "launches": sum(r[2] for r in rows),
+                     "idle": 1 - busy_us / wall_us}
+    log(f"profile: PPO Sokoban-v0 {phase} of {n} envs, device kernels "
+        f"{busy_us / 1e3:.1f} ms in {traced[phase]['launches']:.0f} launches; "
+        f"untraced {phase} {wall_us / 1e3:.1f} ms, so the device idles "
+        f"{100 * traced[phase]['idle']:.1f}% [{card}]")
+    for kname, us, count in rows[:6]:
+      log(f"  {us / 1e3:9.2f} ms {count:7.0f} launches  {kname[:100]}")
+  busy_ms = sum(t["busy_ms"] for t in traced.values())
+  res.update(traced=traced, busy_ms=busy_ms,
+             launches=sum(t["launches"] for t in traced.values()),
+             idle=1 - busy_ms / last["iter_ms"])
+  log(f"profile: PPO Sokoban-v0 iteration of {n} envs, device kernels "
+      f"{busy_ms:.1f} ms in {res['launches']:.0f} launches "
+      f"({traced['rollout']['launches'] / PPO_STEPS:.0f} per rollout step); "
+      f"untraced iteration {last['iter_ms']:.1f} ms, so the device idles "
+      f"{100 * res['idle']:.1f}%; peak memory {res['peak_gb']:.2f} GiB [{card}]")
+  return res
+
+
+def ppo_card_vs_cpu(torch, envpool_torch, device) -> dict:
+  """One PPO iteration on the card and on the CPU port from the same
+  parameters and key, float32 with TF32 off: Sokoban-v0 with 64 envs of
+  7x7 rooms, num_steps=8, SokobanCNN(channels=(16, 16, 16)). Returns the
+  share of equal actions and the largest parameter difference."""
+  from envpool_torch.models import SokobanCNN
+  from envpool_torch.train import PPOConfig, make_ppo_train_step, ppo_init
+
+  tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+  torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+  runs = []
+  params = None
+  for dev in (device, "cpu"):
+    pool = envpool_torch.make_gymnasium(
+      "Sokoban-v0", num_envs=64, seed=SEED, device=dev, dim_room=7,
+      max_episode_steps=60, levels_dir="", n_levels_to_load=64,
+    )
+    net = SokobanCNN(channels=(16, 16, 16), dtype=torch.float32)
+    cfg = PPOConfig(num_steps=8)
+    state, tx = ppo_init(pool, net, cfg, seed=SEED)
+    if params is None:
+      params = {k: v.cpu() for k, v in state.params.items()}
+    state = state._replace(params={k: v.to(dev) for k, v in params.items()})
+    step = make_ppo_train_step(pool, net, cfg, tx)
+    rollout = step.rollout(state)
+    new, metrics = step.update(state, rollout)
+    runs.append((rollout[2]["action"].cpu(), {k: v.cpu() for k, v in new.params.items()},
+                 {k: float(v) for k, v in metrics.items()}))
+  torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+  (g_act, g_par, g_m), (w_act, w_par, w_m) = runs
+  moved = max(float((w_par[k] - params[k]).abs().max()) for k in params)
+  return {
+    "equal_actions": float((g_act == w_act).double().mean()),
+    "param_max_diff": max(float((g_par[k] - w_par[k]).abs().max()) for k in params),
+    "param_max_move": moved,
+    "metric_max_rel": max(abs(g_m[k] - w_m[k]) / max(abs(w_m[k]), 1e-6) for k in w_m),
+  }
+
+
+def ppo_learns_cartpole(torch, envpool_torch, device) -> list:
+  """tests/test_learning.py:20-43 on the card, with its asserts: 64 envs,
+  MLPActorCritic(hidden=(64, 64)), num_steps=64, 4 epochs of 4
+  minibatches, lr 3e-4, 30 iterations."""
+  from envpool_torch.models import MLPActorCritic
+  from envpool_torch.train import PPOConfig, make_ppo_train_step, ppo_init
+
+  pool = envpool_torch.make_gymnasium("CartPole-v1", num_envs=64, seed=SEED, device=device)
+  net = MLPActorCritic(num_actions=2, hidden=(64, 64))
+  cfg = PPOConfig(num_steps=64, update_epochs=4, num_minibatches=4, lr=3e-4, ent_coef=0.01)
+  state, tx = ppo_init(pool, net, cfg, seed=CARTPOLE_PPO_SEED)
+  step = make_ppo_train_step(pool, net, cfg, tx)
+  rewards = []
+  for _ in range(30):
+    state, metrics = step(state)
+    rewards.append(float(metrics["mean_reward"]))
+  best = float(np.max(rewards[5:]))
+  if not (best > rewards[0] and best > 0.985):
+    raise AssertionError(f"PPO did not learn CartPole on the card: {rewards}")
+  return rewards
+
+
 def main() -> int:
   import torch
 
@@ -744,7 +923,30 @@ def main() -> int:
       f"fields exact, {cp['auto_resets']} auto-resets; step loop "
       f"{cp['step_sps']:.1f} env-steps/s [{card}]")
 
-  # 8. results
+  # 8. PPO
+  t8 = time.perf_counter()
+  for n, iters in ((1024, 3), (SOKOBAN_ENVS, 2)):
+    ppo_sokoban(torch, envpool_torch, device, n, iters, card)
+  cmp = ppo_card_vs_cpu(torch, envpool_torch, device)
+  log(f"PPO card vs cpu port, Sokoban-v0 64 envs 7x7, one iteration in float32 "
+      f"(TF32 off): equal actions {cmp['equal_actions']:.6f}, parameters "
+      f"differ by at most {cmp['param_max_diff']:.3g} (the update moved them "
+      f"by up to {cmp['param_max_move']:.3g}), metrics by {cmp['metric_max_rel']:.3g} "
+      f"relative")
+  # the tolerance: actions differ only at near-ties of the logits, and a
+  # parameter whose Adam step changed sign would differ by 2 lr = 5e-4
+  if cmp["equal_actions"] < 0.99 or cmp["param_max_diff"] > 1e-4:
+    raise AssertionError(f"PPO card vs cpu port: {cmp}")
+  t_cp = time.perf_counter()
+  rewards = ppo_learns_cartpole(torch, envpool_torch, device)
+  log(f"PPO learns CartPole-v1 on the card in {time.perf_counter() - t_cp:.1f} s "
+      f"(tests/test_learning.py config, ppo_init seed {CARTPOLE_PPO_SEED}): "
+      f"mean_reward {rewards[0]:.4f} at "
+      f"iteration 0, best of 5+ {max(rewards[5:]):.4f} > 0.985; "
+      f"{[round(r, 4) for r in rewards]}")
+  log(f"PPO phases: {time.perf_counter() - t8:.1f} s")
+
+  # 9. results
   log(f"total {time.perf_counter() - t_start:.1f} s")
   main_case = kres["cases"]["real_fine"]
   kernel = {

@@ -9,7 +9,12 @@ derives per-env keys with it (``pool.py``) and families draw from it
 (``car_racing.py`` picks the track with ``randint``; ``sokoban.py`` draws
 levels with ``split``/``randint`` and episode caps with ``bits``;
 ``cartpole.py`` resets with ``uniform``), so the port must reproduce it bit
-for bit to start from the same seed in the same state.
+for bit to start from the same seed in the same state. The trainer draws
+``categorical`` actions (Gumbel-max), ``normal`` noise and ``permutation``
+minibatch orders (``train/ppo.py``), and the networks' own initialisation
+``truncated_normal`` (``models/nets.py``): the integer draws are exact, the
+float ones pass through ``log`` and ``erfinv`` and may differ from XLA's by
+a few ulps.
 
 Keys are raw ``[..., 2]`` tensors of uint32 values held in ``int64``
 (torch's uint32 has no arithmetic on every device); all arithmetic is done
@@ -20,6 +25,7 @@ CUDA tensors. Every function is batched over leading dimensions: the
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple, Union
 
 import numpy as np
@@ -119,6 +125,12 @@ def randint(
   return out.to(torch.int32)
 
 
+def _fma32(a: torch.Tensor, b: Union[torch.Tensor, float], c: Union[torch.Tensor, float]) -> torch.Tensor:
+  """float32 ``a * b + c`` rounded once, as XLA-CPU's contracted
+  multiply-add: the float64 product of two float32 is exact."""
+  return (a.double() * b + c).float()
+
+
 def uniform(
   keys: torch.Tensor, shape: Sequence[int], minval: float, maxval: float
 ) -> torch.Tensor:
@@ -138,5 +150,80 @@ def uniform(
   bits = random_bits(keys, shape)
   mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
   floats = mant.view(torch.float32) - 1.0
-  scaled = (floats.double() * float(span) + float(lo)).float()
-  return torch.clamp_min(scaled, float(lo))
+  return torch.clamp_min(_fma32(floats, float(span), float(lo)), float(lo))
+
+
+# Giles' erfinv polynomials as XLA builds ``erf_inv`` for float32 (the
+# ``chlo.erf_inv`` decomposition): w = -log1p(-x * x), then a degree-8
+# Horner in w - 2.5 (w < 5) or sqrt(w) - 3.
+_ERFINV_LT5 = (
+  2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+  0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941,
+)
+_ERFINV_GE5 = (
+  -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+  0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682,
+)
+
+
+def _erfinv32(x: torch.Tensor) -> torch.Tensor:
+  """float32 ``lax.erf_inv`` in XLA's form, each Horner step rounded once
+  as XLA-CPU contracts it. ``log1p`` and ``sqrt`` are torch's, so a result
+  may differ from XLA's by a few ulps (``tests/test_torch_ppo.py``)."""
+  w = -torch.log1p(-(x * x))
+  lt = w < 5.0
+  w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+  p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
+  for c_lt, c_ge in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+    p = _fma32(p, w, torch.where(lt, c_lt, c_ge))
+  return torch.where(x.abs() == 1.0, x * float(np.finfo(np.float32).max), p * x)
+
+
+def normal(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+  """float32 ``jax.random.normal(key, shape)`` batched (``_normal_real``):
+  ``sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1))``."""
+  lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+  return float(np.float32(np.sqrt(2))) * _erfinv32(uniform(keys, shape, lo, 1.0))
+
+
+def truncated_normal(
+  keys: torch.Tensor, shape: Sequence[int], lower: float, upper: float
+) -> torch.Tensor:
+  """float32 ``jax.random.truncated_normal(key, lower, upper, shape)``
+  batched: ``sqrt(2) * erfinv(uniform(erf(lower / sqrt 2), erf(upper /
+  sqrt 2)))``, clipped inside (lower, upper)."""
+  sqrt2 = np.float32(np.sqrt(2))
+  lo, hi = np.float32(lower), np.float32(upper)
+  a, b = (float(np.float32(math.erf(float(v / sqrt2)))) for v in (lo, hi))
+  out = float(sqrt2) * _erfinv32(uniform(keys, shape, a, b))
+  return torch.clamp(
+    out, float(np.nextafter(lo, np.float32(np.inf))),
+    float(np.nextafter(hi, np.float32(-np.inf))),
+  )
+
+
+def gumbel(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+  """float32 ``jax.random.gumbel(key, shape)`` in its default "low" mode:
+  ``-log(-log(uniform(tiny, 1)))``."""
+  tiny = float(np.finfo(np.float32).tiny)
+  return -torch.log(-torch.log(uniform(keys, shape, tiny, 1.0)))
+
+
+def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+  """``jax.random.categorical(key, logits)`` over the last axis for one
+  key: the Gumbel-max draw ``argmax(gumbel(key, logits.shape) + logits)``
+  (int64 indices)."""
+  return torch.argmax(gumbel(keys, logits.shape) + logits, dim=-1)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+  """``jax.random.permutation(key, n)`` for one key (``_shuffle``): rounds
+  of stable sorts by fresh 32-bit keys, as many as jax makes for ``n``.
+  Integer-only, so it is exact (int64 indices)."""
+  rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+  x = torch.arange(n, device=key.device)
+  for _ in range(rounds):
+    key, sub = split(key, 2).unbind(-2)
+    order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+    x = x[order]
+  return x

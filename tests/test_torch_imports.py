@@ -1,5 +1,7 @@
-"""The port stands alone: it imports without jax (and without optree,
-gymnasium and dm_env), and no file of it imports jax or envpool_tpu."""
+"""The port stands alone: it imports without jax, flax and optax (and
+without optree, gymnasium and dm_env), every family steps and one PPO
+iteration runs so, and no file of it imports jax, flax, optax or
+envpool_tpu."""
 
 import ast
 import os
@@ -11,17 +13,26 @@ ROOT = Path(__file__).resolve().parent.parent
 
 _CHILD = """
 import sys
-for name in ("jax", "jaxlib", "optree", "gymnasium", "dm_env", "envpool_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "optree", "gymnasium", "dm_env",
+             "envpool_tpu"):
   sys.modules[name] = None
 import numpy as np
 import envpool_torch
+import envpool_torch.models
+import envpool_torch.train
 assert envpool_torch.list_all_envs() == [
-  "Dummy-v0", "CartPole-v0", "CartPole-v1", "CarRacing-v2", "Sokoban-v0"
+  "Dummy-v0", "CartPole-v0", "CartPole-v1", "Pendulum-v0", "Pendulum-v1",
+  "MountainCar-v0", "MountainCarContinuous-v0", "Acrobot-v1", "CarRacing-v2",
+  "Sokoban-v0",
 ], envpool_torch.list_all_envs()
 for task_id, kw, obs_shape, action in (
   ("CarRacing-v2", dict(n_tracks=1), (2, 96, 96, 3), np.zeros((2, 3), np.float32)),
   ("Sokoban-v0", dict(n_levels_to_load=4), (2, 3, 10, 10), np.zeros(2, np.int32)),
   ("CartPole-v1", {}, (2, 4), np.zeros(2, np.int32)),
+  ("Pendulum-v1", {}, (2, 3), np.zeros((2, 1), np.float32)),
+  ("Acrobot-v1", {}, (2, 6), np.zeros(2, np.int32)),
+  ("MountainCar-v0", {}, (2, 2), np.zeros(2, np.int32)),
+  ("MountainCarContinuous-v0", {}, (2, 2), np.zeros((2, 1), np.float32)),
   ("Dummy-v0", {}, (2, 2), np.zeros(2, np.int32)),
 ):
   env = envpool_torch.make_gymnasium(
@@ -32,6 +43,17 @@ for task_id, kw, obs_shape, action in (
   assert obs.shape == obs_shape, (task_id, obs.shape)
   obs, rew, term, trunc, info = env.step(action)
   assert info["elapsed_step"].tolist() == [1, 1], task_id
+from envpool_torch.models import SokobanCNN
+from envpool_torch.train import PPOConfig, make_ppo_train_step, ppo_init
+pool = envpool_torch.make_gymnasium(
+  "Sokoban-v0", num_envs=2, seed=0, device="cpu", n_levels_to_load=4
+)
+net = SokobanCNN(channels=(4, 4, 4))
+cfg = PPOConfig(num_steps=2, num_minibatches=2)
+state, tx = ppo_init(pool, net, cfg)
+state, metrics = make_ppo_train_step(pool, net, cfg, tx)(state)
+assert sorted(metrics) == ["entropy", "mean_reward", "pg_loss", "v_loss"]
+assert all(sys.modules[m] is None for m in ("jax", "flax", "optax", "envpool_tpu"))
 print("ok")
 """
 
@@ -62,4 +84,6 @@ def test_no_jax_or_reference_imports():
   assert len(files) > 10
   for path in files:
     roots = set(_imported_roots(path))
-    assert not roots & {"jax", "jaxlib", "envpool_tpu", "optree"}, path
+    assert not roots & {
+      "jax", "jaxlib", "flax", "optax", "envpool_tpu", "optree"
+    }, path
