@@ -24,9 +24,9 @@ Phases (any failure exits non-zero before the result lines):
      into a CPU pool, one step each with the same actions;
   6. Sokoban-v0, the headline workload, at the width ``bench.py`` runs it:
      ``make_gymnasium("Sokoban-v0", num_envs=16384, max_episode_steps=60,
-     levels_dir="", n_levels_to_load=1024)``, reset + 300 steps of random
+     levels_dir="", n_levels_to_load=1024)``, reset + 200 steps of random
      actions in [-1, 3] (every lane must auto-reset, NaN rewards exactly at
-     the noops), timed through ``step`` and through a 300-step ``xla()``
+     the noops), timed through ``step`` and through a 200-step ``xla()``
      loop; sequential mode on the sample levels (1024 envs, 200 steps: the
      level indices follow the stream); a 256-env pool of each mode on the
      card against the CPU port over 200 steps, every output field bit for
@@ -46,7 +46,19 @@ Phases (any failure exits non-zero before the result lines):
      and key (TF32 off; equal actions >= 0.99, parameters within 1e-4); PPO
      learning CartPole-v1 on the card with ``tests/test_learning.py``'s
      configuration and asserts;
-  9. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
+  9. the small device families, which reach no kernel of their own:
+     PongJaxDemo-v5 at 4096 envs for 128 steps (``bench.py:343-344``;
+     gray, 84x84, stack 4, frame_skip 4), MiniGrid-Empty-8x8-v0 and
+     MiniGrid-Empty-Random-6x6-v0 at 8192 envs (``bench.py:338-339``) and
+     every toy text id at 8192 envs, 300 steps each, numpy-seeded uniform
+     actions: env-steps/s through ``step`` (and the ``xla()`` loop for Pong
+     and MiniGrid), one traced ``xla()`` step (device time, launches, idle
+     share), peak memory; then every toy text and MiniGrid id and Pong at
+     256 envs on the card against the CPU port until every lane has ended
+     an episode (Pong also from scores one point short of 21): every output
+     field and the final state bit for bit, Pong's observations to the
+     resize rule (at most 1 level off, on under 0.5% of the pixels);
+ 10. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or outside a checkout, it fails and prints no result.
 """
@@ -419,14 +431,14 @@ def profile_steps(torch, env, acts):
   return profile_call(torch, run, steps)
 
 
-def log_profile(name, busy_us, rows, step_us, card) -> None:
+def log_profile(name, busy_us, rows, step_us, card, top=12) -> None:
   if busy_us <= 0:
     log(f"profile: {name}: the profiler saw no device time (not measured)")
     return
   log(f"profile: {name}, device kernels {busy_us:.1f} us per step in "
       f"{sum(r[2] for r in rows):.0f} launches; untraced step {step_us:.1f} "
       f"us, so the device idles {100 * (1 - busy_us / step_us):.1f}% [{card}]")
-  for kname, us, count in rows[:12]:
+  for kname, us, count in rows[:top]:
     log(f"  {us:9.1f} us/step {count:6.1f} launches/step  {kname[:100]}")
 
 
@@ -461,7 +473,7 @@ def card_vs_cpu(envpool_torch, env, action) -> dict:
 # --------------------------------------------------------------- phase 6
 
 SOKOBAN_ENVS = 16384
-SOKOBAN_STEPS = 300
+SOKOBAN_STEPS = 200
 # bench.py's Sokoban-v0 cell (bench.py:309-317)
 SOKOBAN_KW = dict(max_episode_steps=60, levels_dir="", n_levels_to_load=1024)
 
@@ -813,6 +825,197 @@ def ppo_learns_cartpole(torch, envpool_torch, device) -> list:
   return rewards
 
 
+# --------------------------------------------------------------- phase 9
+
+# bench.py's small device cells: MiniGrid-Empty-8x8-v0 at 8192 envs
+# (bench.py:338-339) and PongJaxDemo-v5 at 4096 envs x 128 steps
+# (bench.py:343-344); the random-start MiniGrid path and the toy text ids at
+# the MiniGrid width
+PONG_ENVS, PONG_STEPS = 4096, 128
+SMALL_ENVS, SMALL_STEPS = 8192, 300
+# task id -> (action count, the rewards a step may give; an auto-reset
+# step gives 0)
+TOY_TEXT = {
+  "Catch-v0": (3, {-1.0, 0.0, 1.0}),
+  "FrozenLake-v1": (4, {0.0, 1.0}),
+  "FrozenLake8x8-v1": (4, {0.0, 1.0}),
+  "Taxi-v3": (6, {-10.0, -1.0, 0.0, 20.0}),
+  "NChain-v0": (2, {0.0, 2.0, 10.0}),
+  "CliffWalking-v0": (4, {-100.0, -1.0, 0.0}),
+  "Blackjack-v1": (2, {-1.0, 0.0, 1.0}),
+}
+MINIGRID = ("MiniGrid-Empty-8x8-v0", "MiniGrid-Empty-Random-6x6-v0")
+PONG_CARD_CPU_STEPS = 101   # every lane truncates once at the cap of 100
+PONG_WIN_STEPS = 30         # then from scores one point short of 21
+
+
+def small_actions(seed: int, steps: int, n: int, n_act: int) -> np.ndarray:
+  return np.random.default_rng(seed).integers(0, n_act, (steps, n)).astype(np.int32)
+
+
+def small_family(torch, envpool_torch, device, task_id, n, steps, n_act, check,
+                 card, xla=True):
+  """reset + ``steps`` uniform random actions through ``step`` (outputs
+  copied to the host), ``check(obs, rew, info, dones, total)`` on the last
+  step (``dones`` and ``total`` summed over the run per lane), then the same count through the ``xla()`` loop (with
+  ``xla``), a traced ``xla()`` step (device time, launches, idle share) and
+  the peak memory."""
+  env = envpool_torch.make_gymnasium(task_id, num_envs=n, seed=SEED, device=device)
+  torch.cuda.reset_peak_memory_stats()
+  acts = small_actions(SEED + 14, steps, n, n_act)
+  env.reset()
+  dones = np.zeros(n, np.int64)
+  total = np.zeros(n, np.float64)
+  sync(torch, device)
+  t0 = time.perf_counter()
+  for a in acts:
+    obs, rew, term, trunc, info = env.step(a)
+    dones += term | trunc
+    total += rew
+  secs = time.perf_counter() - t0
+  check(obs, rew, info, dones, total)
+  res = {"sps": steps * n / secs, "step_ms": 1e3 * secs / steps, "episodes": int(dones.sum())}
+  dev_acts = torch.from_numpy(acts).to(device)
+  if xla:
+    handle, _, send, _ = env.xla()
+    sync(torch, device)
+    t1 = time.perf_counter()
+    for i in range(steps):
+      handle = send(handle, dev_acts[i])
+    sync(torch, device)
+    secs_xla = time.perf_counter() - t1
+    res.update(sps_xla=steps * n / secs_xla, xla_step_ms=1e3 * secs_xla / steps)
+    env.commit(handle)
+  busy_us, rows = profile_steps(torch, env, dev_acts[:3])
+  step_us = 1e3 * res.get("xla_step_ms", res["step_ms"])
+  res.update(busy_ms=busy_us / 1e3, launches=sum(r[2] for r in rows),
+             idle=1 - busy_us / step_us if busy_us > 0 else None,
+             peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+  rate = (f"{res['sps']:.1f} env-steps/s via step, {res['sps_xla']:.1f} in the "
+          f"xla() loop" if xla else f"{res['sps']:.1f} env-steps/s via step")
+  log(f"{task_id}: {n} envs, reset + {steps} steps, {res['episodes']} episodes "
+      f"ended; {rate}; peak memory {res['peak_gib']:.3f} GiB [{card}]")
+  log_profile(f"{task_id} xla() step of {n} envs", busy_us, rows, step_us, card, top=4)
+  return res
+
+
+def pong_check(obs, rew, info, dones, total):
+  """Pong after 128 steps: no episode ended (the cap is 27000 and 21 points
+  take longer), so every lane's score difference equals its summed rewards;
+  points were scored; the frames carry paddles and ball."""
+  assert obs.shape == (PONG_ENVS, 4, 84, 84) and obs.dtype == np.uint8
+  assert set(np.unique(rew)) <= {-1.0, 0.0, 1.0}
+  assert dones.sum() == 0, "a Pong episode ended within 128 steps"
+  np.testing.assert_array_equal(info["score"][:, 0] - info["score"][:, 1], total)
+  assert np.abs(total).sum() > 0, "no point scored"
+  assert len(np.unique(obs[:, -1])) > 2
+
+
+def minigrid_check(task_id):
+  def check(obs, rew, info, dones, total):
+    assert obs["image"].shape == (SMALL_ENVS, 7, 7, 3)
+    assert ((rew >= 0) & (rew < 1)).all()
+    assert dones.min() >= 1, f"{task_id}: a lane never ended an episode"
+  return check
+
+
+def toy_text_check(task_id):
+  rewards = TOY_TEXT[task_id][1]
+
+  def check(obs, rew, info, dones, total):
+    assert set(np.unique(rew)) <= rewards, (task_id, np.unique(rew))
+    assert len(obs) == SMALL_ENVS
+  return check
+
+
+def pool_run(envpool_torch, task_id, device, acts, kw, state=None):
+  """A pool's raw outputs (spec order) through reset + a step per action
+  row, or, from ``state``, a step per row; and its final snapshot."""
+  env = envpool_torch.make_gymnasium(
+    task_id, num_envs=acts.shape[1], seed=SEED, device=device, **kw
+  )
+  outs = []
+  if state is None:
+    env.async_reset()
+    outs.append(env._recv())
+  else:
+    env.load_state(state)
+  for a in acts:
+    env.send(a)
+    outs.append(env._recv())
+  return env.spec._state_keys, outs, env.save_state()
+
+
+def frames_close(got, want) -> int:
+  """The resize rule: at most 1 level off, on under 0.5% of the pixels;
+  returns the count off."""
+  d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+  if d.max() > 1 or (d > 0).mean() >= 0.005:
+    raise AssertionError(f"frames: max diff {d.max()}, share off {(d > 0).mean()}")
+  return int((d > 0).sum())
+
+
+def compare_runs(task_id, card_run, cpu_run) -> dict:
+  """Every output field of the card's run against the CPU port's: bit for
+  bit, observations of Pong to the resize rule; the final env state bit
+  for bit."""
+  (keys, got, g_st), (_, want, w_st) = card_run, cpu_run
+  off = 0
+  for t, (g, w) in enumerate(zip(got, want)):
+    for k, gv, wv in zip(keys, g, w):
+      if gv.dtype != wv.dtype:
+        raise AssertionError(f"{task_id} step {t} {k}: dtype {gv.dtype} != {wv.dtype}")
+      if k == "obs" and task_id == "PongJaxDemo-v5":
+        off += frames_close(gv, wv)
+      else:
+        np.testing.assert_array_equal(gv, wv, err_msg=f"{task_id} step {t} {k}")
+  for k in w_st.env:
+    if not (k == "stack" and task_id == "PongJaxDemo-v5"):
+      np.testing.assert_array_equal(g_st.env[k], w_st.env[k], err_msg=f"{task_id} {k}")
+  np.testing.assert_array_equal(g_st.rng, w_st.rng)
+  done = np.stack([o[keys.index("done")] for o in want])
+  return {"outputs": len(got), "fields": len(keys), "pixels_off": off,
+          "episodes": int(done.sum()), "lanes_ended": float(done.any(0).mean())}
+
+
+def small_card_vs_cpu(envpool_torch, device, n=256, steps=60) -> dict:
+  """Every toy text and MiniGrid id and Pong, 256 envs on the card and on
+  the CPU port from the same seed and actions. The caps above 50 are cut to
+  50 so that every lane ends an episode in 60 steps; Pong keeps a cap of
+  100 for 101 steps, then both continue 30 steps from the card's state with
+  the scores set one point short of 21 (its 21-point end)."""
+  res = {}
+  ids = [(t, TOY_TEXT[t][0]) for t in TOY_TEXT] + [(t, 7) for t in envpool_torch.list_all_envs()
+                                                    if t.startswith("MiniGrid-")]
+  for task_id, n_act in ids:
+    cap = envpool_torch.make_spec(task_id).config.max_episode_steps
+    kw = {"max_episode_steps": 50} if cap > 50 else {}
+    acts = small_actions(SEED + 16, steps, n, n_act)
+    res[task_id] = compare_runs(
+      task_id, *(pool_run(envpool_torch, task_id, d, acts, kw) for d in (device, "cpu"))
+    )
+    if res[task_id]["lanes_ended"] < 1:
+      raise AssertionError(f"{task_id}: a lane never ended an episode")
+  kw = {"max_episode_steps": 100}
+  acts = small_actions(SEED + 17, PONG_CARD_CPU_STEPS, n, 6)
+  card_run = pool_run(envpool_torch, "PongJaxDemo-v5", device, acts, kw)
+  res["PongJaxDemo-v5"] = compare_runs(
+    "PongJaxDemo-v5", card_run, pool_run(envpool_torch, "PongJaxDemo-v5", "cpu", acts, kw)
+  )
+  state = card_run[2]
+  score = np.asarray([[20, 20], [20, 19], [19, 20], [20, 20]] * (n // 4), np.int32)
+  state = state._replace(env={**state.env, "score": score},
+                         elapsed=np.zeros_like(state.elapsed), done=np.zeros_like(state.done))
+  acts = small_actions(SEED + 18, PONG_WIN_STEPS, n, 6)
+  win = compare_runs("PongJaxDemo-v5", *(
+    pool_run(envpool_torch, "PongJaxDemo-v5", d, acts, kw, state) for d in (device, "cpu")
+  ))
+  if win["episodes"] < n // 2:
+    raise AssertionError(f"Pong: {win['episodes']} 21-point ends of {n} lanes")
+  res["PongJaxDemo-v5 (21-point end)"] = win
+  return res
+
+
 def main() -> int:
   import torch
 
@@ -823,6 +1026,7 @@ def main() -> int:
   import envpool_torch
   from envpool_torch import _build
   from envpool_torch.envs.box2d import sampler
+  from envpool_torch.envs.toy_text.blackjack import MAX_DEALER_DRAWS
 
   device = "cuda"
   t_start = time.perf_counter()
@@ -946,7 +1150,34 @@ def main() -> int:
       f"{[round(r, 4) for r in rewards]}")
   log(f"PPO phases: {time.perf_counter() - t8:.1f} s")
 
-  # 9. results
+  # 9. the small device families: Pong, MiniGrid, toy text
+  t9 = time.perf_counter()
+  small = {"PongJaxDemo-v5": small_family(
+    torch, envpool_torch, device, "PongJaxDemo-v5", PONG_ENVS, PONG_STEPS, 6,
+    pong_check, card)}
+  for task_id in MINIGRID:
+    small[task_id] = small_family(torch, envpool_torch, device, task_id, SMALL_ENVS,
+                                  SMALL_STEPS, 7, minigrid_check(task_id), card)
+  for task_id, (n_act, _) in TOY_TEXT.items():
+    small[task_id] = small_family(torch, envpool_torch, device, task_id, SMALL_ENVS,
+                                  SMALL_STEPS, n_act, toy_text_check(task_id), card,
+                                  xla=False)
+  log(f"toy text launches per step at {SMALL_ENVS} envs: " + ", ".join(
+    f"{t} {small[t]['launches']:.0f}" for t in TOY_TEXT
+  ) + f"; of them Blackjack-v1 (the dealer's key chain of "
+      f"{MAX_DEALER_DRAWS} splits and its draws) {small['Blackjack-v1']['launches']:.0f}")
+  t9c = time.perf_counter()
+  for task_id, r in small_card_vs_cpu(envpool_torch, device).items():
+    obs = (f", obs to the resize rule ({r['pixels_off']} pixels off by 1)"
+           if task_id.startswith("Pong") else "")
+    log(f"{task_id} card vs cpu port, 256 envs, {r['outputs']} outputs: "
+        f"{r['fields']} output fields bit-exact{obs}; {r['episodes']} episodes "
+        f"ended ({100 * r['lanes_ended']:.0f}% of lanes); final state equal")
+  log(f"small families: {time.perf_counter() - t9:.1f} s (card vs cpu "
+      f"{time.perf_counter() - t9c:.1f} s)")
+  log(json.dumps({"small_families": small}))
+
+  # 10. results
   log(f"total {time.perf_counter() - t_start:.1f} s")
   main_case = kres["cases"]["real_fine"]
   kernel = {

@@ -8,13 +8,13 @@ A port of jax 0.9.0's default key stream (``jax/_src/prng.py``:
 derives per-env keys with it (``pool.py``) and families draw from it
 (``car_racing.py`` picks the track with ``randint``; ``sokoban.py`` draws
 levels with ``split``/``randint`` and episode caps with ``bits``;
-``cartpole.py`` resets with ``uniform``), so the port must reproduce it bit
-for bit to start from the same seed in the same state. The trainer draws
-``categorical`` actions (Gumbel-max), ``normal`` noise and ``permutation``
-minibatch orders (``train/ppo.py``), and the networks' own initialisation
-``truncated_normal`` (``models/nets.py``): the integer draws are exact, the
-float ones pass through ``log`` and ``erfinv`` and may differ from XLA's by
-a few ulps.
+``cartpole.py`` resets with ``uniform``; Pong's serve draws ``bernoulli``),
+so the port must reproduce it bit for bit to start from the same seed in
+the same state. The trainer draws ``categorical`` actions (Gumbel-max),
+``normal`` noise and ``permutation`` minibatch orders (``train/ppo.py``),
+and the networks' own initialisation ``truncated_normal``
+(``models/nets.py``): the integer draws are exact, the float ones pass
+through ``log`` and ``erfinv`` and may differ from XLA's by a few ulps.
 
 Keys are raw ``[..., 2]`` tensors of uint32 values held in ``int64``
 (torch's uint32 has no arithmetic on every device); all arithmetic is done
@@ -125,7 +125,7 @@ def randint(
   return out.to(torch.int32)
 
 
-def _fma32(a: torch.Tensor, b: Union[torch.Tensor, float], c: Union[torch.Tensor, float]) -> torch.Tensor:
+def fma32(a: torch.Tensor, b: Union[torch.Tensor, float], c: Union[torch.Tensor, float]) -> torch.Tensor:
   """float32 ``a * b + c`` rounded once, as XLA-CPU's contracted
   multiply-add: the float64 product of two float32 is exact."""
   return (a.double() * b + c).float()
@@ -150,7 +150,15 @@ def uniform(
   bits = random_bits(keys, shape)
   mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
   floats = mant.view(torch.float32) - 1.0
-  return torch.clamp_min(_fma32(floats, float(span), float(lo)), float(lo))
+  return torch.clamp_min(fma32(floats, float(span), float(lo)), float(lo))
+
+
+def bernoulli(
+  keys: torch.Tensor, shape: Sequence[int] = (), p: float = 0.5
+) -> torch.Tensor:
+  """``jax.random.bernoulli(key, p, shape)`` batched, in jax's default
+  "low" mode: ``uniform(key, shape, 0, 1) < p`` in float32."""
+  return uniform(keys, shape, 0.0, 1.0) < float(np.float32(p))
 
 
 # Giles' erfinv polynomials as XLA builds ``erf_inv`` for float32 (the
@@ -175,7 +183,7 @@ def _erfinv32(x: torch.Tensor) -> torch.Tensor:
   w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
   p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
   for c_lt, c_ge in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
-    p = _fma32(p, w, torch.where(lt, c_lt, c_ge))
+    p = fma32(p, w, torch.where(lt, c_lt, c_ge))
   return torch.where(x.abs() == 1.0, x * float(np.finfo(np.float32).max), p * x)
 
 

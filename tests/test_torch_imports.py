@@ -1,7 +1,7 @@
 """The port stands alone: it imports without jax, flax and optax (and
-without optree, gymnasium and dm_env), every family steps and one PPO
-iteration runs so, and no file of it imports jax, flax, optax or
-envpool_tpu."""
+without optree, gymnasium and dm_env), lists its ids in the JAX package's
+order, every family steps and one PPO iteration runs so, and no file of it
+imports jax, flax, optax or envpool_tpu."""
 
 import ast
 import os
@@ -19,11 +19,16 @@ for name in ("jax", "jaxlib", "flax", "optax", "optree", "gymnasium", "dm_env",
 import numpy as np
 import envpool_torch
 import envpool_torch.models
+import envpool_torch.ops
 import envpool_torch.train
 assert envpool_torch.list_all_envs() == [
   "Dummy-v0", "CartPole-v0", "CartPole-v1", "Pendulum-v0", "Pendulum-v1",
-  "MountainCar-v0", "MountainCarContinuous-v0", "Acrobot-v1", "CarRacing-v2",
-  "Sokoban-v0",
+  "MountainCar-v0", "MountainCarContinuous-v0", "Acrobot-v1", "Catch-v0",
+  "FrozenLake-v1", "FrozenLake8x8-v1", "Taxi-v3", "NChain-v0",
+  "CliffWalking-v0", "Blackjack-v1", "CarRacing-v2", "PongJaxDemo-v5",
+  "MiniGrid-Empty-5x5-v0", "MiniGrid-Empty-Random-5x5-v0",
+  "MiniGrid-Empty-6x6-v0", "MiniGrid-Empty-Random-6x6-v0",
+  "MiniGrid-Empty-8x8-v0", "MiniGrid-Empty-16x16-v0", "Sokoban-v0",
 ], envpool_torch.list_all_envs()
 for task_id, kw, obs_shape, action in (
   ("CarRacing-v2", dict(n_tracks=1), (2, 96, 96, 3), np.zeros((2, 3), np.float32)),
@@ -34,12 +39,20 @@ for task_id, kw, obs_shape, action in (
   ("MountainCar-v0", {}, (2, 2), np.zeros(2, np.int32)),
   ("MountainCarContinuous-v0", {}, (2, 2), np.zeros((2, 1), np.float32)),
   ("Dummy-v0", {}, (2, 2), np.zeros(2, np.int32)),
+  ("Catch-v0", {}, (2, 10, 5), np.zeros(2, np.int32)),
+  ("FrozenLake-v1", {}, (2,), np.zeros(2, np.int32)),
+  ("Taxi-v3", {}, (2,), np.zeros(2, np.int32)),
+  ("NChain-v0", {}, (2,), np.zeros(2, np.int32)),
+  ("CliffWalking-v0", {}, (2,), np.zeros(2, np.int32)),
+  ("Blackjack-v1", {}, (2, 3), np.zeros(2, np.int32)),
+  ("MiniGrid-Empty-Random-6x6-v0", {}, (2, 7, 7, 3), np.zeros(2, np.int32)),
+  ("PongJaxDemo-v5", {}, (2, 4, 84, 84), np.zeros(2, np.int32)),
 ):
   env = envpool_torch.make_gymnasium(
     task_id, num_envs=2, seed=0, device="cpu", **kw
   )
   obs, info = env.reset()
-  obs = obs["raw"] if isinstance(obs, dict) else obs
+  obs = obs.get("raw", obs.get("image")) if isinstance(obs, dict) else obs
   assert obs.shape == obs_shape, (task_id, obs.shape)
   obs, rew, term, trunc, info = env.step(action)
   assert info["elapsed_step"].tolist() == [1, 1], task_id

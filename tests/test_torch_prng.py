@@ -69,3 +69,23 @@ def test_random_bits():
   want = np.asarray(jax.vmap(lambda k: jax.random.bits(k, (7,)))(jk))
   got = prng.random_bits(_torch_pool_keys(0), (7,))
   np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("p", [0.5, 0.2, 0.9])
+@pytest.mark.parametrize("shape", [(), (5,)])
+def test_bernoulli(seed, p, shape):
+  jk = jnp.asarray(_jax_pool_keys(seed))
+  want = np.asarray(jax.vmap(lambda k: jax.random.bernoulli(k, p, shape))(jk))
+  got = prng.bernoulli(_torch_pool_keys(seed), shape, p)
+  assert got.dtype == torch.bool and got.shape == want.shape
+  np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_bernoulli_many_keys():
+  """p = 0.5, Pong's serve draw, over 4096 split keys: both outcomes."""
+  keys = jax.random.split(jax.random.PRNGKey(3), 4096)
+  want = np.asarray(jax.vmap(jax.random.bernoulli)(keys))
+  got = prng.bernoulli(torch.from_numpy(np.asarray(keys).astype(np.int64)))
+  np.testing.assert_array_equal(got.numpy(), want)
+  assert 0.45 < want.mean() < 0.55
