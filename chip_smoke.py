@@ -24,9 +24,9 @@ Phases (any failure exits non-zero before the result lines):
      into a CPU pool, one step each with the same actions;
   6. Sokoban-v0, the headline workload, at the width ``bench.py`` runs it:
      ``make_gymnasium("Sokoban-v0", num_envs=16384, max_episode_steps=60,
-     levels_dir="", n_levels_to_load=1024)``, reset + 200 steps of random
+     levels_dir="", n_levels_to_load=1024)``, reset + 150 steps of random
      actions in [-1, 3] (every lane must auto-reset, NaN rewards exactly at
-     the noops), timed through ``step`` and through a 200-step ``xla()``
+     the noops), timed through ``step`` and through a 150-step ``xla()``
      loop; sequential mode on the sample levels (1024 envs, 200 steps: the
      level indices follow the stream); a 256-env pool of each mode on the
      card against the CPU port over 200 steps, every output field bit for
@@ -49,16 +49,29 @@ Phases (any failure exits non-zero before the result lines):
   9. the small device families, which reach no kernel of their own:
      PongJaxDemo-v5 at 4096 envs for 128 steps (``bench.py:343-344``;
      gray, 84x84, stack 4, frame_skip 4), MiniGrid-Empty-8x8-v0 and
-     MiniGrid-Empty-Random-6x6-v0 at 8192 envs (``bench.py:338-339``) and
-     every toy text id at 8192 envs, 300 steps each, numpy-seeded uniform
-     actions: env-steps/s through ``step`` (and the ``xla()`` loop for Pong
-     and MiniGrid), one traced ``xla()`` step (device time, launches, idle
-     share), peak memory; then every toy text and MiniGrid id and Pong at
-     256 envs on the card against the CPU port until every lane has ended
+     MiniGrid-Empty-Random-6x6-v0 at 8192 envs (``bench.py:338-339``), 300
+     steps each, and every toy text id at 8192 envs, 150 steps each,
+     numpy-seeded uniform actions: env-steps/s through ``step`` (and the
+     ``xla()`` loop for Pong and MiniGrid), one traced ``xla()`` step
+     (device time, launches, idle share), peak memory; then every toy text
+     and MiniGrid id and Pong at 256 envs on the card against the CPU port
+     until every lane has ended
      an episode (Pong also from scores one point short of 21): every output
      field and the final state bit for bit, Pong's observations to the
      resize rule (at most 1 level off, on under 0.5% of the pixels);
- 10. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
+ 10. the Box2D family, which reaches no kernel of its own: each of
+     LunarLander-v2, LunarLanderContinuous-v2, BipedalWalker-v3 and
+     BipedalWalkerHardcore-v3 at 8192 envs (``bench.py:336-337``'s width),
+     reset + 300 numpy-seeded uniform actions, half through ``step`` and
+     half in the ``xla()`` loop: env-steps/s, every reward finite, the
+     observations finite (the walkers' lanes that blew up are counted), the
+     lidar in [0, 1], episodes ended and each auto-reset FIRST with elapsed
+     0 and reward 0, one traced ``xla()`` step, peak memory; then each id at
+     256 envs on the card against the CPU port over a horizon (100 steps,
+     the walkers 10), the lanes that part counted against a bound, the
+     others to 1e-3 relative with integer, bool, contact and lidar fields
+     equal;
+ 11. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or outside a checkout, it fails and prints no result.
 """
@@ -473,7 +486,7 @@ def card_vs_cpu(envpool_torch, env, action) -> dict:
 # --------------------------------------------------------------- phase 6
 
 SOKOBAN_ENVS = 16384
-SOKOBAN_STEPS = 200
+SOKOBAN_STEPS = 150
 # bench.py's Sokoban-v0 cell (bench.py:309-317)
 SOKOBAN_KW = dict(max_episode_steps=60, levels_dir="", n_levels_to_load=1024)
 
@@ -833,6 +846,7 @@ def ppo_learns_cartpole(torch, envpool_torch, device) -> list:
 # the MiniGrid width
 PONG_ENVS, PONG_STEPS = 4096, 128
 SMALL_ENVS, SMALL_STEPS = 8192, 300
+TOY_TEXT_STEPS = 150   # 300 until the Box2D phase came
 # task id -> (action count, the rewards a step may give; an auto-reset
 # step gives 0)
 TOY_TEXT = {
@@ -1016,6 +1030,188 @@ def small_card_vs_cpu(envpool_torch, device, n=256, steps=60) -> dict:
   return res
 
 
+# --------------------------------------------------------------- phase 10
+
+# bench.py runs LunarLander-v2 at 8192 envs (bench.py:336-337); the other
+# Box2D ids at the same width. Each id runs 300 steps after a reset: the
+# first half through step (outputs copied to the host), the second half in
+# the xla() loop.
+BOX2D_ENVS, BOX2D_STEPS = 8192, 300
+BOX2D_IDS = ("LunarLander-v2", "LunarLanderContinuous-v2", "BipedalWalker-v3",
+             "BipedalWalkerHardcore-v3")
+# the card against the CPU port: 256 envs over a horizon per id. The
+# landers are smooth; the walkers' 9 simultaneous contact impulses are
+# chaotic, so an ulp grows into a lane that parts within tens of steps
+# (tests/test_torch_bipedal_walker.py), and their horizon is short
+BOX2D_CMP_ENVS = 256
+BOX2D_CMP = {   # task id -> (steps, share of lanes that may part)
+  "LunarLander-v2": (100, 0.05), "LunarLanderContinuous-v2": (100, 0.05),
+  "BipedalWalker-v3": (10, 0.25), "BipedalWalkerHardcore-v3": (10, 0.25),
+}
+BOX2D_TOL = 1e-3   # float fields: |card - cpu| <= BOX2D_TOL * (1 + |cpu|)
+# the share of walker lanes that may blow up to NaN in a run (the CPU port
+# and the JAX package: 78 of 1024 BipedalWalker-v3 lanes in 300 steps)
+BOX2D_BLOWN_UP = 0.2
+
+
+def box2d_actions(task_id: str, seed: int, steps: int, n: int) -> np.ndarray:
+  """Uniform actions in the id's action space."""
+  rng = np.random.default_rng(seed)
+  if task_id == "LunarLander-v2":
+    return rng.integers(0, 4, (steps, n)).astype(np.int32)
+  width = 2 if task_id.startswith("LunarLander") else 4
+  return rng.uniform(-1, 1, (steps, n, width)).astype(np.float32)
+
+
+def box2d_family(torch, envpool_torch, device, task_id, card) -> dict:
+  """reset + BOX2D_STEPS uniform random actions at BOX2D_ENVS envs, half
+  through step and half in the xla() loop, with the checks: rewards and
+  discounts finite, observations and rewards finite (the walkers: but
+  for the lanes that blew up, counted and bounded), the lidar in [0, 1], some lanes end an episode and
+  each auto-reset gives elapsed 0, reward 0 and FIRST; then a traced
+  xla() step and the peak memory."""
+  n, half = BOX2D_ENVS, BOX2D_STEPS // 2
+  env = envpool_torch.make_gymnasium(task_id, num_envs=n, seed=SEED, device=device)
+  torch.cuda.reset_peak_memory_stats()
+  acts = box2d_actions(task_id, SEED + 19, BOX2D_STEPS, n)
+  env.reset()
+  host = []
+  sync(torch, device)
+  t0 = time.perf_counter()
+  for a in acts[:half]:
+    host.append(env.step(a))
+  secs = time.perf_counter() - t0
+  # the pool's own peak: the xla() half below keeps its outputs for the checks
+  peak = torch.cuda.max_memory_allocated()
+  dev_acts = torch.from_numpy(acts[half:]).to(device)
+  handle, _, send, _ = env.xla()
+  outs = []
+  sync(torch, device)
+  t1 = time.perf_counter()
+  for a in dev_acts:
+    handle = send(handle, a)
+    outs.append(handle.out)
+  sync(torch, device)
+  secs_xla = time.perf_counter() - t1
+  env.commit(handle)
+  res = {"sps": half * n / secs, "step_ms": 1e3 * secs / half,
+         "sps_xla": half * n / secs_xla, "xla_step_ms": 1e3 * secs_xla / half}
+  keys = env.spec._state_keys
+  field = {k: np.stack([o[keys.index(k)].cpu().numpy() for o in outs])
+           for k in ("obs", "reward", "discount", "done", "elapsed_step", "step_type")}
+  obs = np.concatenate([np.stack([h[0] for h in host]), field["obs"]])
+  rew = np.concatenate([np.stack([h[1] for h in host]), field["reward"]])
+  done = np.concatenate([np.stack([h[2] | h[3] for h in host]), field["done"]])
+  assert np.isfinite(field["discount"]).all(), task_id
+  bad = ~(np.isfinite(obs).all(-1) & np.isfinite(rew))
+  if task_id.startswith("LunarLander"):
+    assert not bad.any(), f"{task_id}: {int(bad.sum())} non-finite outputs"
+  else:
+    # the JAX package's walker blows up to NaN in a few lanes under random
+    # actions (its 9 contact impulses are applied together), and a NaN lane
+    # that did not fall in that step runs on to the time limit; the port
+    # reproduces it
+    lanes = bad.any(0)
+    assert lanes.mean() < BOX2D_BLOWN_UP, f"{task_id}: {int(lanes.sum())} lanes blew up"
+    lidar = obs[..., 14:][~bad]
+    assert ((lidar >= 0) & (lidar <= 1)).all(), f"{task_id}: lidar outside [0, 1]"
+  assert done.any(), f"{task_id}: no lane ended an episode"
+  # the xla() half: a lane done at t restarts at t + 1
+  after = field["done"][:-1]
+  for k, first in (("elapsed_step", 0), ("reward", 0.0), ("step_type", 0)):
+    assert (field[k][1:][after] == first).all(), f"{task_id}: auto-reset {k}"
+  res.update(episodes=int(done.sum()), auto_resets=int(after.sum()),
+             nonfinite_obs=int(bad.sum()), nonfinite_lanes=int(bad.any(0).sum()))
+  busy_us, rows = profile_steps(torch, env, dev_acts[:3])
+  step_us = 1e3 * res["xla_step_ms"]
+  res.update(busy_ms=busy_us / 1e3, launches=sum(r[2] for r in rows),
+             idle=1 - busy_us / step_us if busy_us > 0 else None,
+             peak_gib=peak / 2**30)
+  log(f"{task_id}: {n} envs, reset + {half} steps via step ({res['sps']:.1f} "
+      f"env-steps/s) + {half} in the xla() loop ({res['sps_xla']:.1f} env-steps/s); "
+      f"{res['episodes']} episodes ended, {res['auto_resets']} auto-resets checked; "
+      f"{res['nonfinite_obs']} non-finite observations in {res['nonfinite_lanes']} "
+      f"lanes; peak memory {res['peak_gib']:.3f} GiB [{card}]")
+  log_profile(f"{task_id} xla() step of {n} envs", busy_us, rows, step_us, card, top=8)
+  return res
+
+
+def box2d_blocks(torch, envpool_torch, device, task_id, card) -> dict:
+  """The largest blocks of a walker step's launches, each traced alone at
+  BOX2D_ENVS envs: the reset's terrain, one physics step (8 substeps, the
+  lidar, the obs) and the lander's physics step for comparison."""
+  from envpool_torch.core import prng
+  from envpool_torch.envs.box2d import bipedal_walker
+
+  keys = prng.split(prng.prng_key(SEED, device), BOX2D_ENVS)
+  env_cls = envpool_torch.make_spec(task_id)._env_cls
+  state, _, _ = env_cls.reset(None, None, keys)
+  action = torch.from_numpy(box2d_actions(task_id, SEED + 21, 1, BOX2D_ENVS)[0]).to(device)
+  blocks = {"physics step": lambda: env_cls.step(None, state, action, keys),
+            "reset": lambda: env_cls.reset(None, None, keys)}
+  if task_id.startswith("Bipedal"):
+    blocks["terrain"] = lambda: bipedal_walker._terrain_heights(keys, env_cls.hardcore)
+  res = {}
+  for name, fn in blocks.items():
+    fn()
+    busy_us, rows = profile_call(torch, fn)
+    res[name] = {"busy_ms": busy_us / 1e3, "launches": sum(r[2] for r in rows)}
+  log(f"{task_id} blocks at {BOX2D_ENVS} envs (each traced alone): " + "; ".join(
+    f"{k} {v['launches']:.0f} launches, {v['busy_ms']:.3f} ms of device time"
+    for k, v in res.items()) + f" [{card}]")
+  return res
+
+
+def box2d_card_vs_cpu(torch, envpool_torch, device, task_id) -> dict:
+  """BOX2D_CMP_ENVS envs on the card and on the CPU port from the same seed
+  and actions over the id's horizon, with the process asking for TF32
+  (the walker's step holds it off itself). A lane parts at its first step
+  where an integer or bool field, a contact flag or the lidar differs, or a
+  float field by more than BOX2D_TOL * (1 + |x|); the reset's terrain is
+  equal bit for bit."""
+  steps, share = BOX2D_CMP[task_id]
+  acts = box2d_actions(task_id, SEED + 20, steps, BOX2D_CMP_ENVS)
+  flag = torch.backends.cuda.matmul.allow_tf32
+  torch.backends.cuda.matmul.allow_tf32 = True
+  try:
+    card_run = pool_run(envpool_torch, task_id, device, acts, {})
+  finally:
+    torch.backends.cuda.matmul.allow_tf32 = flag
+  cpu_run = pool_run(envpool_torch, task_id, "cpu", acts, {})
+  (keys, got, g_st), (_, want, w_st) = card_run, cpu_run
+  walker = task_id.startswith("Bipedal")
+  exact_obs = [8, 13] + list(range(14, 24)) if walker else [6, 7]
+  parted = np.zeros(BOX2D_CMP_ENVS, bool)
+  worst = np.zeros(BOX2D_CMP_ENVS)
+  for g, w in zip(got, want):
+    for k, gv, wv in zip(keys, g, w):
+      if gv.dtype != wv.dtype:
+        raise AssertionError(f"{task_id} {k}: dtype {gv.dtype} != {wv.dtype}")
+      if k in ("obs", "reward"):
+        gv2, wv2 = gv.reshape(len(gv), -1), wv.reshape(len(wv), -1)
+        err = np.abs(gv2.astype(np.float64) - wv2) / (1 + np.abs(wv2))
+        err = np.where(np.isnan(gv2) & np.isnan(wv2), 0.0, err)
+        worst = np.maximum(worst, err.max(1))
+        bad = ~(err <= BOX2D_TOL).all(1)
+        if k == "obs":
+          bad |= (gv2[:, exact_obs] != wv2[:, exact_obs]).any(1)
+      else:
+        bad = (gv != wv).reshape(len(gv), -1).any(1)
+      parted |= bad
+  terrain = "terrain" if walker else "smooth_y"
+  first = np.asarray(want[0][keys.index("elapsed_step")]) == 0
+  ends = np.stack([o[keys.index("done")] for o in want]).any(0)
+  # a lane that never ended kept its reset's terrain
+  keep = first & ~ends & ~parted
+  np.testing.assert_array_equal(g_st.env[terrain][keep], w_st.env[terrain][keep])
+  res = {"steps": steps, "lanes": BOX2D_CMP_ENVS, "parted": int(parted.sum()),
+         "max_rel_err_unparted": float(worst[~parted].max(initial=0.0)),
+         "terrain_lanes_equal": int(keep.sum())}
+  if parted.mean() > share:
+    raise AssertionError(f"{task_id} card vs cpu: {res}")
+  return res
+
+
 def main() -> int:
   import torch
 
@@ -1160,7 +1356,7 @@ def main() -> int:
                                   SMALL_STEPS, 7, minigrid_check(task_id), card)
   for task_id, (n_act, _) in TOY_TEXT.items():
     small[task_id] = small_family(torch, envpool_torch, device, task_id, SMALL_ENVS,
-                                  SMALL_STEPS, n_act, toy_text_check(task_id), card,
+                                  TOY_TEXT_STEPS, n_act, toy_text_check(task_id), card,
                                   xla=False)
   log(f"toy text launches per step at {SMALL_ENVS} envs: " + ", ".join(
     f"{t} {small[t]['launches']:.0f}" for t in TOY_TEXT
@@ -1177,7 +1373,26 @@ def main() -> int:
       f"{time.perf_counter() - t9c:.1f} s)")
   log(json.dumps({"small_families": small}))
 
-  # 10. results
+  # 10. the Box2D family: LunarLander and BipedalWalker, each id
+  t10 = time.perf_counter()
+  box2d = {t: box2d_family(torch, envpool_torch, device, t, card) for t in BOX2D_IDS}
+  for task_id in BOX2D_IDS:
+    box2d[task_id]["blocks"] = box2d_blocks(torch, envpool_torch, device, task_id, card)
+  t10c = time.perf_counter()
+  for task_id in BOX2D_IDS:
+    r = box2d_card_vs_cpu(torch, envpool_torch, device, task_id)
+    box2d[task_id]["card_vs_cpu"] = r
+    log(f"{task_id} card vs cpu port, {r['lanes']} envs, reset + {r['steps']} "
+        f"steps: {r['parted']} lanes parted (at most "
+        f"{BOX2D_CMP[task_id][1]:.0%} allowed), the others within "
+        f"{r['max_rel_err_unparted']:.3g} relative (limit {BOX2D_TOL:g}) with "
+        f"integer, bool, contact and lidar fields equal; the reset terrain "
+        f"of {r['terrain_lanes_equal']} lanes bit for bit")
+  log(f"Box2D: {time.perf_counter() - t10:.1f} s (card vs cpu "
+      f"{time.perf_counter() - t10c:.1f} s)")
+  log(json.dumps({"box2d": box2d}))
+
+  # 11. results
   log(f"total {time.perf_counter() - t_start:.1f} s")
   main_case = kres["cases"]["real_fine"]
   kernel = {

@@ -23,8 +23,9 @@ Semantics reproduced exactly (see tests/test_torch_*.py):
   port (``prng.py``), so both packages draw the same numbers.
 - env-side auto-reset families (``FuncEnv.env_resets``, Sokoban): the step
   returns done/trunc and, on a terminal step, the next episode's state and
-  obs; the pool takes ``elapsed_step`` from the step's info, marks FIRST
-  only where it is 0, and never schedules a reset of its own.
+  obs; the pool takes ``elapsed_step`` from the step's info (or counts
+  steps where the family does not report it), marks FIRST only where it
+  is 0, and never schedules a reset of its own.
 - static-shape multiplayer: per-player fields padded to
   ``max_num_players`` with reward/discount masks on the device, per-player
   action rows scattered on the host at ``send`` and padded rows compacted
@@ -269,8 +270,12 @@ class TorchEnvPool:
     if self._env_resets:
       # the step already reset its terminal lanes and reports the finishing
       # episode's counter (it restarts after the in-step reset and freezes
-      # on noops, which the pool cannot see)
-      elapsed = torch.where(need_reset, 0, info.pop("elapsed_step"))
+      # on noops, which the pool cannot see); a family that does not report
+      # it counts steps like any other
+      if "elapsed_step" in info:
+        elapsed = torch.where(need_reset, 0, info.pop("elapsed_step"))
+      else:
+        elapsed = torch.where(need_reset, 0, ps.elapsed + 1)
       done = torch.where(need_reset, False, st_term.to(torch.bool))
       trunc = torch.where(need_reset, False, st_trunc.to(torch.bool))
       # FIRST only right after an explicit reset; a terminal step is LAST
@@ -545,6 +550,9 @@ class TorchEnvPool:
 
   def commit(self, handle: XlaHandle) -> None:
     """Adopt an ``xla()`` handle's pool state as the host-side state."""
+    if self._multi_player:
+      # same gate as the JAX package's commit()
+      raise RuntimeError("commit() does not support multi-player envs")
     self._state = tree_map(torch.clone, handle.pool)
     self._pending.clear()
     self._last_out = None

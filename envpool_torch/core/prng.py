@@ -131,6 +131,19 @@ def fma32(a: torch.Tensor, b: Union[torch.Tensor, float], c: Union[torch.Tensor,
   return (a.double() * b + c).float()
 
 
+def inv32(c: float) -> float:
+  """The float32 reciprocal of a constant: XLA multiplies by it where the
+  JAX code divides by ``c`` (torch's CUDA division by a scalar does too,
+  its CPU one divides), so ``x * inv32(c)`` is the JAX package's ``x / c``."""
+  return float(np.float32(1.0) / np.float32(c))
+
+
+def mul32(c1: float, c2: float) -> float:
+  """The float32 product XLA folds the constant factors of ``(x * c1) * c2``
+  into."""
+  return float(np.float32(c1) * np.float32(c2))
+
+
 def uniform(
   keys: torch.Tensor, shape: Sequence[int], minval: float, maxval: float
 ) -> torch.Tensor:

@@ -50,7 +50,7 @@ def _device_weights(n_in: int, n_out: int, device: torch.device) -> torch.Tensor
 
 
 @contextlib.contextmanager
-def _no_tf32(device: torch.device):
+def no_tf32(device: torch.device):
   """float32 matmuls in full precision on the card (TF32 off), whatever the
   process set, e.g. a trainer's ``set_float32_matmul_precision``."""
   if device.type != "cuda":
@@ -79,7 +79,7 @@ def resize_area(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
   h_in, w_in = img.shape[-2], img.shape[-1]
   wh = _device_weights(h_in, h_out, img.device)
   ww = _device_weights(w_in, w_out, img.device)
-  with _no_tf32(img.device):
+  with no_tf32(img.device):
     # contract H then W: [..., h_out, W] then [..., h_out, w_out]
     x = torch.matmul(torch.matmul(wh, img.to(torch.float32)), ww.T)
   if img.dtype == torch.uint8:

@@ -367,3 +367,96 @@ def test_uniform_matches_jax_bit_for_bit(lo, hi) -> None:
   got = prng.uniform(keys, (4,), lo, hi).numpy()
   assert got.dtype == np.float32 and got.shape == (n, 4)
   np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+# ------------------------------------------ pool faults held to the reference
+
+
+def test_commit_refuses_multiplayer() -> None:
+  """``commit()`` has the JAX package's multi-player gate."""
+  kw = dict(num_envs=2, max_num_players=3)
+  want = envpool_tpu.make_gymnasium("Dummy-v0", **kw)
+  got = _gymnasium("Dummy-v0", **kw)
+  for env in (want, got):
+    with pytest.raises(RuntimeError, match="commit\\(\\) does not support multi-player"):
+      env.commit(None)
+
+
+class _JaxCountdown(envpool_tpu.core.env.FuncEnv):
+  """An env-side auto-reset family that reports no ``elapsed_step``: each
+  step takes 1 + action from a budget of 3 and, at 0, ends the episode and
+  restarts it within the step."""
+
+  name = "Countdown"
+  env_resets = True
+
+  @staticmethod
+  def state_spec(cfg):
+    return {"obs": envpool_tpu.core.spec.ArraySpec(np.int32, ())}
+
+  @staticmethod
+  def action_spec(cfg):
+    return {"action": envpool_tpu.core.spec.ArraySpec(np.int32, (-1,), 0, 1)}
+
+  @staticmethod
+  def reset(cfg, state, key):
+    left = jnp.int32(3)
+    return {"left": left}, left, {}
+
+  @staticmethod
+  def step(cfg, state, action, key):
+    left = state["left"] - 1 - action
+    done = left <= 0
+    left = jnp.where(done, 3, left)
+    return {"left": left}, left, action.astype(jnp.float32), done, jnp.bool_(False), {}
+
+
+class _TorchCountdown(envpool_torch.core.env.FuncEnv):
+  """The port's twin of ``_JaxCountdown``, batched."""
+
+  name = "Countdown"
+  env_resets = True
+  state_spec = _JaxCountdown.state_spec
+
+  @staticmethod
+  def action_spec(cfg):
+    return {"action": ArraySpec(np.int32, (-1,), 0, 1)}
+
+  @staticmethod
+  def reset(cfg, state, keys):
+    left = torch.full((keys.shape[0],), 3, dtype=torch.int32)
+    return {"left": left}, left, {}
+
+  @staticmethod
+  def step(cfg, state, action, keys):
+    left = state["left"] - 1 - action
+    done = left <= 0
+    left = torch.where(done, 3, left).to(torch.int32)
+    return ({"left": left}, left, action.to(torch.float32), done,
+            torch.zeros_like(done), {})
+
+
+def test_env_resets_family_without_elapsed_step() -> None:
+  """The ``env_resets`` branch counts ``ps.elapsed + 1`` when the family
+  reports no ``elapsed_step``, as the JAX pool does: every output of 8
+  steps equal."""
+  from envpool_torch.core.envpool_api import py_env as torch_py_env
+  from envpool_tpu.core.envpool_api import py_env as jax_py_env
+
+  pools = []
+  for py_env, cls, extra in ((jax_py_env, _JaxCountdown, ()),
+                             (torch_py_env, _TorchCountdown, ("cpu",))):
+    spec_cls, _, _, gymnasium_cls = py_env(cls)
+    pools.append(gymnasium_cls(spec_cls(spec_cls.gen_config(num_envs=4, seed=0)), *extra))
+  want, got = pools
+  w, g = want.reset(), got.reset()
+  np.testing.assert_array_equal(g[0], w[0])
+  rng = np.random.default_rng(0)
+  for _ in range(8):
+    act = rng.integers(0, 2, 4).astype(np.int32)
+    w, g = want.step(act), got.step(act)
+    for i in range(4):
+      np.testing.assert_array_equal(g[i], w[i])
+    for k in ("env_id", "elapsed_step"):
+      np.testing.assert_array_equal(g[4][k], w[4][k], err_msg=k)
+  assert w[4]["elapsed_step"].tolist() == [8] * 4

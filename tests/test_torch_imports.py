@@ -1,7 +1,7 @@
 """The port stands alone: it imports without jax, flax and optax (and
-without optree, gymnasium and dm_env), lists its ids in the JAX package's
-order, every family steps and one PPO iteration runs so, and no file of it
-imports jax, flax, optax or envpool_tpu."""
+without optree, gymnasium, dm_env and Box2D), lists its ids in the JAX
+package's order, every family steps and one PPO iteration runs so, and no
+file of it imports jax, flax, optax, Box2D or envpool_tpu."""
 
 import ast
 import os
@@ -14,7 +14,7 @@ ROOT = Path(__file__).resolve().parent.parent
 _CHILD = """
 import sys
 for name in ("jax", "jaxlib", "flax", "optax", "optree", "gymnasium", "dm_env",
-             "envpool_tpu"):
+             "envpool_tpu", "Box2D"):
   sys.modules[name] = None
 import numpy as np
 import envpool_torch
@@ -25,7 +25,9 @@ assert envpool_torch.list_all_envs() == [
   "Dummy-v0", "CartPole-v0", "CartPole-v1", "Pendulum-v0", "Pendulum-v1",
   "MountainCar-v0", "MountainCarContinuous-v0", "Acrobot-v1", "Catch-v0",
   "FrozenLake-v1", "FrozenLake8x8-v1", "Taxi-v3", "NChain-v0",
-  "CliffWalking-v0", "Blackjack-v1", "CarRacing-v2", "PongJaxDemo-v5",
+  "CliffWalking-v0", "Blackjack-v1", "LunarLander-v2",
+  "LunarLanderContinuous-v2", "BipedalWalker-v3", "BipedalWalkerHardcore-v3",
+  "CarRacing-v2", "PongJaxDemo-v5",
   "MiniGrid-Empty-5x5-v0", "MiniGrid-Empty-Random-5x5-v0",
   "MiniGrid-Empty-6x6-v0", "MiniGrid-Empty-Random-6x6-v0",
   "MiniGrid-Empty-8x8-v0", "MiniGrid-Empty-16x16-v0", "Sokoban-v0",
@@ -47,6 +49,10 @@ for task_id, kw, obs_shape, action in (
   ("Blackjack-v1", {}, (2, 3), np.zeros(2, np.int32)),
   ("MiniGrid-Empty-Random-6x6-v0", {}, (2, 7, 7, 3), np.zeros(2, np.int32)),
   ("PongJaxDemo-v5", {}, (2, 4, 84, 84), np.zeros(2, np.int32)),
+  ("LunarLander-v2", {}, (2, 8), np.zeros(2, np.int32)),
+  ("LunarLanderContinuous-v2", {}, (2, 8), np.zeros((2, 2), np.float32)),
+  ("BipedalWalker-v3", {}, (2, 24), np.zeros((2, 4), np.float32)),
+  ("BipedalWalkerHardcore-v3", {}, (2, 24), np.zeros((2, 4), np.float32)),
 ):
   env = envpool_torch.make_gymnasium(
     task_id, num_envs=2, seed=0, device="cpu", **kw
@@ -98,5 +104,5 @@ def test_no_jax_or_reference_imports():
   for path in files:
     roots = set(_imported_roots(path))
     assert not roots & {
-      "jax", "jaxlib", "flax", "optax", "envpool_tpu", "optree"
+      "jax", "jaxlib", "flax", "optax", "envpool_tpu", "optree", "Box2D"
     }, path
