@@ -50,7 +50,7 @@ Phases (any failure exits non-zero before the result lines):
      PongJaxDemo-v5 at 4096 envs for 128 steps (``bench.py:343-344``;
      gray, 84x84, stack 4, frame_skip 4), MiniGrid-Empty-8x8-v0 and
      MiniGrid-Empty-Random-6x6-v0 at 8192 envs (``bench.py:338-339``), 300
-     steps each, and every toy text id at 8192 envs, 150 steps each,
+     steps each, and every toy text id at 8192 envs, 100 steps each,
      numpy-seeded uniform actions: env-steps/s through ``step`` (and the
      ``xla()`` loop for Pong and MiniGrid), one traced ``xla()`` step
      (device time, launches, idle share), peak memory; then every toy text
@@ -62,7 +62,7 @@ Phases (any failure exits non-zero before the result lines):
  10. the Box2D family, which reaches no kernel of its own: each of
      LunarLander-v2, LunarLanderContinuous-v2, BipedalWalker-v3 and
      BipedalWalkerHardcore-v3 at 8192 envs (``bench.py:336-337``'s width),
-     reset + 300 numpy-seeded uniform actions, half through ``step`` and
+     reset + 150 numpy-seeded uniform actions, half through ``step`` and
      half in the ``xla()`` loop: env-steps/s, every reward finite, the
      observations finite (the walkers' lanes that blew up are counted), the
      lidar in [0, 1], episodes ended and each auto-reset FIRST with elapsed
@@ -71,7 +71,21 @@ Phases (any failure exits non-zero before the result lines):
      the walkers 10), the lanes that part counted against a bound, the
      others to 1e-3 relative with integer, bool, contact and lidar fields
      equal;
- 11. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
+ 11. the on-device MuJoCo family, which reaches no kernel of its own (the
+     engine is eager PyTorch over the committed model data; no mujoco
+     import): ReacherJax-v4, InvertedPendulumJax-v4,
+     InvertedDoublePendulumJax-v4 and SwimmerJax-v4 at 8192 envs
+     (``bench.py:347-348``'s width), reset + 100 numpy-seeded uniform
+     actions, half through ``step`` and half in the ``xla()`` loop:
+     env-steps/s, every output finite, Reacher's lanes all truncated at 50
+     and restarted, each auto-reset FIRST with elapsed 0 and reward 0, one
+     traced ``xla()`` step, peak memory; then per model ``step_smooth``
+     of one env-step from 256 seeded float64 states on the card against
+     the CPU to 1e-10 relative, with the process asking for TF32; and each
+     id at 256 envs over 50 steps on the card against the CPU port, the
+     lanes that part counted against a bound, the others to 1e-3 relative
+     with integer and bool fields equal;
+ 12. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or outside a checkout, it fails and prints no result.
 """
@@ -846,7 +860,7 @@ def ppo_learns_cartpole(torch, envpool_torch, device) -> list:
 # the MiniGrid width
 PONG_ENVS, PONG_STEPS = 4096, 128
 SMALL_ENVS, SMALL_STEPS = 8192, 300
-TOY_TEXT_STEPS = 150   # 300 until the Box2D phase came
+TOY_TEXT_STEPS = 100   # 300 until the Box2D phase came, 150 until MuJoCo's
 # task id -> (action count, the rewards a step may give; an auto-reset
 # step gives 0)
 TOY_TEXT = {
@@ -1033,10 +1047,10 @@ def small_card_vs_cpu(envpool_torch, device, n=256, steps=60) -> dict:
 # --------------------------------------------------------------- phase 10
 
 # bench.py runs LunarLander-v2 at 8192 envs (bench.py:336-337); the other
-# Box2D ids at the same width. Each id runs 300 steps after a reset: the
-# first half through step (outputs copied to the host), the second half in
-# the xla() loop.
-BOX2D_ENVS, BOX2D_STEPS = 8192, 300
+# Box2D ids at the same width. Each id runs 150 steps after a reset (300
+# until the MuJoCo phase came): the first half through step (outputs copied
+# to the host), the second half in the xla() loop.
+BOX2D_ENVS, BOX2D_STEPS = 8192, 150
 BOX2D_IDS = ("LunarLander-v2", "LunarLanderContinuous-v2", "BipedalWalker-v3",
              "BipedalWalkerHardcore-v3")
 # the card against the CPU port: 256 envs over a horizon per id. The
@@ -1208,6 +1222,174 @@ def box2d_card_vs_cpu(torch, envpool_torch, device, task_id) -> dict:
          "max_rel_err_unparted": float(worst[~parted].max(initial=0.0)),
          "terrain_lanes_equal": int(keep.sum())}
   if parted.mean() > share:
+    raise AssertionError(f"{task_id} card vs cpu: {res}")
+  return res
+
+
+# --------------------------------------------------------------- phase 11
+
+# bench.py runs ReacherJax-v4 at 8192 envs (bench.py:347-348); the other
+# contact-free device MuJoCo ids at the same width, registry defaults. Each
+# id runs 100 steps after a reset: the first half through step (outputs
+# copied to the host), the second half in the xla() loop. Reacher's cap of
+# 50 truncates every lane at step 50, and each restarts at step 51.
+MUJOCO_ENVS, MUJOCO_STEPS = 8192, 100
+MUJOCO_IDS = ("ReacherJax-v4", "InvertedPendulumJax-v4",
+              "InvertedDoublePendulumJax-v4", "SwimmerJax-v4")
+# the card against the CPU port: float64 step_smooth of one env-step from
+# 256 seeded states to 1e-10 relative; the float32 pools at 256 envs over
+# 50 steps, a lane parting at its first integer, bool or float field off
+# by more than MUJOCO_TOL * (1 + |x|), counted against the id's share
+MUJOCO_CMP_ENVS, MUJOCO_CMP_STEPS = 256, 50
+MUJOCO_F64_TOL, MUJOCO_TOL = 1e-10, 1e-3
+MUJOCO_PARTED = {"ReacherJax-v4": 0.02, "InvertedPendulumJax-v4": 0.02,
+                 "InvertedDoublePendulumJax-v4": 0.1, "SwimmerJax-v4": 0.1}
+
+
+def mujoco_actions(envpool_torch, task_id: str, seed: int, steps: int,
+                   n: int) -> np.ndarray:
+  """Uniform actions in the id's action space."""
+  spec = envpool_torch.make_spec(task_id).action_array_spec["action"]
+  rng = np.random.default_rng(seed)
+  return rng.uniform(spec.minimum, spec.maximum,
+                     (steps, n, spec.shape[-1])).astype(np.float32)
+
+
+def mujoco_family(torch, envpool_torch, device, task_id, card) -> dict:
+  """reset + MUJOCO_STEPS uniform actions at MUJOCO_ENVS envs, half through
+  step and half in the xla() loop, with the checks: every observation,
+  reward and discount finite (the engine's divergence guard resets a lane
+  that blows up), episodes ended by the pendulums' terminal rules and
+  Reacher's cap (every lane at 50), each auto-reset FIRST with elapsed 0
+  and reward 0; then a traced xla() step, the byte bound of a fused
+  env-step and the peak memory."""
+  n, half = MUJOCO_ENVS, MUJOCO_STEPS // 2
+  env = envpool_torch.make_gymnasium(task_id, num_envs=n, seed=SEED, device=device)
+  torch.cuda.reset_peak_memory_stats()
+  acts = mujoco_actions(envpool_torch, task_id, SEED + 23, MUJOCO_STEPS, n)
+  env.reset()
+  host = []
+  sync(torch, device)
+  t0 = time.perf_counter()
+  for a in acts[:half]:
+    host.append(env.step(a))
+  secs = time.perf_counter() - t0
+  peak = torch.cuda.max_memory_allocated()
+  dev_acts = torch.from_numpy(acts[half:]).to(device)
+  handle, _, send, _ = env.xla()
+  outs = []
+  sync(torch, device)
+  t1 = time.perf_counter()
+  for a in dev_acts:
+    handle = send(handle, a)
+    outs.append(handle.out)
+  sync(torch, device)
+  secs_xla = time.perf_counter() - t1
+  env.commit(handle)
+  res = {"sps": half * n / secs, "step_ms": 1e3 * secs / half,
+         "sps_xla": half * n / secs_xla, "xla_step_ms": 1e3 * secs_xla / half}
+  keys = env.spec._state_keys
+  field = {k: np.stack([o[keys.index(k)].cpu().numpy() for o in outs])
+           for k in ("obs", "reward", "discount", "done", "trunc",
+                     "elapsed_step", "step_type")}
+  obs = np.concatenate([np.stack([h[0] for h in host]), field["obs"]])
+  rew = np.concatenate([np.stack([h[1] for h in host]), field["reward"]])
+  done = np.concatenate([np.stack([h[2] | h[3] for h in host]), field["done"]])
+  assert np.isfinite(obs).all() and np.isfinite(rew).all(), f"{task_id}: non-finite"
+  assert np.isfinite(field["discount"]).all(), task_id
+  if task_id == "ReacherJax-v4":
+    assert host[-1][3].all() and not done[:half - 1].any(), "Reacher: cap of 50"
+    first = field["step_type"][0]
+    assert (first == 0).all() and (field["elapsed_step"][0] == 0).all(), "Reacher restart"
+  elif task_id != "SwimmerJax-v4":
+    assert done.any(), f"{task_id}: no lane ended an episode"
+  # the xla() half: a lane done at t restarts at t + 1
+  after = field["done"][:-1]
+  for k, first in (("elapsed_step", 0), ("reward", 0.0), ("step_type", 0)):
+    assert (field[k][1:][after] == first).all(), f"{task_id}: auto-reset {k}"
+  res.update(episodes=int(done.sum()), auto_resets=int(after.sum()))
+  # one more step through the host API, so that the traced step is typical
+  # (Reacher's lanes, at their cap after step 100, all reset in the
+  # untraced step before it)
+  env.step(acts[-1])
+  busy_us, rows = profile_steps(torch, env, dev_acts[:2])
+  step_us = 1e3 * res["xla_step_ms"]
+  # a fused env-step could not go below reading q, v and ctrl and writing
+  # q and v once per env (float32), at the card's memory rate
+  mdl = env.spec._env_cls.mdl()
+  n_bytes = 4 * n * (2 * mdl.nq + 2 * mdl.nv + len(mdl.act_gear))
+  res.update(busy_ms=busy_us / 1e3, launches=sum(r[2] for r in rows),
+             idle=1 - busy_us / step_us if busy_us > 0 else None,
+             peak_gib=peak / 2**30, bound_bytes=n_bytes,
+             bound_us=1e6 * n_bytes / HBM_BYTES_PER_S)
+  log(f"{task_id} step bound (no fused kernel yet, queued): "
+      f"{res['bound_us']:.3f} us per step of {n} envs ({n_bytes} B, bytes)")
+  log(f"{task_id}: {n} envs, reset + {half} steps via step ({res['sps']:.1f} "
+      f"env-steps/s, {res['step_ms']:.2f} ms per step) + {half} in the xla() "
+      f"loop ({res['sps_xla']:.1f} env-steps/s, {res['xla_step_ms']:.2f} ms); "
+      f"{res['episodes']} episodes ended, {res['auto_resets']} auto-resets "
+      f"checked, every output finite; peak memory {res['peak_gib']:.3f} GiB [{card}]")
+  log_profile(f"{task_id} xla() step of {n} envs", busy_us, rows, step_us, card, top=8)
+  return res
+
+
+def mujoco_float64(torch, envpool_torch, device, task_id) -> dict:
+  """step_smooth of one env-step (frame_skip substeps) from 256 seeded
+  float64 states on the card and on the CPU, with the process asking for
+  TF32: the engine runs no matmul, so nothing may round otherwise."""
+  from envpool_torch.envs.mujoco import device_engine
+
+  env_cls = envpool_torch.make_spec(task_id)._env_cls
+  mdl, nstep = env_cls.mdl(), env_cls.frame_skip
+  rng = np.random.default_rng(SEED + 24)
+  n = MUJOCO_CMP_ENVS
+  q = mdl.init_qpos + rng.uniform(-0.3, 0.3, (n, mdl.nq))
+  v = rng.uniform(-1.0, 1.0, (n, mdl.nv))
+  u = rng.uniform(-1.0, 1.0, (n, len(mdl.act_gear)))
+  flag = torch.backends.cuda.matmul.allow_tf32
+  torch.backends.cuda.matmul.allow_tf32 = True
+  try:
+    card = [x.cpu().numpy() for x in device_engine.step_smooth(
+      mdl, *(torch.from_numpy(a).to(device) for a in (q, v, u)), nstep=nstep)]
+  finally:
+    torch.backends.cuda.matmul.allow_tf32 = flag
+  cpu = [x.numpy() for x in device_engine.step_smooth(
+    mdl, *(torch.from_numpy(a) for a in (q, v, u)), nstep=nstep)]
+  err = max(float(np.abs(g - w).max() / max(1.0, np.abs(w).max()))
+            for g, w in zip(card, cpu))
+  if not err <= MUJOCO_F64_TOL:
+    raise AssertionError(f"{task_id} float64 card vs cpu: {err}")
+  return {"lanes": n, "substeps": nstep, "max_rel_err": err}
+
+
+def mujoco_card_vs_cpu(torch, envpool_torch, device, task_id) -> dict:
+  """MUJOCO_CMP_ENVS envs on the card and on the CPU port from the same
+  seed and actions over MUJOCO_CMP_STEPS steps: lanes that part counted
+  against the id's bound, the others within MUJOCO_TOL."""
+  acts = mujoco_actions(envpool_torch, task_id, SEED + 25, MUJOCO_CMP_STEPS,
+                        MUJOCO_CMP_ENVS)
+  (keys, got, _), (_, want, _) = (
+    pool_run(envpool_torch, task_id, device, acts, {}),
+    pool_run(envpool_torch, task_id, "cpu", acts, {}),
+  )
+  parted = np.zeros(MUJOCO_CMP_ENVS, bool)
+  worst = np.zeros(MUJOCO_CMP_ENVS)
+  for g, w in zip(got, want):
+    for k, gv, wv in zip(keys, g, w):
+      if gv.dtype != wv.dtype:
+        raise AssertionError(f"{task_id} {k}: dtype {gv.dtype} != {wv.dtype}")
+      if gv.dtype.kind == "f":
+        gv2, wv2 = gv.reshape(len(gv), -1), wv.reshape(len(wv), -1)
+        err = (np.abs(gv2.astype(np.float64) - wv2) / (1 + np.abs(wv2))).max(1)
+        worst = np.maximum(worst, err)
+        bad = ~(err <= MUJOCO_TOL)
+      else:
+        bad = (gv != wv).reshape(len(gv), -1).any(1)
+      parted |= bad
+  res = {"steps": MUJOCO_CMP_STEPS, "lanes": MUJOCO_CMP_ENVS,
+         "parted": int(parted.sum()),
+         "max_rel_err_unparted": float(worst[~parted].max(initial=0.0))}
+  if parted.mean() > MUJOCO_PARTED[task_id]:
     raise AssertionError(f"{task_id} card vs cpu: {res}")
   return res
 
@@ -1392,7 +1574,29 @@ def main() -> int:
       f"{time.perf_counter() - t10c:.1f} s)")
   log(json.dumps({"box2d": box2d}))
 
-  # 11. results
+  # 11. the on-device MuJoCo family (contact-free): Reacher,
+  # InvertedPendulum, InvertedDoublePendulum, Swimmer
+  t11 = time.perf_counter()
+  mj = {t: mujoco_family(torch, envpool_torch, device, t, card) for t in MUJOCO_IDS}
+  t11c = time.perf_counter()
+  for task_id in MUJOCO_IDS:
+    r = mujoco_float64(torch, envpool_torch, device, task_id)
+    mj[task_id]["float64_card_vs_cpu"] = r
+    log(f"{task_id} float64 step_smooth card vs cpu port, {r['lanes']} seeded "
+        f"states, {r['substeps']} substeps (TF32 requested): max relative "
+        f"error {r['max_rel_err']:.3g} (limit {MUJOCO_F64_TOL:g})")
+    r = mujoco_card_vs_cpu(torch, envpool_torch, device, task_id)
+    mj[task_id]["card_vs_cpu"] = r
+    log(f"{task_id} card vs cpu port, {r['lanes']} envs, reset + {r['steps']} "
+        f"steps: {r['parted']} lanes parted (at most "
+        f"{MUJOCO_PARTED[task_id]:.0%} allowed), the others within "
+        f"{r['max_rel_err_unparted']:.3g} relative (limit {MUJOCO_TOL:g}) with "
+        f"integer and bool fields equal")
+  log(f"MuJoCo: {time.perf_counter() - t11:.1f} s (card vs cpu "
+      f"{time.perf_counter() - t11c:.1f} s)")
+  log(json.dumps({"mujoco": mj}))
+
+  # 12. results
   log(f"total {time.perf_counter() - t_start:.1f} s")
   main_case = kres["cases"]["real_fine"]
   kernel = {

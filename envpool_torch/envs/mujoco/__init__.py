@@ -1,0 +1,30 @@
+"""MuJoCo family of the port: the on-device ``-Jax-v4`` tier's contact-free
+tasks (``device_tasks.py`` over ``device_engine.py``, models from
+``device_model.py``'s committed data). The contact tasks, the dm_control
+``-Jax-v1`` tier and the host tier come in later slices."""
+
+from envpool_torch.core.envpool_api import py_env
+
+from .device_tasks import (
+  InvertedDoublePendulumJaxEnv,
+  InvertedPendulumJaxEnv,
+  ReacherJaxEnv,
+  SwimmerJaxEnv,
+)
+
+__all__ = []
+
+for _env_cls in (
+  ReacherJaxEnv, InvertedPendulumJaxEnv, InvertedDoublePendulumJaxEnv,
+  SwimmerJaxEnv,
+):
+  _spec, _dm, _gym, _gymnasium = py_env(_env_cls)
+  _name = _env_cls.name
+  globals()[f"{_name}EnvSpec"] = _spec
+  globals()[f"{_name}DMEnvPool"] = _dm
+  globals()[f"{_name}GymEnvPool"] = _gym
+  globals()[f"{_name}GymnasiumEnvPool"] = _gymnasium
+  __all__ += [
+    f"{_name}EnvSpec", f"{_name}DMEnvPool",
+    f"{_name}GymEnvPool", f"{_name}GymnasiumEnvPool",
+  ]

@@ -1,0 +1,22 @@
+"""MuJoCo task registration of the port: the contact-free on-device ids of
+``envpool_tpu/envs/mujoco/registration.py:89-111``, with the same class
+names and caps. The contact ``-Jax-v4`` ids, the dm_control ``-Jax-v1`` ids
+and the host tier wait for their slices."""
+
+from envpool_torch.registration import register
+
+for _task, _max_episode_steps in [
+  ("Reacher", 50),
+  ("InvertedPendulum", 1000),
+  ("InvertedDoublePendulum", 1000),
+  ("Swimmer", 1000),
+]:
+  register(
+    task_id=f"{_task}Jax-v4",
+    import_path="envpool_torch.envs.mujoco",
+    spec_cls=f"{_task}JaxEnvSpec",
+    dm_cls=f"{_task}JaxDMEnvPool",
+    gym_cls=f"{_task}JaxGymEnvPool",
+    gymnasium_cls=f"{_task}JaxGymnasiumEnvPool",
+    max_episode_steps=_max_episode_steps,
+  )

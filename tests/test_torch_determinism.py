@@ -1,5 +1,5 @@
 """The port's twin of ``tests/test_determinism.py`` (CPU pools), with the
-Box2D ids added: the same seed gives identical trajectories, another seed
+Box2D and the on-device MuJoCo ids added: the same seed gives identical trajectories, another seed
 a different one. Mirrors ``envpool/box2d/box2d_deterministic_test.py:28-44``.
 """
 
@@ -11,13 +11,15 @@ import envpool_torch
 
 torch.set_num_threads(1)
 
-# (task id, steps): the Box2D walkers take fewer steps, their eager step is
-# the slowest on the CPU
+# (task id, steps): the Box2D walkers and the MuJoCo ids take fewer steps,
+# their eager steps are the slowest on the CPU
 TASKS = [
   ("CartPole-v1", 200), ("Pendulum-v1", 200), ("MountainCar-v0", 200),
   ("MountainCarContinuous-v0", 200), ("Acrobot-v1", 200),
   ("LunarLander-v2", 200), ("LunarLanderContinuous-v2", 200),
   ("BipedalWalker-v3", 60), ("BipedalWalkerHardcore-v3", 60),
+  ("ReacherJax-v4", 20), ("InvertedPendulumJax-v4", 20),
+  ("InvertedDoublePendulumJax-v4", 20), ("SwimmerJax-v4", 20),
 ]
 
 

@@ -1,7 +1,8 @@
 """The port stands alone: it imports without jax, flax and optax (and
-without optree, gymnasium, dm_env and Box2D), lists its ids in the JAX
-package's order, every family steps and one PPO iteration runs so, and no
-file of it imports jax, flax, optax, Box2D or envpool_tpu."""
+without optree, gymnasium, dm_env, Box2D and mujoco), lists its ids in the
+JAX package's order, every family steps and one PPO iteration runs so, no
+file of it imports jax, flax, optax, Box2D or envpool_tpu, and mujoco is
+imported only inside the model extractor's functions."""
 
 import ast
 import os
@@ -14,7 +15,7 @@ ROOT = Path(__file__).resolve().parent.parent
 _CHILD = """
 import sys
 for name in ("jax", "jaxlib", "flax", "optax", "optree", "gymnasium", "dm_env",
-             "envpool_tpu", "Box2D"):
+             "envpool_tpu", "Box2D", "mujoco"):
   sys.modules[name] = None
 import numpy as np
 import envpool_torch
@@ -27,8 +28,8 @@ assert envpool_torch.list_all_envs() == [
   "FrozenLake-v1", "FrozenLake8x8-v1", "Taxi-v3", "NChain-v0",
   "CliffWalking-v0", "Blackjack-v1", "LunarLander-v2",
   "LunarLanderContinuous-v2", "BipedalWalker-v3", "BipedalWalkerHardcore-v3",
-  "CarRacing-v2", "PongJaxDemo-v5",
-  "MiniGrid-Empty-5x5-v0", "MiniGrid-Empty-Random-5x5-v0",
+  "CarRacing-v2", "PongJaxDemo-v5", "ReacherJax-v4", "InvertedPendulumJax-v4",
+  "InvertedDoublePendulumJax-v4", "SwimmerJax-v4", "MiniGrid-Empty-5x5-v0", "MiniGrid-Empty-Random-5x5-v0",
   "MiniGrid-Empty-6x6-v0", "MiniGrid-Empty-Random-6x6-v0",
   "MiniGrid-Empty-8x8-v0", "MiniGrid-Empty-16x16-v0", "Sokoban-v0",
 ], envpool_torch.list_all_envs()
@@ -53,6 +54,10 @@ for task_id, kw, obs_shape, action in (
   ("LunarLanderContinuous-v2", {}, (2, 8), np.zeros((2, 2), np.float32)),
   ("BipedalWalker-v3", {}, (2, 24), np.zeros((2, 4), np.float32)),
   ("BipedalWalkerHardcore-v3", {}, (2, 24), np.zeros((2, 4), np.float32)),
+  ("ReacherJax-v4", {}, (2, 11), np.zeros((2, 2), np.float32)),
+  ("InvertedPendulumJax-v4", {}, (2, 4), np.zeros((2, 1), np.float32)),
+  ("InvertedDoublePendulumJax-v4", {}, (2, 11), np.zeros((2, 1), np.float32)),
+  ("SwimmerJax-v4", {}, (2, 8), np.zeros((2, 2), np.float32)),
 ):
   env = envpool_torch.make_gymnasium(
     task_id, num_envs=2, seed=0, device="cpu", **kw
@@ -72,7 +77,8 @@ cfg = PPOConfig(num_steps=2, num_minibatches=2)
 state, tx = ppo_init(pool, net, cfg)
 state, metrics = make_ppo_train_step(pool, net, cfg, tx)(state)
 assert sorted(metrics) == ["entropy", "mean_reward", "pg_loss", "v_loss"]
-assert all(sys.modules[m] is None for m in ("jax", "flax", "optax", "envpool_tpu"))
+assert all(sys.modules[m] is None
+           for m in ("jax", "flax", "optax", "envpool_tpu", "mujoco", "gymnasium"))
 print("ok")
 """
 
@@ -106,3 +112,30 @@ def test_no_jax_or_reference_imports():
     assert not roots & {
       "jax", "jaxlib", "flax", "optax", "envpool_tpu", "optree", "Box2D"
     }, path
+
+
+def _module_level_imports(path: Path):
+  """Roots of the imports outside any function body."""
+  tree = ast.parse(path.read_text(), filename=str(path))
+  stack = list(tree.body)
+  while stack:
+    node = stack.pop()
+    if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+      continue
+    if isinstance(node, ast.Import):
+      for alias in node.names:
+        yield alias.name.split(".")[0]
+    elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+      yield node.module.split(".")[0]
+    stack.extend(ast.iter_child_nodes(node))
+
+
+def test_mujoco_imported_only_inside_functions():
+  """The MuJoCo family runs from its committed model data: ``mujoco`` and
+  ``gymnasium`` are imported only inside the extractor's functions, which
+  regenerate that data."""
+  files = sorted((ROOT / "envpool_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+  for path in files:
+    assert not set(_module_level_imports(path)) & {"mujoco", "gymnasium"}, path
+  extractor = ROOT / "envpool_torch" / "envs" / "mujoco" / "device_model.py"
+  assert "mujoco" in set(_imported_roots(extractor))
