@@ -62,7 +62,7 @@ Phases (any failure exits non-zero before the result lines):
  10. the Box2D family, which reaches no kernel of its own: each of
      LunarLander-v2, LunarLanderContinuous-v2, BipedalWalker-v3 and
      BipedalWalkerHardcore-v3 at 8192 envs (``bench.py:336-337``'s width),
-     reset + 150 numpy-seeded uniform actions, half through ``step`` and
+     reset + 100 numpy-seeded uniform actions, half through ``step`` and
      half in the ``xla()`` loop: env-steps/s, every reward finite, the
      observations finite (the walkers' lanes that blew up are counted), the
      lidar in [0, 1], episodes ended and each auto-reset FIRST with elapsed
@@ -75,17 +75,34 @@ Phases (any failure exits non-zero before the result lines):
      engine is eager PyTorch over the committed model data; no mujoco
      import): ReacherJax-v4, InvertedPendulumJax-v4,
      InvertedDoublePendulumJax-v4 and SwimmerJax-v4 at 8192 envs
-     (``bench.py:347-348``'s width), reset + 100 numpy-seeded uniform
+     (``bench.py:347-348``'s width), reset + 60 numpy-seeded uniform
      actions, half through ``step`` and half in the ``xla()`` loop:
      env-steps/s, every output finite, Reacher's lanes all truncated at 50
      and restarted, each auto-reset FIRST with elapsed 0 and reward 0, one
      traced ``xla()`` step, peak memory; then per model ``step_smooth``
      of one env-step from 256 seeded float64 states on the card against
      the CPU to 1e-10 relative, with the process asking for TF32; and each
-     id at 256 envs over 50 steps on the card against the CPU port, the
+     id at 256 envs over 30 steps on the card against the CPU port, the
      lanes that part counted against a bound, the others to 1e-3 relative
      with integer and bool fields equal;
- 12. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
+ 12. the contact device MuJoCo ids (plane-capsule and capsule-capsule
+     contacts, the free joint; no kernel of their own): HalfCheetahJax-v4,
+     HopperJax-v4 and Walker2dJax-v4 at 4096 envs over 40 steps,
+     AntJax-v4 at 2048 over 20, HumanoidJax-v4 and HumanoidStandupJax-v4 at
+     1024 over 10 (``bench.py:353-367``'s widths), half through ``step``
+     and half in the ``xla()`` loop: env-steps/s, every output finite, the
+     lanes that ended and their auto-resets, one traced ``xla()`` step
+     (Ant and the Humanoids: one traced forward evaluation, times the
+     evaluations per step; not a whole step), peak memory, with nothing
+     else running on the host. Then a child process on the CPU
+     (``--cpu-reference``) computes the port's CPU side while the card
+     computes its own: per model ``step_smooth`` of one env-step (the
+     warm-start chain) from seeded float64 states that mix grounded,
+     penetrating and airborne ones (256 lanes, the Humanoids 64), held on
+     the card to 1e-10 relative with the process asking for TF32; and each
+     id's pool at 256 envs over 20 steps (the Humanoids 10), held on the
+     card by the parted-lanes rule;
+ 13. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or outside a checkout, it fails and prints no result.
 """
@@ -1047,10 +1064,11 @@ def small_card_vs_cpu(envpool_torch, device, n=256, steps=60) -> dict:
 # --------------------------------------------------------------- phase 10
 
 # bench.py runs LunarLander-v2 at 8192 envs (bench.py:336-337); the other
-# Box2D ids at the same width. Each id runs 150 steps after a reset (300
-# until the MuJoCo phase came): the first half through step (outputs copied
-# to the host), the second half in the xla() loop.
-BOX2D_ENVS, BOX2D_STEPS = 8192, 150
+# Box2D ids at the same width. Each id runs 100 steps after a reset (300
+# until the MuJoCo phase came, 150 until the contact MuJoCo phase came): the
+# first half through step (outputs copied to the host), the second half in
+# the xla() loop.
+BOX2D_ENVS, BOX2D_STEPS = 8192, 100
 BOX2D_IDS = ("LunarLander-v2", "LunarLanderContinuous-v2", "BipedalWalker-v3",
              "BipedalWalkerHardcore-v3")
 # the card against the CPU port: 256 envs over a horizon per id. The
@@ -1230,17 +1248,19 @@ def box2d_card_vs_cpu(torch, envpool_torch, device, task_id) -> dict:
 
 # bench.py runs ReacherJax-v4 at 8192 envs (bench.py:347-348); the other
 # contact-free device MuJoCo ids at the same width, registry defaults. Each
-# id runs 100 steps after a reset: the first half through step (outputs
-# copied to the host), the second half in the xla() loop. Reacher's cap of
-# 50 truncates every lane at step 50, and each restarts at step 51.
-MUJOCO_ENVS, MUJOCO_STEPS = 8192, 100
+# id runs 60 steps after a reset (100 until the contact MuJoCo phase came):
+# the first half through step (outputs copied to the host), the second half
+# in the xla() loop. Reacher's cap of 50 truncates every lane at step 50,
+# and each restarts at step 51.
+MUJOCO_ENVS, MUJOCO_STEPS = 8192, 60
 MUJOCO_IDS = ("ReacherJax-v4", "InvertedPendulumJax-v4",
               "InvertedDoublePendulumJax-v4", "SwimmerJax-v4")
 # the card against the CPU port: float64 step_smooth of one env-step from
 # 256 seeded states to 1e-10 relative; the float32 pools at 256 envs over
-# 50 steps, a lane parting at its first integer, bool or float field off
-# by more than MUJOCO_TOL * (1 + |x|), counted against the id's share
-MUJOCO_CMP_ENVS, MUJOCO_CMP_STEPS = 256, 50
+# 30 steps (50 until the contact MuJoCo phase came), a lane parting at its
+# first integer, bool or float field off by more than MUJOCO_TOL * (1 +
+# |x|), counted against the id's share
+MUJOCO_CMP_ENVS, MUJOCO_CMP_STEPS = 256, 30
 MUJOCO_F64_TOL, MUJOCO_TOL = 1e-10, 1e-3
 MUJOCO_PARTED = {"ReacherJax-v4": 0.02, "InvertedPendulumJax-v4": 0.02,
                  "InvertedDoublePendulumJax-v4": 0.1, "SwimmerJax-v4": 0.1}
@@ -1255,18 +1275,20 @@ def mujoco_actions(envpool_torch, task_id: str, seed: int, steps: int,
                      (steps, n, spec.shape[-1])).astype(np.float32)
 
 
-def mujoco_family(torch, envpool_torch, device, task_id, card) -> dict:
-  """reset + MUJOCO_STEPS uniform actions at MUJOCO_ENVS envs, half through
-  step and half in the xla() loop, with the checks: every observation,
-  reward and discount finite (the engine's divergence guard resets a lane
-  that blows up), episodes ended by the pendulums' terminal rules and
-  Reacher's cap (every lane at 50), each auto-reset FIRST with elapsed 0
-  and reward 0; then a traced xla() step, the byte bound of a fused
+def mujoco_family(torch, envpool_torch, device, task_id, card,
+                  n=MUJOCO_ENVS, steps=MUJOCO_STEPS, trace_step=True) -> dict:
+  """reset + ``steps`` uniform actions at ``n`` envs, half through step and
+  half in the xla() loop, with the checks: every observation, reward and
+  discount finite (the engine's divergence guard resets a lane that blows
+  up), episodes ended by the pendulums' terminal rules and Reacher's cap
+  (every lane at 50), each auto-reset FIRST with elapsed 0 and reward 0;
+  then a traced xla() step (``trace_step``; else one traced forward
+  evaluation, times the evaluations per step), the byte bound of a fused
   env-step and the peak memory."""
-  n, half = MUJOCO_ENVS, MUJOCO_STEPS // 2
+  half = steps // 2
   env = envpool_torch.make_gymnasium(task_id, num_envs=n, seed=SEED, device=device)
   torch.cuda.reset_peak_memory_stats()
-  acts = mujoco_actions(envpool_torch, task_id, SEED + 23, MUJOCO_STEPS, n)
+  acts = mujoco_actions(envpool_torch, task_id, SEED + 23, steps, n)
   env.reset()
   host = []
   sync(torch, device)
@@ -1286,8 +1308,9 @@ def mujoco_family(torch, envpool_torch, device, task_id, card) -> dict:
   sync(torch, device)
   secs_xla = time.perf_counter() - t1
   env.commit(handle)
-  res = {"sps": half * n / secs, "step_ms": 1e3 * secs / half,
-         "sps_xla": half * n / secs_xla, "xla_step_ms": 1e3 * secs_xla / half}
+  res = {"envs": n, "steps": steps, "sps": half * n / secs,
+         "step_ms": 1e3 * secs / half, "sps_xla": half * n / secs_xla,
+         "xla_step_ms": 1e3 * secs_xla / half}
   keys = env.spec._state_keys
   field = {k: np.stack([o[keys.index(k)].cpu().numpy() for o in outs])
            for k in ("obs", "reward", "discount", "done", "trunc",
@@ -1298,103 +1321,287 @@ def mujoco_family(torch, envpool_torch, device, task_id, card) -> dict:
   assert np.isfinite(obs).all() and np.isfinite(rew).all(), f"{task_id}: non-finite"
   assert np.isfinite(field["discount"]).all(), task_id
   if task_id == "ReacherJax-v4":
-    assert host[-1][3].all() and not done[:half - 1].any(), "Reacher: cap of 50"
-    first = field["step_type"][0]
-    assert (first == 0).all() and (field["elapsed_step"][0] == 0).all(), "Reacher restart"
-  elif task_id != "SwimmerJax-v4":
+    assert done[49].all() and not done[:49].any(), "Reacher: cap of 50"
+    # step 51, the first after the cap, is in the xla() half
+    first, elapsed = field["step_type"][50 - half], field["elapsed_step"][50 - half]
+    assert (first == 0).all() and (elapsed == 0).all(), "Reacher restart"
+  elif task_id in ("InvertedPendulumJax-v4", "InvertedDoublePendulumJax-v4"):
     assert done.any(), f"{task_id}: no lane ended an episode"
   # the xla() half: a lane done at t restarts at t + 1
   after = field["done"][:-1]
   for k, first in (("elapsed_step", 0), ("reward", 0.0), ("step_type", 0)):
     assert (field[k][1:][after] == first).all(), f"{task_id}: auto-reset {k}"
-  res.update(episodes=int(done.sum()), auto_resets=int(after.sum()))
-  # one more step through the host API, so that the traced step is typical
-  # (Reacher's lanes, at their cap after step 100, all reset in the
-  # untraced step before it)
-  env.step(acts[-1])
-  busy_us, rows = profile_steps(torch, env, dev_acts[:2])
+  res.update(episodes=int(done.sum()), lanes_ended=int(done.any(0).sum()),
+             auto_resets=int(after.sum()))
+  env_cls = env.spec._env_cls
+  mdl = env_cls.mdl()
   step_us = 1e3 * res["xla_step_ms"]
+  if trace_step:
+    busy_us, rows = profile_steps(torch, env, dev_acts[:2])
+    traced = "xla() step"
+  else:
+    from envpool_torch.envs.mujoco import device_engine
+    st = env.save_state().env
+    q, v = (torch.from_numpy(st[k]).to(device) for k in ("q", "v"))
+    tau = device_engine.actuator_force(mdl, dev_acts[0])
+    evals = (4 if mdl.integrator == 1 else 1) * env_cls.frame_skip
+    device_engine._qacc_full(mdl, q, v, tau)
+    busy_us, rows = profile_call(torch, lambda: device_engine._qacc_full(mdl, q, v, tau))
+    res.update(eval_busy_ms=busy_us / 1e3, eval_launches=sum(r[2] for r in rows),
+               evals_per_step=evals)
+    busy_us, rows = busy_us * evals, [(k, us * evals, c * evals) for k, us, c in rows]
+    traced = f"forward evaluation x {evals} per step"
   # a fused env-step could not go below reading q, v and ctrl and writing
   # q and v once per env (float32), at the card's memory rate
-  mdl = env.spec._env_cls.mdl()
   n_bytes = 4 * n * (2 * mdl.nq + 2 * mdl.nv + len(mdl.act_gear))
-  res.update(busy_ms=busy_us / 1e3, launches=sum(r[2] for r in rows),
+  res.update(traced=traced, busy_ms=busy_us / 1e3, launches=sum(r[2] for r in rows),
              idle=1 - busy_us / step_us if busy_us > 0 else None,
              peak_gib=peak / 2**30, bound_bytes=n_bytes,
              bound_us=1e6 * n_bytes / HBM_BYTES_PER_S)
   log(f"{task_id} step bound (no fused kernel yet, queued): "
       f"{res['bound_us']:.3f} us per step of {n} envs ({n_bytes} B, bytes)")
   log(f"{task_id}: {n} envs, reset + {half} steps via step ({res['sps']:.1f} "
-      f"env-steps/s, {res['step_ms']:.2f} ms per step) + {half} in the xla() "
-      f"loop ({res['sps_xla']:.1f} env-steps/s, {res['xla_step_ms']:.2f} ms); "
-      f"{res['episodes']} episodes ended, {res['auto_resets']} auto-resets "
-      f"checked, every output finite; peak memory {res['peak_gib']:.3f} GiB [{card}]")
-  log_profile(f"{task_id} xla() step of {n} envs", busy_us, rows, step_us, card, top=8)
+      f"env-steps/s, {res['step_ms']:.2f} ms per step) + {steps - half} in the "
+      f"xla() loop ({res['sps_xla']:.1f} env-steps/s, {res['xla_step_ms']:.2f} "
+      f"ms); {res['episodes']} episodes ended ({res['lanes_ended']} lanes), "
+      f"{res['auto_resets']} auto-resets checked, every output finite; peak "
+      f"memory {res['peak_gib']:.3f} GiB [{card}]")
+  log_profile(f"{task_id} {traced} of {n} envs", busy_us, rows, step_us, card, top=8)
   return res
 
 
-def mujoco_float64(torch, envpool_torch, device, task_id) -> dict:
-  """step_smooth of one env-step (frame_skip substeps) from 256 seeded
-  float64 states on the card and on the CPU, with the process asking for
-  TF32: the engine runs no matmul, so nothing may round otherwise."""
-  from envpool_torch.envs.mujoco import device_engine
-
-  env_cls = envpool_torch.make_spec(task_id)._env_cls
-  mdl, nstep = env_cls.mdl(), env_cls.frame_skip
-  rng = np.random.default_rng(SEED + 24)
-  n = MUJOCO_CMP_ENVS
+def mujoco_states(mdl, n: int, seed: int):
+  """(q, v, ctrl) float64 of ``n`` seeded lanes around ``init_qpos``."""
+  rng = np.random.default_rng(seed)
   q = mdl.init_qpos + rng.uniform(-0.3, 0.3, (n, mdl.nq))
   v = rng.uniform(-1.0, 1.0, (n, mdl.nv))
-  u = rng.uniform(-1.0, 1.0, (n, len(mdl.act_gear)))
+  return q, v, rng.uniform(-1.0, 1.0, (n, len(mdl.act_gear)))
+
+
+def mujoco_step64(torch, mdl, nstep: int, arrays, device) -> list:
+  """(q, v) after ``step_smooth`` of one env-step (``nstep`` substeps; with
+  contacts, the warm-start chain) from float64 (q, v, ctrl) on ``device``,
+  with the process asking for TF32: the contact solve's matmuls hold TF32
+  off and the rest runs no matmul, so nothing may round otherwise."""
+  from envpool_torch.envs.mujoco import device_engine
+
   flag = torch.backends.cuda.matmul.allow_tf32
   torch.backends.cuda.matmul.allow_tf32 = True
   try:
-    card = [x.cpu().numpy() for x in device_engine.step_smooth(
-      mdl, *(torch.from_numpy(a).to(device) for a in (q, v, u)), nstep=nstep)]
+    return [x.cpu().numpy() for x in device_engine.step_smooth(
+      mdl, *(torch.from_numpy(a).to(device) for a in arrays), nstep=nstep)]
   finally:
     torch.backends.cuda.matmul.allow_tf32 = flag
-  cpu = [x.numpy() for x in device_engine.step_smooth(
-    mdl, *(torch.from_numpy(a) for a in (q, v, u)), nstep=nstep)]
+
+
+def mujoco_float64(task_id, nstep: int, card, cpu) -> dict:
+  """The card's float64 env-step against the CPU's, to MUJOCO_F64_TOL
+  relative."""
   err = max(float(np.abs(g - w).max() / max(1.0, np.abs(w).max()))
             for g, w in zip(card, cpu))
   if not err <= MUJOCO_F64_TOL:
     raise AssertionError(f"{task_id} float64 card vs cpu: {err}")
-  return {"lanes": n, "substeps": nstep, "max_rel_err": err}
+  return {"lanes": len(card[0]), "substeps": nstep, "max_rel_err": err}
 
 
-def mujoco_card_vs_cpu(torch, envpool_torch, device, task_id) -> dict:
-  """MUJOCO_CMP_ENVS envs on the card and on the CPU port from the same
-  seed and actions over MUJOCO_CMP_STEPS steps: lanes that part counted
-  against the id's bound, the others within MUJOCO_TOL."""
-  acts = mujoco_actions(envpool_torch, task_id, SEED + 25, MUJOCO_CMP_STEPS,
-                        MUJOCO_CMP_ENVS)
-  (keys, got, _), (_, want, _) = (
-    pool_run(envpool_torch, task_id, device, acts, {}),
-    pool_run(envpool_torch, task_id, "cpu", acts, {}),
-  )
-  parted = np.zeros(MUJOCO_CMP_ENVS, bool)
-  worst = np.zeros(MUJOCO_CMP_ENVS)
-  for g, w in zip(got, want):
+def mujoco_card_vs_cpu(task_id, keys, got, want, bound: float) -> dict:
+  """A pool's outputs on the card (``got``) against the CPU port's
+  (``want``) from the same seed and actions: a lane parts at its first
+  integer or bool field that differs, or float field off by more than
+  MUJOCO_TOL * (1 + |x|); the lanes that part are counted against
+  ``bound``, a share of the lanes."""
+  n = len(got[0][0])
+  parted = np.zeros(n, bool)
+  worst = np.zeros(n)
+  first = np.full(n, len(got))
+  for t, (g, w) in enumerate(zip(got, want)):
     for k, gv, wv in zip(keys, g, w):
       if gv.dtype != wv.dtype:
         raise AssertionError(f"{task_id} {k}: dtype {gv.dtype} != {wv.dtype}")
       if gv.dtype.kind == "f":
         gv2, wv2 = gv.reshape(len(gv), -1), wv.reshape(len(wv), -1)
         err = (np.abs(gv2.astype(np.float64) - wv2) / (1 + np.abs(wv2))).max(1)
-        worst = np.maximum(worst, err)
+        worst = np.maximum(worst, np.where(parted, worst, err))
         bad = ~(err <= MUJOCO_TOL)
       else:
         bad = (gv != wv).reshape(len(gv), -1).any(1)
+      first = np.where(bad & ~parted, np.minimum(first, t), first)
       parted |= bad
-  res = {"steps": MUJOCO_CMP_STEPS, "lanes": MUJOCO_CMP_ENVS,
-         "parted": int(parted.sum()),
+  res = {"steps": len(got) - 1, "lanes": n, "parted": int(parted.sum()),
+         "first_parted_output": int(first.min()) if parted.any() else None,
          "max_rel_err_unparted": float(worst[~parted].max(initial=0.0))}
-  if parted.mean() > MUJOCO_PARTED[task_id]:
+  if parted.mean() > bound:
     raise AssertionError(f"{task_id} card vs cpu: {res}")
   return res
 
 
-def main() -> int:
+def log_checks(task_id, f64, cmp, bound: float) -> None:
+  log(f"{task_id} float64 step_smooth card vs cpu port, {f64['lanes']} seeded "
+      f"states, {f64['substeps']} substeps (TF32 requested): max relative "
+      f"error {f64['max_rel_err']:.3g} (limit {MUJOCO_F64_TOL:g})")
+  first = cmp["first_parted_output"]
+  first = "" if first is None else f"; the first at output {first}"
+  log(f"{task_id} card vs cpu port, {cmp['lanes']} envs, reset + {cmp['steps']} "
+      f"steps: {cmp['parted']} lanes parted (at most {bound:.0%} allowed{first}), "
+      f"the others within {cmp['max_rel_err_unparted']:.3g} relative (limit "
+      f"{MUJOCO_TOL:g}) with integer and bool fields equal")
+
+
+def mujoco_checks(torch, envpool_torch, device, task_id) -> dict:
+  """Phase 11's card against the CPU port, both sides computed here: the
+  float64 env-step from MUJOCO_CMP_ENVS seeded states, and the pools over
+  MUJOCO_CMP_STEPS steps."""
+  env_cls = envpool_torch.make_spec(task_id)._env_cls
+  mdl, nstep = env_cls.mdl(), env_cls.frame_skip
+  arrays = mujoco_states(mdl, MUJOCO_CMP_ENVS, SEED + 24)
+  f64 = mujoco_float64(task_id, nstep, mujoco_step64(torch, mdl, nstep, arrays, device),
+                       mujoco_step64(torch, mdl, nstep, arrays, "cpu"))
+  acts = mujoco_actions(envpool_torch, task_id, SEED + 25, MUJOCO_CMP_STEPS,
+                        MUJOCO_CMP_ENVS)
+  keys, got, _ = pool_run(envpool_torch, task_id, device, acts, {})
+  _, want, _ = pool_run(envpool_torch, task_id, "cpu", acts, {})
+  cmp = mujoco_card_vs_cpu(task_id, keys, got, want, MUJOCO_PARTED[task_id])
+  log_checks(task_id, f64, cmp, MUJOCO_PARTED[task_id])
+  return {"float64_card_vs_cpu": f64, "card_vs_cpu": cmp}
+
+
+# --------------------------------------------------------------- phase 12
+
+# the six contact ids at bench.py's widths (bench.py:353-354 HalfCheetah at
+# 4096, :358-359 Ant at 2048 x 100 steps, :366-367 the humanoid program at
+# 1024), registry defaults: (envs, steps after the reset, half through step
+# and half in the xla() loop). Ant and the Humanoids trace one forward
+# evaluation (their steps are 37k-100k launches), the others one step
+CONTACT_RUNS = {
+  "HalfCheetahJax-v4": (4096, 40), "HopperJax-v4": (4096, 40),
+  "Walker2dJax-v4": (4096, 40), "AntJax-v4": (2048, 20),
+  "HumanoidJax-v4": (1024, 10), "HumanoidStandupJax-v4": (1024, 10),
+}
+CONTACT_TRACE_STEP = ("HalfCheetahJax-v4", "HopperJax-v4", "Walker2dJax-v4")
+# the card against the CPU port: float64 step_smooth of one env-step (the
+# warm-start chain included) from seeded states, 256 lanes (the Humanoids
+# 64), to 1e-10 relative with TF32 requested; the float32 pools at 256 envs
+# over 20 steps (the Humanoids 10), lanes that part counted against the
+# id's share. HalfCheetah's Euler contacts part lanes at float32 rounding
+# (the JAX package against itself at two XLA optimisation levels parts 7
+# of 16 lanes in 20 steps); no lane of the others parted on the CPU
+CONTACT_CMP_STEPS = {t: 10 if t.startswith("Humanoid") else 20 for t in CONTACT_RUNS}
+CONTACT_F64_LANES = {t: 64 if t.startswith("Humanoid") else 256 for t in CONTACT_RUNS}
+CONTACT_PARTED = {t: 0.5 if t == "HalfCheetahJax-v4" else 0.1 for t in CONTACT_RUNS}
+
+
+def contact_states(mdl, task_id: str, n: int, seed: int):
+  """(q, v, ctrl) float64 of ``n`` lanes that mix grounded, penetrating and
+  airborne states, as ``tests/test_device_contacts.py::_random_state``
+  makes them: free roots at a random height and orientation (half near
+  upright, half random), planar roots at a random height (HalfCheetah's
+  partly below the floor), joints perturbed."""
+  rng = np.random.default_rng(seed)
+  q = np.tile(mdl.init_qpos, (n, 1))
+  if 0 in mdl.jnt_type:  # a free root: position, quaternion, joints
+    q[:, :2] += rng.uniform(-0.3, 0.3, (n, 2))
+    q[:, 2] = rng.uniform(0.2, 0.8, n) if task_id == "AntJax-v4" else rng.uniform(0.4, 1.4, n)
+    quat = np.where(rng.random((n, 1)) < 0.5,
+                    np.concatenate([np.ones((n, 1)), rng.uniform(-0.2, 0.2, (n, 3))], 1),
+                    rng.normal(size=(n, 4)))
+    q[:, 3:7] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    q[:, 7:] += rng.uniform(-0.3, 0.3, (n, mdl.nq - 7))
+  else:
+    q += rng.uniform(-0.2, 0.2, (n, mdl.nq))
+    q[:, 1] = (rng.uniform(-0.45, 0.1, n) if task_id == "HalfCheetahJax-v4"
+               else rng.uniform(0.55, 1.1, n))
+  return q, rng.uniform(-1.0, 1.0, (n, mdl.nv)), rng.uniform(-1.0, 1.0, (n, len(mdl.act_gear)))
+
+
+def contact_float64_inputs(envpool_torch, task_id):
+  env_cls = envpool_torch.make_spec(task_id)._env_cls
+  mdl = env_cls.mdl()
+  return mdl, env_cls.frame_skip, contact_states(mdl, task_id, CONTACT_F64_LANES[task_id], SEED + 26)
+
+
+def contact_cmp_actions(envpool_torch, task_id):
+  return mujoco_actions(envpool_torch, task_id, SEED + 27, CONTACT_CMP_STEPS[task_id],
+                        MUJOCO_CMP_ENVS)
+
+
+def cpu_reference(path: str) -> int:
+  """The CPU side of phase 12, in a process of its own: per contact id the
+  float64 env-step from ``contact_states`` and the float32 pool's outputs,
+  written to ``path`` (npz)."""
+  import torch
+
+  sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+  import envpool_torch
+
+  torch.set_num_threads(6)
+  out = {}
+  for task_id in CONTACT_RUNS:
+    t0 = time.perf_counter()
+    mdl, nstep, arrays = contact_float64_inputs(envpool_torch, task_id)
+    out[f"{task_id}/f64/q"], out[f"{task_id}/f64/v"] = mujoco_step64(
+      torch, mdl, nstep, arrays, "cpu")
+    keys, outs, _ = pool_run(envpool_torch, task_id, "cpu",
+                             contact_cmp_actions(envpool_torch, task_id), {})
+    for t, o in enumerate(outs):
+      for k, x in zip(keys, o):
+        out[f"{task_id}/pool/{t}/{k}"] = np.asarray(x)
+    print(f"cpu reference {task_id}: {time.perf_counter() - t0:.1f} s", flush=True)
+  np.savez(path, **out)
+  return 0
+
+
+def contact_phase(torch, envpool_torch, device, card, scratch: str) -> dict:
+  """Phase 12: the six ids' throughput runs first, with nothing else on the
+  host; then a child process (no card) computes the CPU reference while the
+  card computes its side of the comparisons; then each id is held to it."""
+  t12 = time.perf_counter()
+  res = {t: mujoco_family(torch, envpool_torch, device, t, card, n, steps,
+                          trace_step=t in CONTACT_TRACE_STEP)
+         for t, (n, steps) in CONTACT_RUNS.items()}
+  log(f"contact throughput runs: {time.perf_counter() - t12:.1f} s")
+  t12c = time.perf_counter()
+  ref_path = os.path.join(scratch, "contact_reference.npz")
+  log_path = os.path.join(scratch, "contact_reference.log")
+  env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+  with open(log_path, "w") as log_file:
+    child = subprocess.Popen(
+      [sys.executable, os.path.abspath(__file__), "--cpu-reference", ref_path],
+      stdout=log_file, stderr=subprocess.STDOUT, env=env)
+  try:
+    on_card = {}
+    for task_id in CONTACT_RUNS:
+      mdl, nstep, arrays = contact_float64_inputs(envpool_torch, task_id)
+      keys, got, _ = pool_run(envpool_torch, task_id, device,
+                              contact_cmp_actions(envpool_torch, task_id), {})
+      on_card[task_id] = nstep, mujoco_step64(torch, mdl, nstep, arrays, device), keys, got
+    log(f"contact card side of the comparisons: {time.perf_counter() - t12c:.1f} s")
+    rc = child.wait(timeout=900)
+  finally:
+    if child.poll() is None:
+      child.kill()
+      child.wait()
+  with open(log_path) as f:
+    for line in f.read().splitlines()[-20:]:
+      log(f"  {line}")
+  if rc != 0:
+    raise AssertionError(f"the CPU reference process exited {rc}")
+  with np.load(ref_path) as ref:
+    ref = {k: ref[k] for k in ref.files}
+  for task_id, (nstep, step64, keys, got) in on_card.items():
+    f64 = mujoco_float64(task_id, nstep, step64,
+                         [ref[f"{task_id}/f64/q"], ref[f"{task_id}/f64/v"]])
+    want = [[ref[f"{task_id}/pool/{t}/{k}"] for k in keys] for t in range(len(got))]
+    cmp = mujoco_card_vs_cpu(task_id, keys, got, want, CONTACT_PARTED[task_id])
+    log_checks(task_id, f64, cmp, CONTACT_PARTED[task_id])
+    res[task_id].update(float64_card_vs_cpu=f64, card_vs_cpu=cmp)
+  log(f"contact card vs cpu: {time.perf_counter() - t12c:.1f} s")
+  return res
+
+
+def main(argv) -> int:
+  if argv[:1] == ["--cpu-reference"]:  # phase 12's child process
+    return cpu_reference(argv[1])
+
   import torch
 
   if not torch.cuda.is_available():
@@ -1580,24 +1787,22 @@ def main() -> int:
   mj = {t: mujoco_family(torch, envpool_torch, device, t, card) for t in MUJOCO_IDS}
   t11c = time.perf_counter()
   for task_id in MUJOCO_IDS:
-    r = mujoco_float64(torch, envpool_torch, device, task_id)
-    mj[task_id]["float64_card_vs_cpu"] = r
-    log(f"{task_id} float64 step_smooth card vs cpu port, {r['lanes']} seeded "
-        f"states, {r['substeps']} substeps (TF32 requested): max relative "
-        f"error {r['max_rel_err']:.3g} (limit {MUJOCO_F64_TOL:g})")
-    r = mujoco_card_vs_cpu(torch, envpool_torch, device, task_id)
-    mj[task_id]["card_vs_cpu"] = r
-    log(f"{task_id} card vs cpu port, {r['lanes']} envs, reset + {r['steps']} "
-        f"steps: {r['parted']} lanes parted (at most "
-        f"{MUJOCO_PARTED[task_id]:.0%} allowed), the others within "
-        f"{r['max_rel_err_unparted']:.3g} relative (limit {MUJOCO_TOL:g}) with "
-        f"integer and bool fields equal")
+    mj[task_id].update(mujoco_checks(torch, envpool_torch, device, task_id))
   log(f"MuJoCo: {time.perf_counter() - t11:.1f} s (card vs cpu "
       f"{time.perf_counter() - t11c:.1f} s)")
   log(json.dumps({"mujoco": mj}))
 
-  # 12. results
+  # 12. the contact device MuJoCo ids: HalfCheetah, Hopper, Walker2d, Ant,
+  # Humanoid, HumanoidStandup
+  t12 = time.perf_counter()
+  scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+  os.makedirs(scratch, exist_ok=True)
+  contact = contact_phase(torch, envpool_torch, device, card, scratch)
+  log(f"MuJoCo contact phase: {time.perf_counter() - t12:.1f} s")
+  log(json.dumps({"mujoco_contact": contact}))
+
   log(f"total {time.perf_counter() - t_start:.1f} s")
+  # 13. results
   main_case = kres["cases"]["real_fine"]
   kernel = {
     "name": "car_racing_sampler",
@@ -1625,4 +1830,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-  sys.exit(main())
+  sys.exit(main(sys.argv[1:]))

@@ -1,22 +1,29 @@
-"""MuJoCo family of the port: the on-device ``-Jax-v4`` tier's contact-free
-tasks (``device_tasks.py`` over ``device_engine.py``, models from
-``device_model.py``'s committed data). The contact tasks, the dm_control
-``-Jax-v1`` tier and the host tier come in later slices."""
+"""MuJoCo family of the port: the on-device ``-Jax-v4`` tier's tasks
+(``device_tasks.py`` over ``device_engine.py`` and ``device_collision.py``,
+models from ``device_model.py``'s committed data), Pusher aside. Pusher, the
+dm_control ``-Jax-v1`` tier and the host tier come in later slices."""
 
 from envpool_torch.core.envpool_api import py_env
 
 from .device_tasks import (
+  AntJaxEnv,
+  HalfCheetahJaxEnv,
+  HopperJaxEnv,
+  HumanoidJaxEnv,
+  HumanoidStandupJaxEnv,
   InvertedDoublePendulumJaxEnv,
   InvertedPendulumJaxEnv,
   ReacherJaxEnv,
   SwimmerJaxEnv,
+  Walker2dJaxEnv,
 )
 
 __all__ = []
 
 for _env_cls in (
   ReacherJaxEnv, InvertedPendulumJaxEnv, InvertedDoublePendulumJaxEnv,
-  SwimmerJaxEnv,
+  SwimmerJaxEnv, HalfCheetahJaxEnv, HopperJaxEnv, Walker2dJaxEnv, AntJaxEnv,
+  HumanoidJaxEnv, HumanoidStandupJaxEnv,
 ):
   _spec, _dm, _gym, _gymnasium = py_env(_env_cls)
   _name = _env_cls.name

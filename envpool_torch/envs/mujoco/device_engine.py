@@ -1,5 +1,5 @@
 """On-device MuJoCo, the port's batched PyTorch engine: smooth dynamics,
-joint limits, fluid forces, Euler and RK4.
+joint limits, fluid forces, free joints, contacts, Euler and RK4.
 
 Counterpart of ``envpool_tpu/envs/mujoco/device_engine.py``, function for
 function and with the same names, over the constants of a
@@ -21,20 +21,26 @@ Only forward kinematics walks the tree, body by body. The results are
 those of the JAX code up to the order of a few sums
 (``tests/test_torch_device_mujoco.py`` holds float64 to 1e-12 relative).
 
-Scope: kinematic trees of hinge and slide joints, motor actuators, joint
-damping, armature and springs, gravity, the inertia-box fluid model and
-MuJoCo's soft joint-limit constraint. Contacts (``device_collision.py``)
-and free joints come with a later slice: ``device_model.check_supported``
-refuses them, and ``step_smooth`` calls it.
+Scope: kinematic trees of hinge, slide and free joints (a free joint's
+quaternion integrated as ``mj_integratePos`` does), motor actuators, joint
+damping, armature and springs, gravity, the inertia-box fluid model,
+MuJoCo's soft joint-limit constraint, and contacts through
+``device_collision.py`` (the plane-capsule/sphere and capsule-capsule
+narrow phase, pyramidal rows and the primal Newton solve, warm-started
+along each env-step's substeps as ``mjData.qacc_warmstart`` is).
+``device_model.check_supported`` refuses the contact families the port
+does not have yet, and ``step_smooth`` calls it.
 
 Every function works in the dtype of ``q``: the tasks run float32, the
 tests float64, where the engine matches the JAX engine under x64 and
 ``mj_step`` to the JAX package's tolerances. Small products are the JAX
-code's elementwise multiply-and-sum (``_mm3``, ``_mv``, ``_vm``), so no
-matmul runs and TF32 never applies; ``precise_matmul``, a TPU workaround
-for its bf16 matrix passes, has no counterpart. Nothing in a step reads
-the device back to the host: the divergence guard is a per-lane
-``torch.where``.
+code's elementwise multiply-and-sum (``_mm3``, ``_mv``, ``_vm``); the
+matmuls that remain (the contact rows, the Newton Hessian, the quaternion
+products) hold TF32 off, so float32 stays float32 on the card;
+``precise_matmul``, a TPU workaround for its bf16 matrix passes, has no
+counterpart. Nothing in a step reads the device back to the host: the
+divergence guard is a per-lane ``torch.where``, the Newton solve has a
+fixed depth.
 """
 
 from __future__ import annotations
@@ -45,7 +51,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .device_model import DeviceModel, _JNT_HINGE, check_supported
+from envpool_torch.ops.image import no_tf32
+
+from .device_model import DeviceModel, _JNT_FREE, _JNT_HINGE, check_supported
 
 Tensor = torch.Tensor
 
@@ -64,6 +72,26 @@ class _ByIdentity:
 
   def __eq__(self, other):
     return isinstance(other, _ByIdentity) and other.mdl is self.mdl
+
+
+def _quat_rot_table() -> np.ndarray:
+  """[16, 9]: the entries of (R - I) / 2 of a unit quaternion (w, x, y, z)
+  as sums of its products q_i q_j (flattened row-major), e.g. R_01 / 2 =
+  xy - wz, (R_00 - 1) / 2 = -(yy + zz)."""
+  w, x, y, z = range(4)
+  entries = [
+    [(y, y, -1), (z, z, -1)], [(x, y, 1), (w, z, -1)], [(x, z, 1), (w, y, 1)],
+    [(x, y, 1), (w, z, 1)], [(x, x, -1), (z, z, -1)], [(y, z, 1), (w, x, -1)],
+    [(x, z, 1), (w, y, -1)], [(y, z, 1), (w, x, 1)], [(x, x, -1), (y, y, -1)],
+  ]
+  out = np.zeros((16, 9))
+  for k, terms in enumerate(entries):
+    for i, j, sign in terms:
+      out[4 * i + j, k] = sign
+  return out
+
+
+_QUAT_ROT = _quat_rot_table()
 
 
 def _limited(mdl: DeviceModel) -> List[int]:
@@ -87,6 +115,8 @@ def _constant_arrays(mdl: DeviceModel) -> Dict[str, np.ndarray]:
   dof_anc = anc[np.ix_(mdl.dof_body, mdl.dof_body)]    # body(i) above body(j)
   out = {k: v for k, v in mdl._asdict().items() if isinstance(v, np.ndarray)}
   out.update(
+    # the quaternion's products (w, x, y, z)^2 -> (R - I) / 2, row-major
+    quat_rot=_QUAT_ROT,
     mask_a=dof_anc,
     mask_b=dof_anc.T * (1.0 - dof_anc),
     armature_diag=np.diag(mdl.dof_armature),
@@ -102,12 +132,20 @@ def _constant_arrays(mdl: DeviceModel) -> Dict[str, np.ndarray]:
     mass_m=mdl.body_mass[1:, None, None],
   )
   # [d, d']: dof d' lies on the root path up to and including dof d (a
-  # body's joints form a serial chain in joint order)
+  # body's joints form a serial chain in joint order); a free joint's three
+  # rotations act as one block on the velocity before them (mj_comVel's
+  # free case), so none of them lies on another's chain
   chain = np.zeros((nv, nv))
   for d in range(nv):
     for e in range(nv):
       bd, be = mdl.dof_body[d], mdl.dof_body[e]
       chain[d, e] = float(anc[be, bd] and (be != bd or e <= d))
+  for j, kind in enumerate(mdl.jnt_type):
+    if kind == _JNT_FREE:
+      rot = range(mdl.jnt_dof[j] + 3, mdl.jnt_dof[j] + 6)
+      for d in rot:
+        for e in rot:
+          chain[d, e] = float(e == d)
   out["chain"] = chain
   # fluid_force's per-body constants (bodies with mass only)
   fb = _fluid_bodies(mdl)
@@ -162,13 +200,18 @@ def _const_table(key: _ByIdentity, dtype: torch.dtype,
   def index(values):
     return torch.as_tensor(list(values), dtype=torch.int64, device=device)
 
-  rot = [False] * mdl.nv  # the dof of a hinge is rotational
+  rot = [False] * mdl.nv  # hinges and free rotations are rotational
   for j, kind in enumerate(mdl.jnt_type):
-    rot[mdl.jnt_dof[j]] = kind == _JNT_HINGE
+    if kind == _JNT_FREE:
+      rot[mdl.jnt_dof[j] + 3:mdl.jnt_dof[j] + 6] = [True] * 3
+    else:
+      rot[mdl.jnt_dof[j]] = kind == _JNT_HINGE
   out.update(
     dof_body_m=index(b - 1 for b in mdl.dof_body),
     fluid_body_m=index(b - 1 for b in _fluid_bodies(mdl)),
     lim_qadr=index(mdl.jnt_qadr[j] for j in lim),
+    # (0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2) of a flattened 3x3
+    inertia_upper=index((0, 4, 8, 1, 2, 5)),
     lim_dof=index(mdl.jnt_dof[j] for j in lim),
     rot_dof=torch.as_tensor(rot, dtype=torch.bool, device=device)[:, None],
   )
@@ -219,6 +262,19 @@ def _rotm_axis_angle(axis: Tensor, angle: Tensor, eye3: Tensor) -> Tensor:
   return torch.addcmul(torch.addcmul(eye3, s, k), vers, _mm3(k, k))
 
 
+def _quat2rotm(qt: Tensor, c: Dict[str, Tensor]) -> Tensor:
+  """Quaternions ``[N, 4]`` (w, x, y, z) -> rotation matrices ``[N, 3, 3]``,
+  normalised first as mj_kinematics' mju_normalize4 does: I + 2 (the
+  products' signed sums), e.g. R_01 = 2 (xy - wz), R_00 = 1 - 2 (yy + zz).
+  The sums of +-1 multiples are exact, so this is the JAX code's
+  expression entry for entry."""
+  qt = qt / torch.sqrt((qt * qt).sum(-1, keepdim=True))
+  qq = (qt[:, :, None] * qt[:, None, :]).flatten(1)          # [N, 16]
+  with no_tf32(qt.device):
+    flat = torch.addmm(c["eye3"].flatten(), qq, c["quat_rot"], alpha=2.0)
+  return flat.view(-1, 3, 3)
+
+
 def _mv_const(A: Tensor, x: np.ndarray, xt: Tensor) -> Optional[Tensor]:
   """``A @ x`` for a constant ``x`` (``xt`` on the device): None where x is
   0, the column where it is a unit vector, else ``_mv``. Exact for the
@@ -235,7 +291,9 @@ def fk(mdl: DeviceModel, q: Tensor):
   """mj_kinematics: world pose per body + world anchor/axis per dof.
 
   Returns (xpos [nbody] of [N, 3], xmat [nbody] of [N, 3, 3],
-  anchors {dof: [N, 3]} of rotational dofs, axes {dof: [N, 3]}). Products
+  anchors {dof: [N, 3]} of rotational dofs, axes {dof: [N, 3]}). A free
+  joint gives 6 dofs: 3 world-axis slides and 3 rotations about the body's
+  axes through its origin (MuJoCo's cdof convention). Products
   with the model's constant frames skip what is exact without them: a
   body whose parent is the world takes its local frame as its world frame,
   an identity local rotation or a zero offset is not applied, a unit axis
@@ -262,6 +320,17 @@ def fk(mdl: DeviceModel, q: Tensor):
     for j in mdl.body_joints[b]:
       d = mdl.jnt_dof[j]
       qa = mdl.jnt_qadr[j]
+      if mdl.jnt_type[j] == _JNT_FREE:
+        # the pose comes from q (body_pos is folded into qpos0); the dofs are
+        # 3 world slides and 3 rotations about the body's axes through its
+        # origin
+        pos = q[:, qa:qa + 3]
+        rot = _quat2rotm(q[:, qa + 3:qa + 7], c)
+        for i in range(3):
+          axes[d + i] = c["eye3"][i].expand(n, 3)
+          axes[d + 3 + i] = rot[:, :, i]
+          anchors[d + 3 + i] = pos
+        continue
       axis_w = _mv_const(rot, mdl.jnt_axis[j], c["jnt_axis"][j])
       # displacement from the reference pose (the XML ``ref`` is in qpos0)
       qj = q[:, qa]
@@ -380,8 +449,10 @@ def bias_forces(mdl: DeviceModel, q: Tensor, v: Tensor, ctx=None) -> Tensor:
   bodies, so each dof's velocity-product term uses the velocity
   accumulated up to and including that dof (swimmer's 3-joint torso):
   acc_b = -g + sum over the dofs d on b's root path of
-  vel_upto(d) x_m S_d v_d. Then f_b = I_b acc_b + vel_b x_f I_b vel_b,
-  summed over each subtree and projected on the dofs.
+  vel_upto(d) x_m S_d v_d. A free joint's translations add no such term
+  (their own products vanish) and its three rotations use the velocity
+  before them. Then f_b = I_b acc_b + vel_b x_f I_b vel_b, summed over
+  each subtree and projected on the dofs.
   """
   c = _consts(mdl, q)
   _, _, S, Is = ctx if ctx is not None else _kin_ctx(mdl, q)
@@ -411,7 +482,7 @@ def passive_spring_force(mdl: DeviceModel, q: Tensor) -> Tensor:
   for j in range(len(mdl.jnt_type)):
     d, qa = mdl.jnt_dof[j], mdl.jnt_qadr[j]
     stiff = float(mdl.jnt_stiffness[j])
-    if stiff:
+    if stiff and mdl.jnt_type[j] != _JNT_FREE:
       cols[d] = -stiff * (q[:, qa] - float(mdl.qpos_spring[qa]))
   return torch.stack(cols, -1)
 
@@ -424,12 +495,6 @@ def _tiny(dtype: torch.dtype) -> float:
   return 1e-7 if dtype == torch.float32 else 1e-14
 
 
-@functools.lru_cache(maxsize=16)
-def _lower(n: int, device: torch.device) -> Tensor:
-  """[n, n] bool, True on and below the diagonal."""
-  return torch.ones(n, n, dtype=torch.bool, device=device).tril()
-
-
 def _psd_solver(A: Tensor, floor=None) -> Callable[[Tensor], Tensor]:
   """Factor tiny SPD systems ``A`` ``[N, n, n]`` once; the returned solve
   takes right-hand sides ``[N, n]`` or ``[N, n, k]``.
@@ -440,10 +505,10 @@ def _psd_solver(A: Tensor, floor=None) -> Callable[[Tensor], Tensor]:
   the mass-matrix diagonal's magnitude): in float32 the pivots of
   ill-conditioned systems can round to <= 0, and sqrt would NaN the lane.
   The floor engages only where rounding has already destroyed the pivot,
-  so float64 results do not see it. ``torch.linalg.cholesky`` has no such
-  floor, and these systems have nv <= 5. The JAX code calls ``_solve_psd``
-  once per right-hand side and leaves the common factor to XLA; eager, the
-  factor is made once.
+  so float64 results do not see it; ``torch.linalg.cholesky`` has no such
+  floor. The substitutions are ``torch.linalg.solve_triangular`` against
+  the factor. The JAX code calls ``_solve_psd`` once per right-hand side and
+  leaves the common factor to XLA; eager, the factor is made once.
   """
   n = A.shape[-1]
   tiny = _tiny(A.dtype)
@@ -467,37 +532,25 @@ def _psd_solver(A: Tensor, floor=None) -> Callable[[Tensor], Tensor]:
       x1 = (a00 * b[:, 1] - a10 * b[:, 0]) / dt
       return torch.stack([x0, x1], 1)
     return solve2
-  # right-looking: each column is taken out of the trailing matrix as soon
-  # as it is made (6 launches per column where the JAX code's dot products
-  # with the columns made so far take 8)
-  lower = _lower(n, A.device)
+  # right-looking: each column is taken out of the remaining matrix as soon
+  # as it is made (4 launches per column where the JAX code's dot products
+  # with the columns made so far take 8). The entries above the diagonal
+  # of each column are never read and the final ``tril`` drops them.
   cols: List[Tensor] = []
   S = A
   for j in range(n):
     piv = torch.sqrt(torch.clamp_min(S[:, j, j], tiny * float(flo[j])))
-    cols.append(torch.where(lower[:, j], S[:, :, j] / piv[:, None], 0.0))
+    cols.append(S[:, :, j] / piv[:, None])
     if j < n - 1:
-      S = S - cols[j][:, :, None] * cols[j][:, None, :]
-  L = torch.stack(cols, -1)                                 # [N, n, n]
+      S = torch.addcmul(S, cols[j][:, :, None], cols[j][:, None, :], value=-1)
+  L = torch.stack(cols, -1).tril()                          # [N, n, n]
 
   def solve(b):
-    # column-oriented substitutions: each solved entry is taken out of the
-    # remaining right-hand side at once (3 launches per row where the
-    # JAX code's row dot products take 5)
+    # the two triangular substitutions, one launch each
     vec = b.ndim == 2
     r = b[:, :, None] if vec else b
-    ys: List[Tensor] = []
-    for i in range(n):
-      ys.append(r[:, 0] / L[:, i, i, None])
-      if i < n - 1:
-        r = r[:, 1:] - L[:, i + 1:, i, None] * ys[i][:, None]
-    r = torch.stack(ys, 1)
-    xs: List[Tensor] = []
-    for i in range(n - 1, -1, -1):
-      xs.append(r[:, i] / L[:, i, i, None])
-      if i:
-        r = r[:, :i] - L[:, i, :i, None] * xs[-1][:, None]
-    x = torch.stack(xs[::-1], 1)
+    y = torch.linalg.solve_triangular(L, r, upper=False)
+    x = torch.linalg.solve_triangular(L.transpose(1, 2), y, upper=True)
     return x[:, :, 0] if vec else x
   return solve
 
@@ -658,9 +711,34 @@ def _qacc_smooth_parts(mdl: DeviceModel, q: Tensor, v: Tensor, tau: Tensor):
 
 
 def _has_contact_points(mdl: DeviceModel) -> bool:
-  """True when the model needs the contact solve (candidate geom pairs or
-  tendon-limit rows), which the port does not have yet."""
-  return mdl.contacts is not None
+  """True when the Newton row solve is needed (contact candidates; the
+  tendon-limit rows, which ``check_supported`` refuses, are not ported);
+  limit-only models take the closed-form path."""
+  return mdl.contacts is not None and mdl.contacts.point_b1.shape[0] > 0
+
+
+def _contact_solve(mdl: DeviceModel, q: Tensor, v: Tensor, M: Tensor,
+                   qfrc_smooth: Tensor, ctx, warm: Optional[Tensor] = None):
+  """Unified limit + contact solve -> (qacc, qfrc_constraint, efc_force).
+
+  ``warm`` (a previous solve's qacc) is MuJoCo's qacc_warmstart: mjData
+  carries it between forward calls, so each RK4 stage and each substep of
+  an env-step starts from the last solve; None is the cold start from
+  qacc_smooth (the first substep of an env-step). Depth is always the
+  model's full Newton budget.
+  """
+  from . import device_collision as dc
+  flo = _dof_floor(mdl)
+  qacc_sm = _psd_solver(M, flo)(qfrc_smooth)
+  cd = mdl.contacts
+  J, aref, D, mask = dc.assemble_rows(mdl, cd, q, v, ctx)
+  qacc, f = dc.newton_qacc(
+    flo, M, qacc_sm, J, aref, D, mask, iters=cd.newton_iters,
+    ls_iters=cd.newton_ls, start=qacc_sm if warm is None else warm,
+  )
+  with no_tf32(q.device):
+    qfrc = torch.matmul(f[:, None], J)[:, 0]
+  return qacc, qfrc, f
 
 
 def _qacc_smooth(mdl: DeviceModel, q: Tensor, v: Tensor, tau: Tensor) -> Tensor:
@@ -683,12 +761,22 @@ def _limit_minv_cols(mdl: DeviceModel, M: Tensor) -> Dict[int, Tensor]:
   return {d: cols[:, :, i] for i, d in enumerate(_limit_dofs(mdl))}
 
 
-def _qacc_full(mdl: DeviceModel, q: Tensor, v: Tensor, tau: Tensor) -> Tensor:
-  """Forward dynamics with joint-limit constraints (mj_forward, the
-  contact-free branch of the JAX engine's ``_qacc_full``)."""
+def _qacc_full(mdl: DeviceModel, q: Tensor, v: Tensor, tau: Tensor,
+               warm: Optional[Tensor] = None, want_fext: bool = False):
+  """Forward dynamics with limit and contact constraints (mj_forward).
+
+  ``want_fext`` (contact models) also returns the per-body external
+  contact wrench about the world origin (cfrc_ext's precursor) and the
+  row forces: (qacc, fext ``[N, nbody, 6]``, f ``[N, m]``).
+  """
+  M, qfrc_smooth, ctx = _qacc_smooth_parts(mdl, q, v, tau)
   if _has_contact_points(mdl):
-    raise NotImplementedError("contacts: not yet ported")
-  M, qfrc_smooth, _ = _qacc_smooth_parts(mdl, q, v, tau)
+    qacc, _, f = _contact_solve(mdl, q, v, M, qfrc_smooth, ctx, warm)
+    if want_fext:
+      from . import device_collision as dc
+      fext = dc.contact_wrenches(mdl.contacts, mdl, q, v, ctx, f, mdl.nbody)
+      return qacc, fext, f
+    return qacc
   solve = _psd_solver(M, _dof_floor(mdl))
   qacc_sm = solve(qfrc_smooth)
   if not any(mdl.jnt_limited):
@@ -698,28 +786,80 @@ def _qacc_full(mdl: DeviceModel, q: Tensor, v: Tensor, tau: Tensor) -> Tensor:
   return qacc_sm + solve(qfrc_con)
 
 
+def _has_free(mdl: DeviceModel) -> bool:
+  return _JNT_FREE in mdl.jnt_type
+
+
+def _quat_mul(a: Tensor, b: Tensor) -> Tensor:
+  """Quaternion products ``[N, 4]`` (w, x, y, z)."""
+  aw, av = a[:, :1], a[:, 1:]
+  bw, bv = b[:, :1], b[:, 1:]
+  return torch.cat([aw * bw - (av * bv).sum(-1, keepdim=True),
+                    aw * bv + bw * av + torch.linalg.cross(av, bv)], 1)
+
+
 def integrate_pos(mdl: DeviceModel, q: Tensor, v: Tensor, h: float) -> Tensor:
-  """mj_integratePos without free joints: q + h v."""
-  del mdl
-  return q + h * v
+  """mj_integratePos: q + h v, and a free joint's quaternion by the
+  exponential map of its local angular velocity (mju_quatIntegrate), then
+  normalised."""
+  if not _has_free(mdl):
+    return q + h * v
+  parts, run = [], None  # run: (qpos start, dof start, count) of 1-dof joints
+  for j in range(len(mdl.jnt_type)):
+    d, qa = mdl.jnt_dof[j], mdl.jnt_qadr[j]
+    if mdl.jnt_type[j] != _JNT_FREE:
+      if run is not None and run[0] + run[2] == qa and run[1] + run[2] == d:
+        run = (run[0], run[1], run[2] + 1)
+      else:
+        if run is not None:
+          parts.append(q[:, run[0]:run[0] + run[2]] + h * v[:, run[1]:run[1] + run[2]])
+        run = (qa, d, 1)
+      continue
+    if run is not None:
+      parts.append(q[:, run[0]:run[0] + run[2]] + h * v[:, run[1]:run[1] + run[2]])
+      run = None
+    w = v[:, d + 3:d + 6]
+    ang = torch.sqrt((w * w).sum(-1, keepdim=True) + 1e-30) * h
+    # sin(ang/2)/|w| with the |w| -> 0 limit h/2
+    s = torch.where(ang > 1e-12, torch.sin(ang / 2) / (ang / h), h / 2)
+    # cos(ang/2) as 1 - 2 sin^2(ang/4): accurate for the small rotations
+    # that are the common case
+    sq = torch.sin(ang / 4)
+    rot = torch.cat([1.0 - 2.0 * sq * sq, s * w], 1)
+    quat = _quat_mul(q[:, qa + 3:qa + 7], rot)
+    quat = quat / torch.sqrt((quat * quat).sum(-1, keepdim=True))
+    parts += [q[:, qa:qa + 3] + h * v[:, d:d + 3], quat]
+  if run is not None:
+    parts.append(q[:, run[0]:run[0] + run[2]] + h * v[:, run[1]:run[1] + run[2]])
+  return torch.cat(parts, 1)
 
 
-def _guard(mdl: DeviceModel, q: Tensor, v: Tensor) -> Tuple[Tensor, Tensor]:
+def _guard(mdl: DeviceModel, q: Tensor, v: Tensor, last=None, aux=None):
   """mj_step's divergence guard (mj_checkPos/Vel/Acc, mjMAXVAL = 1e10), per
   lane: a lane with a non-finite or huge q or v restarts at (qpos0, 0), as
   mj_resetData does. Without it one diverged lane NaN-saturates until its
-  episode ends."""
+  episode ends. A restarted lane's warm start ``last`` is zeroed, and its
+  derived fields ``aux`` (q, v, fext, f of the last forward evaluation)
+  hold the reset state's: (qpos0, 0) and no forces."""
   qv = torch.cat([q, v], 1)
   bad = (~torch.isfinite(qv).all(1) | (torch.abs(qv) > 1e10).any(1))[:, None]
-  q = torch.where(bad, _consts(mdl, q)["init_qpos"], q)
+  qpos0 = _consts(mdl, q)["init_qpos"]
+  q = torch.where(bad, qpos0, q)
   v = torch.where(bad, 0.0, v)
-  return q, v
+  if last is not None:
+    last = torch.where(bad, 0.0, last)
+  if aux is not None:
+    aq, av, fext, f = aux
+    aux = (torch.where(bad, qpos0, aq), torch.where(bad, 0.0, av),
+           torch.where(bad[:, :, None], 0.0, fext), torch.where(bad, 0.0, f))
+  return q, v, last, aux
 
 
 def step_smooth(mdl: DeviceModel, q: Tensor, v: Tensor, ctrl: Tensor,
-                nstep: int = 1) -> Tuple[Tensor, Tensor]:
+                nstep: int = 1, want_aux: bool = False):
   """mj_step x nstep, per the model's integrator, each step followed by the
-  divergence guard.
+  divergence guard. Returns (q, v), and with ``want_aux`` (contact models)
+  (q, v, (q_fwd, v_fwd, fext, f)).
 
   - Euler (``mj_Euler``): qacc solves (M + h diag(damping)) qacc =
     tau + spring(q) - damping v - c(q, v) + qfrc_constraint, the
@@ -727,29 +867,55 @@ def step_smooth(mdl: DeviceModel, q: Tensor, v: Tensor, ctrl: Tensor,
   - RK4 (``mj_RungeKutta``): the classic 4-stage tableau on (q, v) with
     the full forward dynamics per stage, damping explicit.
 
+  Contact models warm-start each solve from the one before it, as
+  ``mjData.qacc_warmstart`` does (every RK4 stage, every substep), and
+  start cold from qacc_smooth on the first substep of the call. ``want_aux``
+  returns the state of the last forward evaluation (RK4: stage 4 of the
+  last substep; Euler: the last substep's state before integration), the
+  per-body contact wrench about the world origin and the row forces
+  there: what mjData's derived fields hold after ``mj_step``, which
+  gymnasium's Humanoid reads for its observation and mass-centre reward.
+
   Constants are rounded to ``q``'s dtype as the JAX code's are.
   """
   check_supported(mdl)
+  contacts = _has_contact_points(mdl)
+  if want_aux and not contacts:
+    raise ValueError("want_aux requires a contact model")
   npdt = np.float32 if q.dtype == torch.float32 else np.float64
   h = npdt(mdl.timestep)
   half, h6 = float(npdt(0.5) * h), float(h / npdt(6.0))
   tau = actuator_force(mdl, ctrl)
 
-  def one_step(q, v):
+  def one_step(q, v, warm, aux_here):
+    aux = None
     if mdl.integrator == 1:  # RK4
-      a1 = _qacc_full(mdl, q, v, tau)
+      a1 = _qacc_full(mdl, q, v, tau, warm)
       q2, v2 = integrate_pos(mdl, q, v, half), v + half * a1
-      a2 = _qacc_full(mdl, q2, v2, tau)
+      a2 = _qacc_full(mdl, q2, v2, tau, a1 if contacts else None)
       q3, v3 = integrate_pos(mdl, q, v2, half), v + half * a2
-      a3 = _qacc_full(mdl, q3, v3, tau)
+      a3 = _qacc_full(mdl, q3, v3, tau, a2 if contacts else None)
       q4, v4 = integrate_pos(mdl, q, v3, float(h)), v + float(h) * a3
-      a4 = _qacc_full(mdl, q4, v4, tau)
+      if aux_here:
+        a4, fext, f4 = _qacc_full(mdl, q4, v4, tau, a3, want_fext=True)
+        aux = (q4, v4, fext, f4)
+      else:
+        a4 = _qacc_full(mdl, q4, v4, tau, a3 if contacts else None)
       q = integrate_pos(mdl, q, (v + 2 * v2 + 2 * v3 + v4) / 6.0, float(h))
       v = v + h6 * (a1 + 2 * a2 + 2 * a3 + a4)
+      last = a4 if contacts else None
     else:  # Euler with implicit damping
-      M, qfrc, _ = _qacc_smooth_parts(mdl, q, v, tau)
+      M, qfrc, ctx = _qacc_smooth_parts(mdl, q, v, tau)
       flo = _dof_floor(mdl)
-      if any(mdl.jnt_limited):
+      last = None
+      if contacts:
+        last, qfrc_con, f = _contact_solve(mdl, q, v, M, qfrc, ctx, warm)
+        if aux_here:
+          from . import device_collision as dc
+          aux = (q, v, dc.contact_wrenches(mdl.contacts, mdl, q, v, ctx, f,
+                                           mdl.nbody), f)
+        qfrc = qfrc + qfrc_con
+      elif any(mdl.jnt_limited):
         qacc_sm = _solve_psd(M, qfrc, floor=flo)
         qfrc = qfrc + limit_constraint_force(
           mdl, q, v, _limit_minv_cols(mdl, M), qacc_sm
@@ -758,10 +924,15 @@ def step_smooth(mdl: DeviceModel, q: Tensor, v: Tensor, ctrl: Tensor,
       qacc = _solve_psd(A, qfrc, floor=flo)
       v = v + float(h) * qacc
       q = integrate_pos(mdl, q, v, float(h))
-    return _guard(mdl, q, v)
+    return _guard(mdl, q, v, last, aux)
 
-  for _ in range(nstep):
-    q, v = one_step(q, v)
+  # the warm-start chain: cold (None) on the first substep, then each
+  # substep from the last solve; only the last substep's aux is kept
+  warm, aux = None, None
+  for i in range(nstep):
+    q, v, warm, aux = one_step(q, v, warm, want_aux and i == nstep - 1)
+  if want_aux:
+    return q, v, aux
   return q, v
 
 
@@ -786,3 +957,45 @@ def site_xpos(mdl: DeviceModel, q: Tensor, name: str) -> Tensor:
   s = mdl.site_name2id[name]
   b = mdl.site_body[s]
   return xpos[b] + _mv(xmat[b], _consts(mdl, q)["site_pos"][s])
+
+
+def body_xipos(mdl: DeviceModel, q: Tensor, name: str) -> Tensor:
+  """World position ``[N, 3]`` of a named body's centre of mass
+  (data.xipos)."""
+  xpos, xmat, _, _ = fk(mdl, q)
+  b = mdl.body_name2id[name]
+  return xpos[b] + _mv(xmat[b], _consts(mdl, q)["body_ipos"][b])
+
+
+def com_quantities(mdl: DeviceModel, q: Tensor, v: Tensor, ctx=None):
+  """mjData's com-based quantities at (q, v): (com0 ``[N, 3]``, xipos
+  ``[N, nbody, 3]``, cinert ``[N, nbody, 10]``, cvel ``[N, nbody, 6]``).
+
+  - ``com0`` = subtree_com[0], the mass-weighted mean of the bodies' CoMs;
+  - ``cinert[b]`` = the upper triangle of the inertia about com0 in world
+    axes by the parallel-axis theorem (Ixx, Iyy, Izz, Ixy, Ixz, Iyz), then
+    m (xipos - com0), then m;
+  - ``cvel[b]`` = [omega; v_origin + omega x com0], the world-origin
+    Plucker velocity translated to com0.
+  """
+  c = _consts(mdl, q)
+  xpos, xmat, S, _ = ctx if ctx is not None else _kin_ctx(mdl, q)
+  pos = torch.stack(xpos, 1)                                # [N, nbody, 3]
+  rot = torch.stack(xmat, 1)
+  xipos = pos + _mv(rot, c["body_ipos"])
+  mass = c["body_mass"]
+  com0 = (mass[:, None] * xipos).sum(1) / mass.sum()
+  ic = _mm3(_mm3(rot, c["body_inertia_w"]), rot.transpose(-1, -2))
+  d = xipos - com0[:, None]
+  dd = d[..., :, None] * d[..., None, :]
+  mb = mass[:, None, None]
+  ioff = ic + mb * ((d * d).sum(-1)[..., None, None] * c["eye3"] - dd)
+  cinert = torch.cat([
+    ioff.flatten(-2)[..., c["inertia_upper"]], mass[:, None] * d,
+    mass.expand(q.shape[0], -1)[..., None],
+  ], -1)
+  vel = body_velocities(mdl, v, S)                          # moving bodies
+  vel = torch.cat([vel.new_zeros(q.shape[0], 1, 6), vel], 1)
+  w = vel[..., :3]
+  cvel = torch.cat([w, vel[..., 3:] + torch.linalg.cross(w, com0[:, None].expand_as(w))], -1)
+  return com0, xipos, cinert, cvel

@@ -12,12 +12,15 @@ package's extraction::
 
   python -m envpool_torch.envs.mujoco.device_model --write
 
-The port has the engine's smooth dynamics and joint limits; contacts and
-free joints come with a later slice. The extractor therefore records only
-whether a model has contact rows (candidate geom pairs or limited tendons,
-``contacts``), and ``check_supported`` refuses such models and free joints.
-``models/refused.json`` lists the gym device models the writer refused,
-with the reason.
+The model carries the contact tables of
+``envpool_tpu/envs/mujoco/device_collision.py`` (``ContactData``, extracted
+by ``extract_contacts``, the port's copy of it), or None where the JAX
+package's is None. The port's engine has the plane-capsule/sphere and
+capsule-capsule narrow phase, joint-limit rows and free joints;
+``check_supported`` refuses the cylinder and box families and limited
+tendon rows, which come with a later slice. Every gym device model is
+written (Pusher's too, so its slice needs no regeneration);
+``models/refused.json`` lists those the loader refuses, with the reason.
 """
 
 from __future__ import annotations
@@ -33,6 +36,9 @@ import numpy as np
 
 # mjtJoint enum values (mujoco/mjmodel.h)
 _JNT_FREE, _JNT_BALL, _JNT_SLIDE, _JNT_HINGE = 0, 1, 2, 3
+# mjtGeom enum values (mujoco/mjmodel.h)
+_GEOM_PLANE, _GEOM_SPHERE, _GEOM_CAPSULE, _GEOM_CYLINDER = 0, 2, 3, 5
+_GEOM_BOX = 6
 
 MODELS_DIR = Path(__file__).resolve().parent / "models"
 
@@ -104,9 +110,8 @@ class DeviceModel(NamedTuple):
   geom_size: np.ndarray                # [ngeom, 3]
   geom_name2id: Dict[Optional[str], int]
   dof_invweight0: np.ndarray           # [nv] (diag-approx for limit rows)
-  # None when the model has no contact rows (the JAX package's contacts is
-  # None then); else (candidate geom pairs, limited tendons), whose tables
-  # the port does not have yet
+  # contact tables (ContactData) or None when the model has no admissible
+  # geom pairs and no limited tendons
   contacts: Any
 
 
@@ -138,23 +143,141 @@ def _inertia_boxes(m) -> np.ndarray:
   return out
 
 
-def _contact_rows(m) -> Optional[Tuple[int, int]]:
-  """(candidate geom pairs, limited tendons) under ``mj_collision``'s
-  filters, as ``envpool_tpu/envs/mujoco/device_collision.py::
-  extract_contacts`` admits them (every admitted pair gives at least one
-  contact point there), or None when both are 0."""
+class ContactData(NamedTuple):
+  """Static (numpy) candidate-contact tables for one model."""
+
+  # geom tables
+  geom_body: np.ndarray        # [ngeom] int
+  geom_size: np.ndarray        # [ngeom, 3]
+  geom_pos: np.ndarray         # [ngeom, 3] (body frame)
+  geom_rotm: np.ndarray        # [ngeom, 3, 3] (body frame)
+  # plane-capsule pairs (plane first); spheres are capsules with hl=0,
+  # contributing ONE candidate point instead of two
+  pc_plane: Tuple[int, ...]    # [n_pc] plane geom id
+  pc_cap: Tuple[int, ...]      # [n_pc] capsule/sphere geom id
+  pc_two: Tuple[bool, ...]     # [n_pc] True -> 2 endpoint candidates
+  # capsule-capsule (incl. sphere) pairs: one candidate point each
+  cc_g1: Tuple[int, ...]       # [n_cc]
+  cc_g2: Tuple[int, ...]       # [n_cc]
+  # plane-cylinder pairs: FOUR candidate points each (deepest rim,
+  # +-120deg face rims gated on tilt<45deg, far side-line endpoint)
+  pcy_plane: Tuple[int, ...]   # [n_pcy]
+  pcy_cyl: Tuple[int, ...]     # [n_pcy]
+  # capsule/sphere-cylinder pairs (capsule first, mj type order): one
+  # analytic closest-point candidate each
+  cyc_cap: Tuple[int, ...]     # [n_cyc]
+  cyc_cyl: Tuple[int, ...]     # [n_cyc]
+  # plane-box pairs: EIGHT corner candidates each (mjc_PlaneBox emits
+  # the below-margin corners in the same enumeration order)
+  pb_plane: Tuple[int, ...]    # [n_pb]
+  pb_box: Tuple[int, ...]      # [n_pb]
+  # sphere/capsule-box pairs (sphere/capsule first, mj type order):
+  # spheres contribute ONE closest-point candidate; capsules THREE
+  # (one per endpoint sphere + one golden-section mid-segment point)
+  sb_cap: Tuple[int, ...]      # [n_sb]
+  sb_box: Tuple[int, ...]      # [n_sb]
+  sb_three: Tuple[bool, ...]   # [n_sb] True -> capsule (3 candidates)
+  # per candidate-point constants, aligned with the concatenation
+  # [pc endpoints (1 or 2 per pair), cc points, pcy (4 per pair), cyc]
+  point_b1: np.ndarray         # [P] int body of geom1
+  point_b2: np.ndarray         # [P] int body of geom2
+  point_g1: np.ndarray         # [P] int geom1 id
+  point_g2: np.ndarray         # [P] int geom2 id
+  point_sgn: np.ndarray        # [P, nv] +-1/0: dof influence on b2 - b1
+  point_K: np.ndarray          # [P]
+  point_B: np.ndarray          # [P]
+  point_solimp: np.ndarray     # [P, 5]
+  point_incmargin: np.ndarray  # [P] includemargin = margin - gap
+  point_diagA: np.ndarray      # [P] position-independent diag approx
+  point_mu: np.ndarray         # [P, 2] tangential friction
+  point_condim: np.ndarray     # [P] 1 or 3
+  # joint-limit rows
+  lim_dof: Tuple[int, ...]     # [L] dof index (velocity/M space)
+  lim_qadr: Tuple[int, ...]    # [L] qpos index
+  lim_lo: np.ndarray           # [L]
+  lim_hi: np.ndarray           # [L]
+  lim_margin: np.ndarray       # [L]
+  lim_K: np.ndarray            # [L]
+  lim_B: np.ndarray            # [L]
+  lim_solimp: np.ndarray       # [L, 5]
+  lim_diagA: np.ndarray        # [L] dof_invweight0
+  # limited spatial tendon rows (2-site tendons, e.g. ball_in_cup's
+  # string): one row per tendon, nearer-limit side selected at runtime
+  # like joint limits. efc order: after joint limits, before contacts.
+  ten_site_body: np.ndarray    # [T, 2] body id per endpoint site
+  ten_site_pos: np.ndarray     # [T, 2, 3] site offset in body frame
+  ten_lo: np.ndarray           # [T]
+  ten_hi: np.ndarray           # [T]
+  ten_margin: np.ndarray       # [T]
+  ten_K: np.ndarray            # [T]
+  ten_B: np.ndarray            # [T]
+  ten_solimp: np.ndarray       # [T, 5]
+  ten_diagA: np.ndarray        # [T] tendon_invweight0
+  ten_anc: np.ndarray          # [T, 2, nv] dof influences each endpoint
+  nrows: int                   # total constraint rows
+  # Newton solve depth: fitted per problem size — 6/6 converges the
+  # planar models (nv<=9) to mj's optimum; wide free-root problems
+  # (ant: nv=14, ~100 rows) need 8/8 (verified to 1e-15 over random
+  # deep-penetration states in tests)
+  newton_iters: int
+  newton_ls: int
+
+
+def _mix(a1, a2, w1, w2):
+  """solmix-weighted combination of solref/solimp (equal priority)."""
+  s = w1 + w2
+  if s < 1e-12:
+    w1 = w2 = 0.5
+  else:
+    w1, w2 = w1 / s, w2 / s
+  return w1 * np.asarray(a1, np.float64) + w2 * np.asarray(a2, np.float64)
+
+
+def extract_contacts(m) -> ContactData:
+  """Candidate-pair tables from an mjModel (MuJoCo's collision filters).
+
+  Pair admission mirrors ``mj_collision``: contype/conaffinity bitmasks,
+  same-body exclusion, and the parent-child filter (skipped when the
+  parent is the world body). Geom pairs are enumerated exhaustively at
+  build time — there is no runtime broadphase; inactive candidates cost
+  one masked row block each.
+  """
+  if int(m.opt.cone) != 0:
+    raise NotImplementedError("device engine supports pyramidal cones only")
+  if m.npair:
+    raise NotImplementedError("explicit <pair> contacts unsupported")
+  # <exclude> body pairs (mj_collision's signature filter): packed as
+  # (body1 << 16) + body2 in exclude_signature
   excluded = set()
   for e in range(m.nexclude):
     sig = int(m.exclude_signature[e])
     ba, bb = sig >> 16, sig & 0xFFFF
     excluded.add((min(ba, bb), max(ba, bb)))
-  plane = 0  # mjGEOM_PLANE
-  pairs = 0
+
+  nv = int(m.nv)
+  timestep = float(m.opt.timestep)
+  gb = np.asarray(m.geom_bodyid, dtype=np.int64)
+
+  # dof -> body, ancestor table (dof's body is ancestor-or-self of b)
+  dof_body = np.asarray(m.dof_bodyid, dtype=np.int64)
+  anc = np.zeros((m.nbody, m.nbody), dtype=bool)
+  for b in range(m.nbody):
+    a = b
+    while True:
+      anc[a][b] = True
+      if a == 0:
+        break
+      a = int(m.body_parentid[a])
+
+  pairs = []
   for g1 in range(m.ngeom):
     for g2 in range(g1 + 1, m.ngeom):
-      b1, b2 = int(m.geom_bodyid[g1]), int(m.geom_bodyid[g2])
-      if b1 == b2 or (min(b1, b2), max(b1, b2)) in excluded:
+      b1, b2 = int(gb[g1]), int(gb[g2])
+      if b1 == b2:
         continue
+      if (min(b1, b2), max(b1, b2)) in excluded:
+        continue
+      # parent-child filter (mj default filterparent; world parent exempt)
       if (int(m.body_parentid[b2]) == b1 and b1 != 0) or (
         int(m.body_parentid[b1]) == b2 and b2 != 0
       ):
@@ -163,11 +286,280 @@ def _contact_rows(m) -> Optional[Tuple[int, int]]:
       a1, a2 = int(m.geom_conaffinity[g1]), int(m.geom_conaffinity[g2])
       if not ((t1 & a2) or (t2 & a1)):
         continue
-      if int(m.geom_type[g1]) == plane and int(m.geom_type[g2]) == plane:
+      k1, k2 = int(m.geom_type[g1]), int(m.geom_type[g2])
+      for k in (k1, k2):
+        if k not in (
+          _GEOM_PLANE, _GEOM_SPHERE, _GEOM_CAPSULE, _GEOM_CYLINDER,
+          _GEOM_BOX,
+        ):
+          raise NotImplementedError(
+            f"geom type {k} unsupported by the device contact engine"
+          )
+      if k1 == _GEOM_PLANE and k2 == _GEOM_PLANE:
         continue
-      pairs += 1
-  tendons = int(np.count_nonzero(np.asarray(m.tendon_limited)))
-  return (pairs, tendons) if pairs or tendons else None
+      if k1 == _GEOM_CYLINDER and k2 == _GEOM_CYLINDER:
+        raise NotImplementedError("cylinder-cylinder contacts unsupported")
+      if _GEOM_BOX in (k1, k2) and (
+        min(k1, k2) == _GEOM_CYLINDER or k1 == k2
+      ):
+        raise NotImplementedError("cylinder-box/box-box unsupported")
+      # order by geom type (mj_collideGeoms' type-sorted collision
+      # table: plane first, sphere/capsule before cylinder; contact
+      # normal then points geom1 -> geom2). Fresh names: rebinding the
+      # loop variables here would corrupt later iterations.
+      if k1 > k2:
+        pairs.append((g2, g1, k2, k1))
+      else:
+        pairs.append((g1, g2, k1, k2))
+
+  def _combine(g1, g2):
+    """MuJoCo contact-parameter mixing for equal geom priority."""
+    if int(m.geom_priority[g1]) != int(m.geom_priority[g2]):
+      hi = g1 if m.geom_priority[g1] > m.geom_priority[g2] else g2
+      fric = np.asarray(m.geom_friction[hi], np.float64)
+      solref = np.asarray(m.geom_solref[hi], np.float64)
+      solimp = np.asarray(m.geom_solimp[hi], np.float64)
+      condim = int(m.geom_condim[hi])
+    else:
+      fric = np.maximum(m.geom_friction[g1], m.geom_friction[g2])
+      w1 = float(m.geom_solmix[g1])
+      w2 = float(m.geom_solmix[g2])
+      solref = _mix(m.geom_solref[g1], m.geom_solref[g2], w1, w2)
+      # negative (direct) solref entries use min, but gym models are std
+      if m.geom_solref[g1][0] <= 0 or m.geom_solref[g2][0] <= 0:
+        solref = np.minimum(m.geom_solref[g1], m.geom_solref[g2])
+      solimp = _mix(m.geom_solimp[g1], m.geom_solimp[g2], w1, w2)
+      condim = max(int(m.geom_condim[g1]), int(m.geom_condim[g2]))
+    # margins/gaps ADD (each geom's margin expands its own surface):
+    # mj_collideGeoms uses margin = margin1 + margin2, gap likewise
+    incmargin = (
+      float(m.geom_margin[g1]) + float(m.geom_margin[g2])
+    ) - (float(m.geom_gap[g1]) + float(m.geom_gap[g2]))
+    if condim not in (1, 3):
+      raise NotImplementedError("device contacts support condim 1/3 only")
+    return fric, solref, solimp, condim, incmargin
+
+  def _kb(solref, solimp):
+    tc, dr = float(solref[0]), float(solref[1])
+    tc = max(tc, 2.0 * timestep)  # MuJoCo clamps timeconst at 2*timestep
+    dmax = float(solimp[1])
+    return (
+      1.0 / max(1e-15, dmax * dmax * tc * tc * dr * dr),
+      2.0 / max(1e-15, dmax * tc),
+    )
+
+  pc_plane, pc_cap, pc_two = [], [], []
+  cc_g1, cc_g2 = [], []
+  pcy_plane, pcy_cyl = [], []
+  cyc_cap, cyc_cyl = [], []
+  pb_plane, pb_box = [], []
+  sb_cap, sb_box, sb_three = [], [], []
+  pt = {k: [] for k in (
+    "b1", "b2", "g1", "g2", "K", "B", "solimp", "inc", "diagA", "mu",
+    "condim",
+  )}
+  iw = np.asarray(m.body_invweight0, np.float64)
+
+  def _add_points(g1, g2, n_pts):
+    fric, solref, solimp, condim, inc = _combine(g1, g2)
+    K, B = _kb(solref, solimp)
+    b1, b2 = int(gb[g1]), int(gb[g2])
+    base = float(iw[b1, 0] + iw[b2, 0])
+    mu = float(fric[0])
+    if condim == 3:
+      diag_a = 2.0 * mu * mu * (1.0 + mu * mu) * base
+    else:
+      diag_a = base
+    for _ in range(n_pts):
+      pt["b1"].append(b1)
+      pt["b2"].append(b2)
+      pt["g1"].append(g1)
+      pt["g2"].append(g2)
+      pt["K"].append(K)
+      pt["B"].append(B)
+      pt["solimp"].append(np.asarray(solimp, np.float64))
+      pt["inc"].append(inc)
+      pt["diagA"].append(diag_a)
+      # condim-3 tangents BOTH use the sliding friction fric[0]
+      # (fric[1] is torsional, condim>=4 only): mjContact.friction[:2]
+      pt["mu"].append([float(fric[0]), float(fric[0])])
+      pt["condim"].append(condim)
+
+  for g1, g2, k1, k2 in pairs:
+    if k2 == _GEOM_BOX and k1 == _GEOM_PLANE:
+      pb_plane.append(g1)
+      pb_box.append(g2)
+    elif k2 == _GEOM_BOX:  # sphere/capsule (type-sorted first) vs box
+      sb_cap.append(g1)
+      sb_box.append(g2)
+      sb_three.append(k1 == _GEOM_CAPSULE)
+    elif k1 == _GEOM_PLANE and k2 == _GEOM_CYLINDER:
+      pcy_plane.append(g1)
+      pcy_cyl.append(g2)
+    elif k1 == _GEOM_PLANE:
+      pc_plane.append(g1)
+      pc_cap.append(g2)
+      pc_two.append(k2 == _GEOM_CAPSULE)
+    elif k2 == _GEOM_CYLINDER:  # sphere/capsule (type-sorted first) vs cyl
+      cyc_cap.append(g1)
+      cyc_cyl.append(g2)
+    else:  # sphere/capsule vs sphere/capsule: one candidate point
+      cc_g1.append(g1)
+      cc_g2.append(g2)
+
+  # the per-point constant table MUST follow contact_points' family
+  # segment order [pc, cc, pcy, cyc, pb, sb], not pair-enumeration
+  # order — models mixing families interleave them in `pairs`
+  for i, (gp, gc) in enumerate(zip(pc_plane, pc_cap)):
+    _add_points(gp, gc, 2 if pc_two[i] else 1)
+  for g1, g2 in zip(cc_g1, cc_g2):
+    _add_points(g1, g2, 1)
+  for gp, gc in zip(pcy_plane, pcy_cyl):
+    _add_points(gp, gc, 4)
+  for g1, g2 in zip(cyc_cap, cyc_cyl):
+    _add_points(g1, g2, 1)
+  for gp, gx in zip(pb_plane, pb_box):
+    _add_points(gp, gx, 8)
+  for i, (g1, g2) in enumerate(zip(sb_cap, sb_box)):
+    _add_points(g1, g2, 3 if sb_three[i] else 1)
+
+  n_pts = len(pt["b1"])
+  sgn = np.zeros((n_pts, nv))
+  for p in range(n_pts):
+    for d in range(nv):
+      db = dof_body[d]
+      sgn[p, d] = float(anc[db][pt["b2"][p]]) - float(anc[db][pt["b1"][p]])
+
+  # joint limits (1-dof hinge/slide; free joints are never limited)
+  lim_dof, lim_qadr, lim_lo, lim_hi, lim_margin = [], [], [], [], []
+  lim_K, lim_B, lim_solimp, lim_diag = [], [], [], []
+  dof_iw = np.asarray(m.dof_invweight0, np.float64)
+  for j in range(m.njnt):
+    if not m.jnt_limited[j]:
+      continue
+    d = int(m.jnt_dofadr[j])
+    K, B = _kb(m.jnt_solref[j], m.jnt_solimp[j])
+    lim_dof.append(d)
+    lim_qadr.append(int(m.jnt_qposadr[j]))
+    lim_lo.append(float(m.jnt_range[j, 0]))
+    lim_hi.append(float(m.jnt_range[j, 1]))
+    lim_margin.append(float(m.jnt_margin[j]))
+    lim_K.append(K)
+    lim_B.append(B)
+    lim_solimp.append(np.asarray(m.jnt_solimp[j], np.float64))
+    lim_diag.append(float(dof_iw[d]))
+
+  # limited 2-site spatial tendons (e.g. ball_in_cup's string): one
+  # nearest-side limit row each, efc-ordered after joint limits
+  _WRAP_SITE = 3  # mjtWrap
+  ten_body, ten_spos, ten_lo, ten_hi, ten_mar = [], [], [], [], []
+  ten_K, ten_B, ten_imp, ten_diag, ten_anc = [], [], [], [], []
+  for t in range(m.ntendon):
+    if not bool(m.tendon_limited[t]):
+      continue
+    adr, num = int(m.tendon_adr[t]), int(m.tendon_num[t])
+    wtypes = [int(m.wrap_type[adr + i]) for i in range(num)]
+    if num != 2 or any(w != _WRAP_SITE for w in wtypes):
+      raise NotImplementedError(
+        "only 2-site spatial tendon limits supported"
+      )
+    sites = [int(m.wrap_objid[adr + i]) for i in range(num)]
+    bodies = [int(m.site_bodyid[s]) for s in sites]
+    K, B = _kb(m.tendon_solref_lim[t], m.tendon_solimp_lim[t])
+    ten_body.append(bodies)
+    ten_spos.append([np.asarray(m.site_pos[s], np.float64) for s in sites])
+    ten_lo.append(float(m.tendon_range[t, 0]))
+    ten_hi.append(float(m.tendon_range[t, 1]))
+    ten_mar.append(float(m.tendon_margin[t]))
+    ten_K.append(K)
+    ten_B.append(B)
+    ten_imp.append(np.asarray(m.tendon_solimp_lim[t], np.float64))
+    ten_diag.append(float(m.tendon_invweight0[t]))
+    ten_anc.append([
+      [float(anc[dof_body[d]][b]) for d in range(nv)] for b in bodies
+    ])
+  n_ten = len(ten_body)
+
+  rows = len(lim_dof) + n_ten
+  for c in pt["condim"]:
+    rows += 2 * (c - 1) if c > 1 else 1
+  deep = nv > 9 or rows > 70
+  # humanoid-scale problems (nv ~27, ~350 rows) leave 8-iteration
+  # solves ~0.3 in qvel from mj's optimum at contact-transition
+  # substeps (warm start far from the new active set); 16/12 restores
+  # ~1e-12 per-substep parity (measured, dm humanoid substep 2)
+  wide = nv > 20 or rows > 200
+
+  return ContactData(
+    geom_body=gb,
+    geom_size=np.asarray(m.geom_size, np.float64),
+    geom_pos=np.asarray(m.geom_pos, np.float64),
+    geom_rotm=np.stack([
+      _quat2rotm(np.asarray(m.geom_quat[g], np.float64))
+      for g in range(m.ngeom)
+    ]) if m.ngeom else np.zeros((0, 3, 3)),
+    pc_plane=tuple(pc_plane),
+    pc_cap=tuple(pc_cap),
+    pc_two=tuple(pc_two),
+    cc_g1=tuple(cc_g1),
+    cc_g2=tuple(cc_g2),
+    pcy_plane=tuple(pcy_plane),
+    pcy_cyl=tuple(pcy_cyl),
+    cyc_cap=tuple(cyc_cap),
+    cyc_cyl=tuple(cyc_cyl),
+    pb_plane=tuple(pb_plane),
+    pb_box=tuple(pb_box),
+    sb_cap=tuple(sb_cap),
+    sb_box=tuple(sb_box),
+    sb_three=tuple(sb_three),
+    point_b1=np.asarray(pt["b1"], np.int64),
+    point_b2=np.asarray(pt["b2"], np.int64),
+    point_g1=np.asarray(pt["g1"], np.int64),
+    point_g2=np.asarray(pt["g2"], np.int64),
+    point_sgn=sgn,
+    point_K=np.asarray(pt["K"], np.float64),
+    point_B=np.asarray(pt["B"], np.float64),
+    point_solimp=(
+      np.stack(pt["solimp"]) if n_pts else np.zeros((0, 5))
+    ),
+    point_incmargin=np.asarray(pt["inc"], np.float64),
+    point_diagA=np.asarray(pt["diagA"], np.float64),
+    point_mu=np.asarray(pt["mu"], np.float64).reshape(n_pts, 2),
+    point_condim=np.asarray(pt["condim"], np.int64),
+    lim_dof=tuple(lim_dof),
+    lim_qadr=tuple(lim_qadr),
+    lim_lo=np.asarray(lim_lo, np.float64),
+    lim_hi=np.asarray(lim_hi, np.float64),
+    lim_margin=np.asarray(lim_margin, np.float64),
+    lim_K=np.asarray(lim_K, np.float64),
+    lim_B=np.asarray(lim_B, np.float64),
+    lim_solimp=(
+      np.stack(lim_solimp) if lim_dof else np.zeros((0, 5))
+    ),
+    lim_diagA=np.asarray(lim_diag, np.float64),
+    ten_site_body=(
+      np.asarray(ten_body, np.int64) if n_ten else np.zeros((0, 2), np.int64)
+    ),
+    ten_site_pos=(
+      np.asarray(ten_spos, np.float64) if n_ten else np.zeros((0, 2, 3))
+    ),
+    ten_lo=np.asarray(ten_lo, np.float64),
+    ten_hi=np.asarray(ten_hi, np.float64),
+    ten_margin=np.asarray(ten_mar, np.float64),
+    ten_K=np.asarray(ten_K, np.float64),
+    ten_B=np.asarray(ten_B, np.float64),
+    ten_solimp=(
+      np.stack(ten_imp) if n_ten else np.zeros((0, 5))
+    ),
+    ten_diagA=np.asarray(ten_diag, np.float64),
+    ten_anc=(
+      np.asarray(ten_anc, np.float64) if n_ten
+      else np.zeros((0, 2, nv))
+    ),
+    nrows=rows,
+    newton_iters=16 if wide else (8 if deep else 6),
+    newton_ls=12 if wide else (8 if deep else 6),
+  )
 
 
 def extract_model(xml_path: str) -> DeviceModel:
@@ -271,6 +663,10 @@ def _extract_model(m) -> DeviceModel:
   def names(obj, count):
     return {mujoco.mj_id2name(m, obj, i): i for i in range(count)}
 
+  contacts = extract_contacts(m)
+  if contacts.point_b1.shape[0] == 0 and contacts.ten_site_body.shape[0] == 0:
+    contacts = None  # limit-only models use the closed-form solve path
+
   return DeviceModel(
     nq=int(m.nq), nv=int(m.nv), nbody=int(m.nbody),
     parent=tuple(int(p) for p in m.body_parentid),
@@ -332,16 +728,22 @@ def _extract_model(m) -> DeviceModel:
     geom_size=np.asarray(m.geom_size, dtype=np.float64),
     geom_name2id=names(mujoco.mjtObj.mjOBJ_GEOM, m.ngeom),
     dof_invweight0=np.asarray(m.dof_invweight0, dtype=np.float64),
-    contacts=_contact_rows(m),
+    contacts=contacts,
   )
 
 
 def check_supported(mdl: DeviceModel) -> None:
-  """Refuse what the port's engine does not have yet."""
-  if mdl.contacts is not None:
-    raise NotImplementedError("contacts: not yet ported")
-  if _JNT_FREE in mdl.jnt_type:
-    raise NotImplementedError("free joints: not yet ported")
+  """Refuse what the port's engine does not have yet: the cylinder and box
+  narrow phase and limited tendon rows."""
+  cd = mdl.contacts
+  if cd is None:
+    return
+  if cd.pcy_plane or cd.cyc_cap:
+    raise NotImplementedError("cylinder contacts: not yet ported")
+  if cd.pb_plane or cd.sb_cap:
+    raise NotImplementedError("box contacts: not yet ported")
+  if cd.ten_site_body.shape[0]:
+    raise NotImplementedError("tendon limit rows: not yet ported")
 
 
 # ------------------------------------------------------------ data files
@@ -353,15 +755,27 @@ def _to_json(value: Any) -> Any:
   return value
 
 
+_CONTACT_PREFIX = "contacts."
+
+
 def save_model(mdl: DeviceModel, path: Path) -> None:
-  """One ``.npz``: the array fields, and the rest as a JSON string (name
-  tables as ``[name, id]`` pairs, since a name may be None)."""
+  """One ``.npz``: the array fields (the contact tables' under
+  ``contacts.<field>``), and the rest as a JSON string (name tables as
+  ``[name, id]`` pairs, since a name may be None; the contact tables'
+  tuples and integers as an object)."""
   meta, arrays = {}, {}
   for name, value in mdl._asdict().items():
     if isinstance(value, np.ndarray):
       arrays[name] = value
     elif name in _NAME_FIELDS:
       meta[name] = [[k, v] for k, v in value.items()]
+    elif name == "contacts" and value is not None:
+      meta[name] = {}
+      for field, x in value._asdict().items():
+        if isinstance(x, np.ndarray):
+          arrays[_CONTACT_PREFIX + field] = x
+        else:
+          meta[name][field] = _to_json(x)
     else:
       meta[name] = _to_json(value)
   with open(path, "wb") as f:
@@ -371,8 +785,6 @@ def save_model(mdl: DeviceModel, path: Path) -> None:
 def _from_json(name: str, value: Any) -> Any:
   if name in _NAME_FIELDS:
     return {k: v for k, v in value}
-  if name == "contacts":
-    return None if value is None else tuple(value)
   if isinstance(value, list):
     return tuple(tuple(v) if isinstance(v, list) else v for v in value)
   return value
@@ -382,9 +794,17 @@ def read_model(path: Path) -> DeviceModel:
   """A model written by ``save_model`` (numpy only)."""
   with np.load(path, allow_pickle=False) as data:
     meta = json.loads(str(data["meta"]))
+    contacts = meta.pop("contacts")
     fields = {k: _from_json(k, v) for k, v in meta.items()}
-    fields.update({k: np.array(data[k]) for k in data.files if k != "meta"})
-  return DeviceModel(**fields)
+    arrays = {k: np.array(data[k]) for k in data.files if k != "meta"}
+  fields.update({k: v for k, v in arrays.items()
+                 if not k.startswith(_CONTACT_PREFIX)})
+  if contacts is not None:
+    contacts = {k: _from_json(k, v) for k, v in contacts.items()}
+    contacts.update({k[len(_CONTACT_PREFIX):]: v for k, v in arrays.items()
+                     if k.startswith(_CONTACT_PREFIX)})
+    contacts = ContactData(**contacts)
+  return DeviceModel(contacts=contacts, **fields)
 
 
 def refused_models() -> Dict[str, str]:
@@ -413,8 +833,8 @@ def gym_asset(xml_name: str) -> str:
 
 
 def write_models(out_dir: Path = MODELS_DIR) -> Dict[str, str]:
-  """Extract every gym device model from gymnasium's assets: the supported
-  ones to ``<stem>.npz``, the others to ``refused.json``."""
+  """Extract every gym device model from gymnasium's assets to
+  ``<stem>.npz``, and list those the engine refuses in ``refused.json``."""
   out_dir.mkdir(parents=True, exist_ok=True)
   refused = {}
   for xml_name in GYM_DEVICE_XMLS:
@@ -423,7 +843,6 @@ def write_models(out_dir: Path = MODELS_DIR) -> Dict[str, str]:
       check_supported(mdl)
     except NotImplementedError as err:
       refused[xml_name] = str(err)
-      continue
     save_model(mdl, out_dir / (Path(xml_name).stem + ".npz"))
   with open(out_dir / "refused.json", "w") as f:
     json.dump(refused, f, indent=1, sort_keys=True)
@@ -440,7 +859,7 @@ def main(argv: Sequence[str] = ()) -> int:
     parser.print_help()
     return 2
   refused = write_models()
-  print(f"wrote {len(GYM_DEVICE_XMLS) - len(refused)} models to {MODELS_DIR}; "
+  print(f"wrote {len(GYM_DEVICE_XMLS)} models to {MODELS_DIR}; "
         f"refused {sorted(refused)}")
   return 0
 

@@ -1,13 +1,17 @@
 """On-device MuJoCo gym tasks (``-Jax-v4``), the port's batched versions.
 
-Counterpart of ``envpool_tpu/envs/mujoco/device_tasks.py`` for the four
-contact-free tasks: ``ReacherJax-v4``, ``InvertedPendulumJax-v4``,
-``InvertedDoublePendulumJax-v4`` and ``SwimmerJax-v4``. Same names, models,
-``frame_skip``, configs, specs, state keys ``{"q", "v"}``, key use,
+Counterpart of ``envpool_tpu/envs/mujoco/device_tasks.py``: the four
+contact-free tasks ``ReacherJax-v4``, ``InvertedPendulumJax-v4``,
+``InvertedDoublePendulumJax-v4`` and ``SwimmerJax-v4``, and the contact
+locomotion tasks ``HalfCheetahJax-v4``, ``HopperJax-v4``,
+``Walker2dJax-v4``, ``AntJax-v4`` (free quaternion root), ``HumanoidJax-v4``
+and ``HumanoidStandupJax-v4`` (23 dofs, all-pairs collision, the 376-dim
+com-frame observation), which run MuJoCo's contact pipeline
+(``device_collision.py``). Same names, models, ``frame_skip``, configs,
+specs, state keys (``{"q", "v"}``, Humanoid's with ``"mc"``), key use,
 observations, rewards, info fields and termination as the JAX package,
-which follows the v4 generation of ``envpool/mujoco/gym/{reacher,
-inverted_pendulum,inverted_double_pendulum,swimmer}.h``; written over
-``[N, ...]`` tensors on the engine of ``device_engine.py``, with the
+which follows the v4 generation of ``envpool/mujoco/gym/*.h``; written
+over ``[N, ...]`` tensors on the engine of ``device_engine.py``, with the
 models loaded from the committed data (``device_model.load_model``).
 
 Known deviations from the host/gym implementation (documented contract):
@@ -20,8 +24,7 @@ Known deviations from the host/gym implementation (documented contract):
   substep's pre-integration forward pass. Both are exactly zero whenever
   the cart's rail limit is inactive, i.e. in the entire healthy regime.
 
-The contact tasks (HalfCheetah, Hopper, Walker2d, Ant, Humanoid,
-HumanoidStandup, Pusher) come with the contact engine.
+Pusher (cylinder contacts) comes with a later slice.
 """
 
 from __future__ import annotations
@@ -328,3 +331,506 @@ class SwimmerJaxEnv(DeviceMujocoEnv):
     state = {"q": q1, "v": v1}
     return state, cls._obs(state), reward, torch.zeros_like(reward, dtype=torch.bool), \
       cls._info(q1, reward_fwd, -ctrl_cost, xv, yv)
+
+
+class HalfCheetahJaxEnv(DeviceMujocoEnv):
+  """HalfCheetah-v4 on-device (``envpool/mujoco/gym/half_cheetah.h``).
+
+  First contact-rich task through the device engine: 8 capsule-vs-plane
+  candidate contacts with pyramidal friction, solved by the on-device
+  Newton iteration (device_collision.py) at every Euler substep.
+  """
+
+  name = "HalfCheetahJax"
+  xml_file = "half_cheetah.xml"
+  frame_skip = 5
+
+  @staticmethod
+  def default_config() -> Dict[str, Any]:
+    return {
+      "reward_threshold": 4800.0,
+      "forward_reward_weight": 1.0,
+      "ctrl_cost_weight": 0.1,
+      "reset_noise_scale": 0.1,
+    }
+
+  @staticmethod
+  def state_spec(cfg: Any) -> Dict[str, ArraySpec]:
+    return {
+      "obs": ArraySpec(np.float32, (17,), -_INF, _INF),
+      "info:reward_run": ArraySpec(np.float32, (-1,)),
+      "info:reward_ctrl": ArraySpec(np.float32, (-1,)),
+      "info:x_position": ArraySpec(np.float32, (-1,)),
+      "info:x_velocity": ArraySpec(np.float32, (-1,)),
+    }
+
+  @staticmethod
+  def action_spec(cfg: Any) -> Dict[str, ArraySpec]:
+    return {"action": ArraySpec(np.float32, (-1, 6), -1.0, 1.0)}
+
+  @staticmethod
+  def _obs(state):
+    return torch.cat([state["q"][:, 1:], state["v"]], 1)
+
+  @classmethod
+  def reset(cls, cfg: Any, state: Any, keys: torch.Tensor):
+    del state
+    mdl = cls.mdl()
+    kq, kv = prng.split(keys).unbind(-2)
+    s = float(cfg.reset_noise_scale)
+    q = _qpos0(mdl, keys) + prng.uniform(kq, (mdl.nq,), -s, s)
+    # gym's HalfCheetah uses normal velocity noise (uniform positions)
+    v = s * prng.normal(kv, (mdl.nv,))
+    state = {"q": q, "v": v}
+    zero = torch.zeros_like(q[:, 0])
+    return state, cls._obs(state), {
+      "reward_run": zero, "reward_ctrl": zero,
+      "x_position": q[:, 0], "x_velocity": zero,
+    }
+
+  @classmethod
+  def step(cls, cfg: Any, state: Any, action: Any, keys: torch.Tensor):
+    del keys
+    mdl = cls.mdl()
+    action = action.to(torch.float32)
+    x0 = state["q"][:, 0]
+    q1, v1 = cls._physics(state, action)
+    state = {"q": q1, "v": v1}
+    xv = (q1[:, 0] - x0) * prng.inv32(cls.frame_skip * mdl.timestep)
+    reward_run = float(cfg.forward_reward_weight) * xv
+    ctrl_cost = float(cfg.ctrl_cost_weight) * (action * action).sum(-1)
+    reward = reward_run - ctrl_cost
+    return state, cls._obs(state), reward, torch.zeros_like(reward, dtype=torch.bool), {
+      "reward_run": reward_run, "reward_ctrl": -ctrl_cost,
+      "x_position": q1[:, 0], "x_velocity": xv,
+    }
+
+
+def _healthy_reward(cfg: Any, healthy: torch.Tensor):
+  """(survive reward, terminated) per the terminate_when_unhealthy flag."""
+  if bool(cfg.terminate_when_unhealthy):
+    return torch.full(healthy.shape, float(cfg.healthy_reward),
+                      device=healthy.device), ~healthy
+  return (torch.where(healthy, float(cfg.healthy_reward), 0.0).to(torch.float32),
+          torch.zeros_like(healthy))
+
+
+class HopperJaxEnv(DeviceMujocoEnv):
+  """Hopper-v4 on-device (``envpool/mujoco/gym/hopper.h``).
+
+  RK4-integrated with contacts resolved at every stage (mj_RungeKutta
+  evaluates the full constrained forward dynamics four times per
+  substep); healthy-state termination per the v4 generation.
+  """
+
+  name = "HopperJax"
+  xml_file = "hopper.xml"
+  frame_skip = 4
+
+  @staticmethod
+  def default_config() -> Dict[str, Any]:
+    return {
+      "reward_threshold": 6000.0,
+      "terminate_when_unhealthy": True,
+      "forward_reward_weight": 1.0,
+      "ctrl_cost_weight": 1e-3,
+      "healthy_reward": 1.0,
+      "velocity_min": -10.0, "velocity_max": 10.0,
+      "healthy_state_min": -100.0, "healthy_state_max": 100.0,
+      "healthy_angle_min": -0.2, "healthy_angle_max": 0.2,
+      "healthy_z_min": 0.7,
+      "reset_noise_scale": 5e-3,
+    }
+
+  @staticmethod
+  def state_spec(cfg: Any) -> Dict[str, ArraySpec]:
+    return {
+      "obs": ArraySpec(np.float32, (11,), -_INF, _INF),
+      "info:x_position": ArraySpec(np.float32, (-1,)),
+      "info:x_velocity": ArraySpec(np.float32, (-1,)),
+    }
+
+  @staticmethod
+  def action_spec(cfg: Any) -> Dict[str, ArraySpec]:
+    return {"action": ArraySpec(np.float32, (-1, 3), -1.0, 1.0)}
+
+  @classmethod
+  def _obs_of(cls, cfg, state):
+    return torch.cat([
+      state["q"][:, 1:],
+      torch.clamp(state["v"], float(cfg.velocity_min), float(cfg.velocity_max)),
+    ], 1)
+
+  @classmethod
+  def _healthy(cls, cfg, state):
+    q, v = state["q"], state["v"]
+    z, angle = q[:, 1], q[:, 2]
+    lo, hi = float(cfg.healthy_state_min), float(cfg.healthy_state_max)
+    st = torch.cat([q[:, 2:], v], 1)
+    return (
+      (z > float(cfg.healthy_z_min))
+      & (angle > float(cfg.healthy_angle_min))
+      & (angle < float(cfg.healthy_angle_max))
+      & ((st > lo) & (st < hi)).all(1)
+    )
+
+  @classmethod
+  def reset(cls, cfg: Any, state: Any, keys: torch.Tensor):
+    del state
+    mdl = cls.mdl()
+    kq, kv = prng.split(keys).unbind(-2)
+    s = float(cfg.reset_noise_scale)
+    q = _qpos0(mdl, keys) + prng.uniform(kq, (mdl.nq,), -s, s)
+    v = prng.uniform(kv, (mdl.nv,), -s, s)
+    state = {"q": q, "v": v}
+    return state, cls._obs_of(cfg, state), {
+      "x_position": q[:, 0], "x_velocity": torch.zeros_like(q[:, 0]),
+    }
+
+  @classmethod
+  def step(cls, cfg: Any, state: Any, action: Any, keys: torch.Tensor):
+    del keys
+    mdl = cls.mdl()
+    action = action.to(torch.float32)
+    x0 = state["q"][:, 0]
+    q1, v1 = cls._physics(state, action)
+    state = {"q": q1, "v": v1}
+    xv = (q1[:, 0] - x0) * prng.inv32(cls.frame_skip * mdl.timestep)
+    ctrl_cost = float(cfg.ctrl_cost_weight) * (action * action).sum(-1)
+    survive, term = _healthy_reward(cfg, cls._healthy(cfg, state))
+    reward = float(cfg.forward_reward_weight) * xv + survive - ctrl_cost
+    return state, cls._obs_of(cfg, state), reward, term, {
+      "x_position": q1[:, 0], "x_velocity": xv,
+    }
+
+
+class Walker2dJaxEnv(HopperJaxEnv):
+  """Walker2d-v4 on-device (``envpool/mujoco/gym/walker2d.h``)."""
+
+  name = "Walker2dJax"
+  xml_file = "walker2d.xml"
+  frame_skip = 4
+
+  @staticmethod
+  def default_config() -> Dict[str, Any]:
+    return {
+      "terminate_when_unhealthy": True,
+      "forward_reward_weight": 1.0,
+      "ctrl_cost_weight": 1e-3,
+      "healthy_reward": 1.0,
+      "velocity_min": -10.0, "velocity_max": 10.0,
+      "healthy_z_min": 0.8, "healthy_z_max": 2.0,
+      "healthy_angle_min": -1.0, "healthy_angle_max": 1.0,
+      "reset_noise_scale": 5e-3,
+    }
+
+  @staticmethod
+  def state_spec(cfg: Any) -> Dict[str, ArraySpec]:
+    return {
+      "obs": ArraySpec(np.float32, (17,), -_INF, _INF),
+      "info:x_position": ArraySpec(np.float32, (-1,)),
+      "info:x_velocity": ArraySpec(np.float32, (-1,)),
+    }
+
+  @staticmethod
+  def action_spec(cfg: Any) -> Dict[str, ArraySpec]:
+    return {"action": ArraySpec(np.float32, (-1, 6), -1.0, 1.0)}
+
+  @classmethod
+  def _healthy(cls, cfg, state):
+    z, angle = state["q"][:, 1], state["q"][:, 2]
+    return (
+      (z >= float(cfg.healthy_z_min))
+      & (z <= float(cfg.healthy_z_max))
+      & (angle >= float(cfg.healthy_angle_min))
+      & (angle <= float(cfg.healthy_angle_max))
+    )
+
+
+def _planar_info(x, y, xv, yv) -> Dict[str, torch.Tensor]:
+  return {
+    "x_position": x, "y_position": y,
+    "distance_from_origin": torch.sqrt(x ** 2 + y ** 2),
+    "x_velocity": xv, "y_velocity": yv,
+  }
+
+
+class AntJaxEnv(DeviceMujocoEnv):
+  """Ant-v4 on-device (``envpool/mujoco/gym/ant.h:30-226``).
+
+  First free-joint (quaternion root) task through the device engine:
+  RK4 over 3D rigid-body dynamics with 25 candidate plane contacts
+  (8 leg capsules x 2 endpoints + torso sphere + 8 ankle capsules x 2)
+  resolved by the on-device Newton solve each stage. The gym v4 default
+  ``use_contact_forces=False`` observation (27-dim) is implemented;
+  cfrc_ext observations are not (host tier covers that variant).
+  """
+
+  name = "AntJax"
+  xml_file = "ant.xml"
+  frame_skip = 5
+
+  @staticmethod
+  def default_config() -> Dict[str, Any]:
+    return {
+      "reward_threshold": 6000.0,
+      "terminate_when_unhealthy": True,
+      "forward_reward_weight": 1.0,
+      "ctrl_cost_weight": 0.5,
+      "healthy_reward": 1.0,
+      "healthy_z_min": 0.2, "healthy_z_max": 1.0,
+      "reset_noise_scale": 0.1,
+    }
+
+  @staticmethod
+  def state_spec(cfg: Any) -> Dict[str, ArraySpec]:
+    return {
+      "obs": ArraySpec(np.float32, (27,), -_INF, _INF),
+      "info:reward_forward": ArraySpec(np.float32, (-1,)),
+      "info:reward_ctrl": ArraySpec(np.float32, (-1,)),
+      "info:reward_survive": ArraySpec(np.float32, (-1,)),
+      "info:x_position": ArraySpec(np.float32, (-1,)),
+      "info:y_position": ArraySpec(np.float32, (-1,)),
+      "info:distance_from_origin": ArraySpec(np.float32, (-1,)),
+      "info:x_velocity": ArraySpec(np.float32, (-1,)),
+      "info:y_velocity": ArraySpec(np.float32, (-1,)),
+    }
+
+  @staticmethod
+  def action_spec(cfg: Any) -> Dict[str, ArraySpec]:
+    return {"action": ArraySpec(np.float32, (-1, 8), -1.0, 1.0)}
+
+  @staticmethod
+  def _obs(state):
+    return torch.cat([state["q"][:, 2:], state["v"]], 1)
+
+  @classmethod
+  def _healthy(cls, cfg, state):
+    z = state["q"][:, 2]
+    finite = torch.isfinite(state["q"]).all(1) & torch.isfinite(state["v"]).all(1)
+    return (
+      finite
+      & (z >= float(cfg.healthy_z_min))
+      & (z <= float(cfg.healthy_z_max))
+    )
+
+  @classmethod
+  def reset(cls, cfg: Any, state: Any, keys: torch.Tensor):
+    del state
+    mdl = cls.mdl()
+    kq, kv = prng.split(keys).unbind(-2)
+    s = float(cfg.reset_noise_scale)
+    q = _qpos0(mdl, keys) + prng.uniform(kq, (mdl.nq,), -s, s)
+    v = s * prng.normal(kv, (mdl.nv,))
+    state = {"q": q, "v": v}
+    zero = torch.zeros_like(q[:, 0])
+    return state, cls._obs(state), {
+      "reward_forward": zero, "reward_ctrl": zero, "reward_survive": zero,
+      **_planar_info(q[:, 0], q[:, 1], zero, zero),
+    }
+
+  @classmethod
+  def step(cls, cfg: Any, state: Any, action: Any, keys: torch.Tensor):
+    del keys
+    mdl = cls.mdl()
+    action = action.to(torch.float32)
+    x0, y0 = state["q"][:, 0], state["q"][:, 1]
+    q1, v1 = cls._physics(state, action)
+    state = {"q": q1, "v": v1}
+    inv_dt = prng.inv32(cls.frame_skip * mdl.timestep)
+    xv = (q1[:, 0] - x0) * inv_dt
+    yv = (q1[:, 1] - y0) * inv_dt
+    reward_forward = float(cfg.forward_reward_weight) * xv
+    ctrl_cost = float(cfg.ctrl_cost_weight) * (action * action).sum(-1)
+    survive, term = _healthy_reward(cfg, cls._healthy(cfg, state))
+    reward = reward_forward + survive - ctrl_cost
+    return state, cls._obs(state), reward, term, {
+      "reward_forward": reward_forward, "reward_ctrl": -ctrl_cost,
+      "reward_survive": survive,
+      **_planar_info(q1[:, 0], q1[:, 1], xv, yv),
+    }
+
+
+class HumanoidJaxEnv(DeviceMujocoEnv):
+  """Humanoid-v4 on-device (``envpool/mujoco/gym/humanoid.h``).
+
+  The heaviest device task: 23 dofs, 140 candidate contact points
+  (all-pairs filtering: frictionless body-body + pyramidal plane
+  contacts), and the full 376-dim v4 observation — cinert/cvel are the
+  com-frame quantities of ``de.com_quantities`` and cfrc_ext comes from
+  the constraint solver's contact forces. Matching gymnasium exactly,
+  the derived observation parts and the mass-center reward use the
+  LAST FORWARD state (RK4 stage 4 of the final substep) that mjData
+  retains after ``mj_step`` — not the integrated qpos (see
+  ``step_smooth(want_aux=True)``); qpos/qvel in the observation are the
+  fresh post-step values, as in gym.
+  """
+
+  name = "HumanoidJax"
+  xml_file = "humanoid.xml"
+  frame_skip = 5
+
+  @staticmethod
+  def default_config() -> Dict[str, Any]:
+    return {
+      "forward_reward_weight": 1.25,
+      "terminate_when_unhealthy": True,
+      "ctrl_cost_weight": 0.1,
+      "healthy_reward": 5.0,
+      "healthy_z_min": 1.0, "healthy_z_max": 2.0,
+      "reset_noise_scale": 1e-2,
+    }
+
+  @staticmethod
+  def state_spec(cfg: Any) -> Dict[str, ArraySpec]:
+    return {
+      "obs": ArraySpec(np.float32, (376,), -_INF, _INF),
+      "info:reward_linvel": ArraySpec(np.float32, (-1,)),
+      "info:reward_quadctrl": ArraySpec(np.float32, (-1,)),
+      "info:reward_alive": ArraySpec(np.float32, (-1,)),
+      "info:x_position": ArraySpec(np.float32, (-1,)),
+      "info:y_position": ArraySpec(np.float32, (-1,)),
+      "info:distance_from_origin": ArraySpec(np.float32, (-1,)),
+      "info:x_velocity": ArraySpec(np.float32, (-1,)),
+      "info:y_velocity": ArraySpec(np.float32, (-1,)),
+    }
+
+  @staticmethod
+  def action_spec(cfg: Any) -> Dict[str, ArraySpec]:
+    return {"action": ArraySpec(np.float32, (-1, 17), -0.4, 0.4)}
+
+  @classmethod
+  def _mass_center(cls, xipos):
+    mass = de.consts_on(cls.mdl(), xipos.dtype, xipos.device)["body_mass"]
+    return (mass[:, None] * xipos).sum(1)[:, :2] / mass.sum()
+
+  @classmethod
+  def _derived(cls, qf, vf, fext):
+    """(mc, cinert, cvel, cfrc_ext) at the last-forward state: cfrc_ext is
+    the contact wrench translated from the world origin to com0."""
+    com0, xipos, cinert, cvel = de.com_quantities(cls.mdl(), qf, vf)
+    F = fext[..., 3:]
+    trq = fext[..., :3] - torch.linalg.cross(com0[:, None].expand_as(F), F)
+    return cls._mass_center(xipos), cinert, cvel, torch.cat([trq, F], -1)
+
+  @classmethod
+  def _obs_of(cls, q, v, cinert, cvel, qfrc_act, cfrc):
+    return torch.cat([q[:, 2:], v, cinert.flatten(1), cvel.flatten(1),
+                      qfrc_act, cfrc.flatten(1)], 1)
+
+  @classmethod
+  def _reset_state(cls, cfg: Any, keys: torch.Tensor):
+    """The reset state and obs: mjData's derived fields are fresh after
+    set_state's forward, and cfrc_ext and qfrc_actuator are zero."""
+    mdl = cls.mdl()
+    kq, kv = prng.split(keys).unbind(-2)
+    s = float(cfg.reset_noise_scale)
+    q = _qpos0(mdl, keys) + prng.uniform(kq, (mdl.nq,), -s, s)
+    v = prng.uniform(kv, (mdl.nv,), -s, s)
+    _, xipos, cinert, cvel = de.com_quantities(mdl, q, v)
+    n = q.shape[0]
+    obs = cls._obs_of(q, v, cinert, cvel, torch.zeros_like(v),
+                      q.new_zeros(n, mdl.nbody, 6))
+    return {"q": q, "v": v, "mc": cls._mass_center(xipos)}, obs
+
+  @classmethod
+  def reset(cls, cfg: Any, state: Any, keys: torch.Tensor):
+    del state
+    state, obs = cls._reset_state(cfg, keys)
+    mc = state["mc"]
+    zero = torch.zeros_like(mc[:, 0])
+    return state, obs, {
+      "reward_linvel": zero, "reward_quadctrl": zero, "reward_alive": zero,
+      **_planar_info(mc[:, 0], mc[:, 1], zero, zero),
+    }
+
+  @classmethod
+  def _physics_aux(cls, state, action):
+    """The step and the derived fields of its last forward evaluation:
+    (q, v, mc, obs)."""
+    mdl = cls.mdl()
+    q1, v1, (qf, vf, fext, _) = de.step_smooth(
+      mdl, state["q"], state["v"], action, nstep=cls.frame_skip, want_aux=True,
+    )
+    mc, cinert, cvel, cfrc = cls._derived(qf, vf, fext)
+    qfrc_act = de.actuator_force(mdl, action)
+    return q1, v1, mc, cls._obs_of(q1, v1, cinert, cvel, qfrc_act, cfrc), cfrc
+
+  @classmethod
+  def step(cls, cfg: Any, state: Any, action: Any, keys: torch.Tensor):
+    del keys
+    mdl = cls.mdl()
+    action = action.to(torch.float32)
+    q1, v1, mc, obs, _ = cls._physics_aux(state, action)
+    inv_dt = prng.inv32(cls.frame_skip * mdl.timestep)
+    xv = (mc[:, 0] - state["mc"][:, 0]) * inv_dt
+    yv = (mc[:, 1] - state["mc"][:, 1]) * inv_dt
+    reward_linvel = float(cfg.forward_reward_weight) * xv
+    ctrl_cost = float(cfg.ctrl_cost_weight) * (action * action).sum(-1)
+    healthy = (q1[:, 2] > float(cfg.healthy_z_min)) & (
+      q1[:, 2] < float(cfg.healthy_z_max))
+    survive, term = _healthy_reward(cfg, healthy)
+    reward = reward_linvel + survive - ctrl_cost
+    return {"q": q1, "v": v1, "mc": mc}, obs, reward, term, {
+      "reward_linvel": reward_linvel, "reward_quadctrl": -ctrl_cost,
+      "reward_alive": survive,
+      **_planar_info(mc[:, 0], mc[:, 1], xv, yv),
+    }
+
+
+class HumanoidStandupJaxEnv(HumanoidJaxEnv):
+  """HumanoidStandup-v4 on-device
+  (``envpool/mujoco/gym/humanoid_standup.h``)."""
+
+  name = "HumanoidStandupJax"
+  xml_file = "humanoidstandup.xml"
+  frame_skip = 5
+
+  @staticmethod
+  def default_config() -> Dict[str, Any]:
+    return {
+      "forward_reward_weight": 1.0,
+      "ctrl_cost_weight": 0.1,
+      "contact_cost_weight": 5e-7, "contact_cost_max": 10.0,
+      "healthy_reward": 1.0,
+      "reset_noise_scale": 1e-2,
+    }
+
+  @staticmethod
+  def state_spec(cfg: Any) -> Dict[str, ArraySpec]:
+    return {
+      "obs": ArraySpec(np.float32, (376,), -_INF, _INF),
+      "info:reward_linup": ArraySpec(np.float32, (-1,)),
+      "info:reward_quadctrl": ArraySpec(np.float32, (-1,)),
+      "info:reward_impact": ArraySpec(np.float32, (-1,)),
+      "info:reward_alive": ArraySpec(np.float32, (-1,)),
+    }
+
+  @classmethod
+  def reset(cls, cfg: Any, state: Any, keys: torch.Tensor):
+    del state
+    state, obs = cls._reset_state(cfg, keys)
+    zero = torch.zeros_like(state["mc"][:, 0])
+    return state, obs, {
+      "reward_linup": zero, "reward_quadctrl": zero,
+      "reward_impact": zero, "reward_alive": zero,
+    }
+
+  @classmethod
+  def step(cls, cfg: Any, state: Any, action: Any, keys: torch.Tensor):
+    del keys
+    mdl = cls.mdl()
+    action = action.to(torch.float32)
+    q1, v1, mc, obs, cfrc = cls._physics_aux(state, action)
+    reward_linup = float(cfg.forward_reward_weight) * (
+      q1[:, 2] * prng.inv32(mdl.timestep))
+    ctrl_cost = float(cfg.ctrl_cost_weight) * (action * action).sum(-1)
+    impact = torch.clamp_max(
+      float(cfg.contact_cost_weight) * (cfrc * cfrc).sum((1, 2)),
+      float(cfg.contact_cost_max))
+    survive = torch.full_like(impact, float(cfg.healthy_reward))
+    reward = reward_linup + survive - ctrl_cost - impact
+    return {"q": q1, "v": v1, "mc": mc}, obs, reward, torch.zeros_like(reward, dtype=torch.bool), {
+      "reward_linup": reward_linup, "reward_quadctrl": -ctrl_cost,
+      "reward_impact": -impact, "reward_alive": survive,
+    }

@@ -1,7 +1,7 @@
-"""MuJoCo task registration of the port: the contact-free on-device ids of
-``envpool_tpu/envs/mujoco/registration.py:89-111``, with the same class
-names and caps. The contact ``-Jax-v4`` ids, the dm_control ``-Jax-v1`` ids
-and the host tier wait for their slices."""
+"""MuJoCo task registration of the port: the on-device ``-Jax-v4`` ids of
+``envpool_tpu/envs/mujoco/registration.py:89-111``, in its order and with
+the same class names and caps. ``PusherJax-v4`` (cylinder contacts), the
+dm_control ``-Jax-v1`` ids and the host tier wait for their slices."""
 
 from envpool_torch.registration import register
 
@@ -10,6 +10,12 @@ for _task, _max_episode_steps in [
   ("InvertedPendulum", 1000),
   ("InvertedDoublePendulum", 1000),
   ("Swimmer", 1000),
+  ("HalfCheetah", 1000),
+  ("Hopper", 1000),
+  ("Walker2d", 1000),
+  ("Ant", 1000),
+  ("Humanoid", 1000),
+  ("HumanoidStandup", 1000),
 ]:
   register(
     task_id=f"{_task}Jax-v4",

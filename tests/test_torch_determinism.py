@@ -1,6 +1,7 @@
 """The port's twin of ``tests/test_determinism.py`` (CPU pools), with the
-Box2D and the on-device MuJoCo ids added: the same seed gives identical trajectories, another seed
-a different one. Mirrors ``envpool/box2d/box2d_deterministic_test.py:28-44``.
+Box2D and the on-device MuJoCo ids added (of the contact ids HalfCheetah
+and Hopper): the same seed gives identical trajectories, another seed a
+different one. Mirrors ``envpool/box2d/box2d_deterministic_test.py:28-44``.
 """
 
 import numpy as np
@@ -20,6 +21,7 @@ TASKS = [
   ("BipedalWalker-v3", 60), ("BipedalWalkerHardcore-v3", 60),
   ("ReacherJax-v4", 20), ("InvertedPendulumJax-v4", 20),
   ("InvertedDoublePendulumJax-v4", 20), ("SwimmerJax-v4", 20),
+  ("HalfCheetahJax-v4", 10), ("HopperJax-v4", 10),
 ]
 
 

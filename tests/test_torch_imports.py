@@ -29,7 +29,10 @@ assert envpool_torch.list_all_envs() == [
   "CliffWalking-v0", "Blackjack-v1", "LunarLander-v2",
   "LunarLanderContinuous-v2", "BipedalWalker-v3", "BipedalWalkerHardcore-v3",
   "CarRacing-v2", "PongJaxDemo-v5", "ReacherJax-v4", "InvertedPendulumJax-v4",
-  "InvertedDoublePendulumJax-v4", "SwimmerJax-v4", "MiniGrid-Empty-5x5-v0", "MiniGrid-Empty-Random-5x5-v0",
+  "InvertedDoublePendulumJax-v4", "SwimmerJax-v4", "HalfCheetahJax-v4",
+  "HopperJax-v4", "Walker2dJax-v4", "AntJax-v4", "HumanoidJax-v4",
+  "HumanoidStandupJax-v4", "MiniGrid-Empty-5x5-v0",
+  "MiniGrid-Empty-Random-5x5-v0",
   "MiniGrid-Empty-6x6-v0", "MiniGrid-Empty-Random-6x6-v0",
   "MiniGrid-Empty-8x8-v0", "MiniGrid-Empty-16x16-v0", "Sokoban-v0",
 ], envpool_torch.list_all_envs()
@@ -58,6 +61,12 @@ for task_id, kw, obs_shape, action in (
   ("InvertedPendulumJax-v4", {}, (2, 4), np.zeros((2, 1), np.float32)),
   ("InvertedDoublePendulumJax-v4", {}, (2, 11), np.zeros((2, 1), np.float32)),
   ("SwimmerJax-v4", {}, (2, 8), np.zeros((2, 2), np.float32)),
+  ("HalfCheetahJax-v4", {}, (2, 17), np.zeros((2, 6), np.float32)),
+  ("HopperJax-v4", {}, (2, 11), np.zeros((2, 3), np.float32)),
+  ("Walker2dJax-v4", {}, (2, 17), np.zeros((2, 6), np.float32)),
+  ("AntJax-v4", {}, (2, 27), np.zeros((2, 8), np.float32)),
+  ("HumanoidJax-v4", {}, (2, 376), np.zeros((2, 17), np.float32)),
+  ("HumanoidStandupJax-v4", {}, (2, 376), np.zeros((2, 17), np.float32)),
 ):
   env = envpool_torch.make_gymnasium(
     task_id, num_envs=2, seed=0, device="cpu", **kw
@@ -67,6 +76,7 @@ for task_id, kw, obs_shape, action in (
   assert obs.shape == obs_shape, (task_id, obs.shape)
   obs, rew, term, trunc, info = env.step(action)
   assert info["elapsed_step"].tolist() == [1, 1], task_id
+  assert not task_id.endswith("Jax-v4") or np.isfinite(obs).all(), task_id
 from envpool_torch.models import SokobanCNN
 from envpool_torch.train import PPOConfig, make_ppo_train_step, ppo_init
 pool = envpool_torch.make_gymnasium(

@@ -1,8 +1,9 @@
 """The port's on-device MuJoCo models as data: the committed ``.npz`` files
 (``envpool_torch/envs/mujoco/models/``) and the port's own extractor equal
 ``envpool_tpu.envs.mujoco.device_engine.extract_model`` field by field and
-exactly for the four contact-free gym models; models with contacts or free
-joints are refused by the loader and the engine."""
+exactly for every gym device model, the contact tables (``ContactData``)
+included; the loader and the engine refuse the contact families the port
+does not have yet (Pusher's cylinders, boxes, limited tendons)."""
 
 import numpy as np
 import pytest
@@ -20,6 +21,8 @@ torch.set_num_threads(1)
 MODELS = ["reacher.xml", "inverted_pendulum.xml",
           "inverted_double_pendulum.xml", "swimmer.xml"]
 CONTACT_MODELS = [x for x in dm.GYM_DEVICE_XMLS if x not in MODELS]
+# the contact models the port runs; pusher.xml (cylinders) is refused
+PORTED_CONTACT_MODELS = [x for x in CONTACT_MODELS if x != "pusher.xml"]
 
 FREE_BODY = (
   "<mujoco><worldbody>"
@@ -30,7 +33,9 @@ FREE_BODY = (
 
 
 def _assert_models_equal(got, want, tag):
-  assert got._fields == want._fields
+  """Equal field by field: arrays in dtype, shape and value, the rest in
+  type and value (tuples element by element), the contact tables too."""
+  assert got._fields == want._fields, tag
   for name in want._fields:
     g, w = getattr(got, name), getattr(want, name)
     if isinstance(w, np.ndarray):
@@ -38,17 +43,29 @@ def _assert_models_equal(got, want, tag):
       assert g.dtype == w.dtype and g.shape == w.shape, (tag, name)
       np.testing.assert_array_equal(g, w, err_msg=f"{tag} {name}")
     elif name == "contacts":
-      assert w is None and g is None, (tag, name)
+      assert (g is None) == (w is None), (tag, name)
+      if w is not None:
+        assert type(g).__name__ == type(w).__name__ == "ContactData"
+        _assert_models_equal(g, w, f"{tag} contacts")
     else:
       assert type(g) is type(w) and g == w, (tag, name, g, w)
+      if isinstance(w, tuple):
+        assert [type(x) for x in g] == [type(x) for x in w], (tag, name)
+
+
+def _committed(xml):
+  """The committed data of a gym model, read without the loader's refusal."""
+  return dm.read_model(dm.MODELS_DIR / (xml[:-4] + ".npz"))
 
 
 @pytest.mark.parametrize("source", ["committed", "port_extractor"])
-@pytest.mark.parametrize("xml", MODELS)
+@pytest.mark.parametrize("xml", MODELS + CONTACT_MODELS)
 def test_model_data_equals_jax_extraction(xml, source):
   want = jax_de.extract_model(dm.gym_asset(xml))
   if source == "committed":
-    got = dm.load_model(xml)
+    got = _committed(xml)
+    if xml != "pusher.xml":
+      _assert_models_equal(dm.load_model(xml), want, f"{xml} loaded")
   else:
     got = dm.extract_model(dm.gym_asset(xml))
   _assert_models_equal(got, want, f"{xml} {source}")
@@ -56,38 +73,68 @@ def test_model_data_equals_jax_extraction(xml, source):
 
 @pytest.mark.parametrize("xml", CONTACT_MODELS)
 def test_contact_models_recorded_and_refused(xml):
-  """The port's extractor records contact rows exactly where the JAX
-  package builds contact tables; the loader refuses those models."""
+  """The port's extractor builds the contact tables exactly where the JAX
+  package does; the loader takes the six contact models the engine runs
+  and refuses Pusher, whose cylinder pairs it does not have yet."""
   want = jax_de.extract_model(dm.gym_asset(xml))
   got = dm.extract_model(dm.gym_asset(xml))
   assert want.contacts is not None and got.contacts is not None
-  assert got.contacts[0] >= 1
-  assert dm.refused_models()[xml] == "contacts: not yet ported"
-  with pytest.raises(NotImplementedError, match="contacts: not yet ported"):
-    dm.load_model(xml)
+  assert got.contacts.point_b1.shape[0] >= 1
+  if xml == "pusher.xml":
+    assert dm.refused_models() == {xml: "cylinder contacts: not yet ported"}
+    with pytest.raises(NotImplementedError, match="cylinder contacts"):
+      dm.load_model(xml)
+  else:
+    assert xml not in dm.refused_models()
+    dm.check_supported(dm.load_model(xml))
 
 
 def test_loader_refuses_half_cheetah():
-  with pytest.raises(NotImplementedError, match="contacts: not yet ported"):
-    dm.load_model("half_cheetah.xml")
+  """The loader refuses what ``check_supported`` refuses, whatever the
+  file: half_cheetah's committed data given a cylinder pair, a box pair or
+  a limited tendon row is refused with the family's reason, and loads
+  without them."""
+  cheetah = _committed("half_cheetah.xml")
+  dm.check_supported(cheetah)
+  cd = cheetah.contacts
+  for change, reason in (
+    (dict(pcy_plane=(0,), pcy_cyl=(1,)), "cylinder contacts"),
+    (dict(cyc_cap=(1,), cyc_cyl=(2,)), "cylinder contacts"),
+    (dict(pb_plane=(0,), pb_box=(1,)), "box contacts"),
+    (dict(sb_cap=(1,), sb_box=(2,), sb_three=(True,)), "box contacts"),
+    (dict(ten_site_body=np.zeros((1, 2), np.int64)), "tendon limit rows"),
+  ):
+    with pytest.raises(NotImplementedError, match=reason + ": not yet ported"):
+      dm.check_supported(cheetah._replace(contacts=cd._replace(**change)))
 
 
 def test_engine_refuses_contacts_and_free_joints(tmp_path):
-  cheetah = dm.extract_model(dm.gym_asset("half_cheetah.xml"))
-  q = torch.zeros(2, cheetah.nq, dtype=torch.float64)
-  with pytest.raises(NotImplementedError, match="contacts: not yet ported"):
-    port_de.step_smooth(cheetah, q, torch.zeros(2, cheetah.nv, dtype=q.dtype),
-                        torch.zeros(2, 6, dtype=q.dtype))
+  """The engine refuses the contact families it does not have (Pusher's
+  cylinders) and steps a free body (``integrate_pos``' quaternion branch)
+  under gravity as mj_step does."""
+  pusher = dm.extract_model(dm.gym_asset("pusher.xml"))
+  q = torch.zeros(2, pusher.nq, dtype=torch.float64)
+  with pytest.raises(NotImplementedError, match="cylinder contacts"):
+    port_de.step_smooth(pusher, q, torch.zeros(2, pusher.nv, dtype=q.dtype),
+                        torch.zeros(2, 7, dtype=q.dtype))
   path = tmp_path / "free.xml"
   path.write_text(FREE_BODY)
   free = dm.extract_model(str(path))
   assert free.contacts is None
-  with pytest.raises(NotImplementedError, match="free joints: not yet ported"):
-    dm.check_supported(free)
-  with pytest.raises(NotImplementedError, match="free joints"):
-    port_de.step_smooth(free, torch.zeros(1, free.nq, dtype=torch.float64),
-                        torch.zeros(1, free.nv, dtype=torch.float64),
-                        torch.zeros(1, 0, dtype=torch.float64))
+  dm.check_supported(free)
+  m = mujoco.MjModel.from_xml_path(str(path))
+  d = mujoco.MjData(m)
+  d.qvel[:] = [0.1, -0.2, 0.3, 1.0, -2.0, 0.5]
+  q0, v0 = d.qpos.copy(), d.qvel.copy()
+  for _ in range(20):
+    mujoco.mj_step(m, d)
+  gq, gv = port_de.step_smooth(
+    free, torch.from_numpy(np.tile(q0, (2, 1))),
+    torch.from_numpy(np.tile(v0, (2, 1))),
+    torch.zeros(2, 0, dtype=torch.float64), nstep=20)
+  for got, want in ((gq, d.qpos), (gv, d.qvel)):
+    np.testing.assert_allclose(got.numpy(), np.tile(want, (2, 1)),
+                               rtol=0, atol=1e-12)
 
 
 def test_written_models_read_back_equal(tmp_path):
@@ -95,10 +142,10 @@ def test_written_models_read_back_equal(tmp_path):
   zip container carries times)."""
   refused = dm.write_models(tmp_path)
   assert refused == dm.refused_models()
-  for xml in MODELS:
+  for xml in dm.GYM_DEVICE_XMLS:
     stem = xml[:-4]
     _assert_models_equal(dm.read_model(tmp_path / f"{stem}.npz"),
-                         dm.load_model(xml), xml)
+                         _committed(xml), xml)
   assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
     p.name for p in dm.MODELS_DIR.iterdir()
   )

@@ -6,7 +6,9 @@ other ops that launch no kernel excluded), once with no lane resetting and
 once with one lane's done flag set, so that the reset branch runs too. On
 the card each counted op is about one kernel launch (a few ops launch more
 than one, e.g. ``linalg`` solves). For the on-device MuJoCo ids it also
-counts one forward-dynamics evaluation (``_qacc_full``) alone.
+counts one forward-dynamics evaluation (``_qacc_full``) alone, and for the
+contact ids one Newton iteration of the contact solve (``newton_qacc`` with
+one iteration less that with none).
 
   python tools/count_launches.py --envs 8192 ReacherJax-v4 SwimmerJax-v4
 
@@ -86,15 +88,31 @@ def count(task_id: str, n: int) -> dict:
     res[name + "_top"] = dict(c.ops.most_common(6))
   env_cls = env.spec._env_cls
   if task_id.endswith("Jax-v4"):
+    from envpool_torch.envs.mujoco import device_collision as dc
     from envpool_torch.envs.mujoco import device_engine as de
     mdl = env_cls.mdl()
     st = handle.pool.env
+    q, v = st["q"], st["v"]
     tau = de.actuator_force(mdl, _actions(env, n, rng))
-    de._qacc_full(mdl, st["q"], st["v"], tau)
+    de._qacc_full(mdl, q, v, tau)
     with Count() as c:
-      de._qacc_full(mdl, st["q"], st["v"], tau)
+      de._qacc_full(mdl, q, v, tau)
     res["forward_eval"] = sum(c.ops.values())
-    res["forward_evals_per_step"] = 4 * env_cls.frame_skip
+    res["forward_evals_per_step"] = (
+      4 if mdl.integrator == 1 else 1) * env_cls.frame_skip
+    if de._has_contact_points(mdl):
+      M, qfrc, ctx = de._qacc_smooth_parts(mdl, q, v, tau)
+      rows = dc.assemble_rows(mdl, mdl.contacts, q, v, ctx)
+      a0 = de._solve_psd(M, qfrc, floor=de._dof_floor(mdl))
+      cd = mdl.contacts
+      counts = []
+      for iters in (0, 1):
+        with Count() as c:
+          dc.newton_qacc(de._dof_floor(mdl), M, a0, *rows, iters=iters,
+                         ls_iters=cd.newton_ls)
+        counts.append(sum(c.ops.values()))
+      res["newton_iteration"] = counts[1] - counts[0]
+      res["newton_iters"], res["newton_ls"] = cd.newton_iters, cd.newton_ls
   return res
 
 
