@@ -75,8 +75,9 @@ Phases (any failure exits non-zero before the result lines):
      engine is eager PyTorch over the committed model data; no mujoco
      import): ReacherJax-v4, InvertedPendulumJax-v4,
      InvertedDoublePendulumJax-v4 and SwimmerJax-v4 at 8192 envs
-     (``bench.py:347-348``'s width), reset + 60 numpy-seeded uniform
-     actions, half through ``step`` and half in the ``xla()`` loop:
+     (``bench.py:347-348``'s width), the reset (timed alone) + 60
+     numpy-seeded uniform actions, half through ``step`` and half in the
+     ``xla()`` loop (phases 12 and 13 drive their ids the same way):
      env-steps/s, every output finite, Reacher's lanes all truncated at 50
      and restarted, each auto-reset FIRST with elapsed 0 and reward 0, one
      traced ``xla()`` step, peak memory; then per model ``step_smooth``
@@ -102,7 +103,20 @@ Phases (any failure exits non-zero before the result lines):
      the card to 1e-10 relative with the process asking for TF32; and each
      id's pool at 256 envs over 20 steps (the Humanoids 10), held on the
      card by the parted-lanes rule;
- 13. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
+ 13. the dm_control device tier (box and tendon rows in the contact
+     engine; no kernel of its own): CheetahJaxRun-v1 at 4096 envs over 40
+     steps and HumanoidJaxRun-v1 at 1024 over 10 (``bench.py:362-367``'s
+     widths), the reset timed alone (cheetah's settles 200 substeps), half
+     through ``step`` and half in the ``xla()`` loop: env-steps/s, every
+     output finite, discount 1, one traced ``xla()`` step (Humanoid: one
+     traced forward evaluation times 5), peak memory. Their CPU side runs
+     in phase 12's child process, after both phases' timed cells: per box
+     or tendon model (cartpole three_poles, ball_in_cup, humanoid)
+     ``step_smooth`` of one env-step from seeded float64 states (256 lanes,
+     humanoid 64) held on the card to 1e-10 relative with TF32 requested;
+     one id of each of the 13 domains at 64 envs over 10 steps (swimmer15
+     and humanoid 5), held on the card by the parted-lanes rule;
+ 14. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or outside a checkout, it fails and prints no result.
 """
@@ -1277,21 +1291,26 @@ def mujoco_actions(envpool_torch, task_id: str, seed: int, steps: int,
 
 def mujoco_family(torch, envpool_torch, device, task_id, card,
                   n=MUJOCO_ENVS, steps=MUJOCO_STEPS, trace_step=True) -> dict:
-  """reset + ``steps`` uniform actions at ``n`` envs, half through step and
-  half in the xla() loop, with the checks: every observation, reward and
-  discount finite (the engine's divergence guard resets a lane that blows
-  up), episodes ended by the pendulums' terminal rules and Reacher's cap
-  (every lane at 50), each auto-reset FIRST with elapsed 0 and reward 0;
-  then a traced xla() step (``trace_step``; else one traced forward
-  evaluation, times the evaluations per step), the byte bound of a fused
-  env-step and the peak memory."""
+  """The reset, timed alone, then ``steps`` uniform actions at ``n`` envs,
+  half through step and half in the xla() loop, with the checks: every
+  observation, reward and discount finite (the engine's divergence guard
+  resets a lane that blows up), each auto-reset FIRST with elapsed 0 and
+  reward 0, and the id's episodes: the pendulums' terminal rules,
+  Reacher's cap (every lane at 50), the dm_control ids' discount 1 and no
+  lane done before the cap of 1000; then a traced xla() step
+  (``trace_step``; else one traced forward evaluation, times the
+  evaluations per step), the byte bound of a fused env-step and the peak
+  memory."""
   half = steps // 2
   env = envpool_torch.make_gymnasium(task_id, num_envs=n, seed=SEED, device=device)
   torch.cuda.reset_peak_memory_stats()
   acts = mujoco_actions(envpool_torch, task_id, SEED + 23, steps, n)
-  env.reset()
-  host = []
   sync(torch, device)
+  t0 = time.perf_counter()
+  obs0, _ = env.reset()
+  sync(torch, device)
+  reset_s = time.perf_counter() - t0
+  host = []
   t0 = time.perf_counter()
   for a in acts[:half]:
     host.append(env.step(a))
@@ -1308,17 +1327,21 @@ def mujoco_family(torch, envpool_torch, device, task_id, card,
   sync(torch, device)
   secs_xla = time.perf_counter() - t1
   env.commit(handle)
-  res = {"envs": n, "steps": steps, "sps": half * n / secs,
+  res = {"envs": n, "steps": steps, "reset_s": reset_s, "sps": half * n / secs,
          "step_ms": 1e3 * secs / half, "sps_xla": half * n / secs_xla,
          "xla_step_ms": 1e3 * secs_xla / half}
   keys = env.spec._state_keys
   field = {k: np.stack([o[keys.index(k)].cpu().numpy() for o in outs])
-           for k in ("obs", "reward", "discount", "done", "trunc",
-                     "elapsed_step", "step_type")}
-  obs = np.concatenate([np.stack([h[0] for h in host]), field["obs"]])
+           for k in ("reward", "discount", "done", "trunc", "elapsed_step",
+                     "step_type")}
+  # the observation ("obs", or the dm_control ids' "obs:<name>" fields)
+  obs = [flat_obs(obs0)] + [flat_obs(h[0]) for h in host] + [
+    np.concatenate([o[i].cpu().numpy().reshape(n, -1) for i, k in enumerate(keys)
+                    if k.split(":")[0] == "obs"], 1) for o in outs]
   rew = np.concatenate([np.stack([h[1] for h in host]), field["reward"]])
   done = np.concatenate([np.stack([h[2] | h[3] for h in host]), field["done"]])
-  assert np.isfinite(obs).all() and np.isfinite(rew).all(), f"{task_id}: non-finite"
+  assert all(np.isfinite(x).all() for x in obs), f"{task_id}: non-finite obs"
+  assert np.isfinite(rew).all(), f"{task_id}: non-finite reward"
   assert np.isfinite(field["discount"]).all(), task_id
   if task_id == "ReacherJax-v4":
     assert done[49].all() and not done[:49].any(), "Reacher: cap of 50"
@@ -1327,14 +1350,20 @@ def mujoco_family(torch, envpool_torch, device, task_id, card,
     assert (first == 0).all() and (elapsed == 0).all(), "Reacher restart"
   elif task_id in ("InvertedPendulumJax-v4", "InvertedDoublePendulumJax-v4"):
     assert done.any(), f"{task_id}: no lane ended an episode"
+  elif task_id.endswith("-v1"):  # dm_control: no terminal state
+    assert (field["discount"] == 1.0).all(), f"{task_id}: discount"
+    assert not done.any(), f"{task_id}: a lane ended before its cap"
   # the xla() half: a lane done at t restarts at t + 1
   after = field["done"][:-1]
   for k, first in (("elapsed_step", 0), ("reward", 0.0), ("step_type", 0)):
     assert (field[k][1:][after] == first).all(), f"{task_id}: auto-reset {k}"
   res.update(episodes=int(done.sum()), lanes_ended=int(done.any(0).sum()),
              auto_resets=int(after.sum()))
-  env_cls = env.spec._env_cls
-  mdl = env_cls.mdl()
+  env_cls, cfg = env.spec._env_cls, env.spec.config
+  if hasattr(env_cls, "frame_skip"):  # the gym ids: class constants
+    mdl, frame_skip = env_cls.mdl(), env_cls.frame_skip
+  else:  # the dm_control ids: from the config
+    mdl, frame_skip = env_cls.mdl(cfg), int(cfg.frame_skip)
   step_us = 1e3 * res["xla_step_ms"]
   if trace_step:
     busy_us, rows = profile_steps(torch, env, dev_acts[:2])
@@ -1344,7 +1373,7 @@ def mujoco_family(torch, envpool_torch, device, task_id, card,
     st = env.save_state().env
     q, v = (torch.from_numpy(st[k]).to(device) for k in ("q", "v"))
     tau = device_engine.actuator_force(mdl, dev_acts[0])
-    evals = (4 if mdl.integrator == 1 else 1) * env_cls.frame_skip
+    evals = (4 if mdl.integrator == 1 else 1) * frame_skip
     device_engine._qacc_full(mdl, q, v, tau)
     busy_us, rows = profile_call(torch, lambda: device_engine._qacc_full(mdl, q, v, tau))
     res.update(eval_busy_ms=busy_us / 1e3, eval_launches=sum(r[2] for r in rows),
@@ -1360,14 +1389,24 @@ def mujoco_family(torch, envpool_torch, device, task_id, card,
              bound_us=1e6 * n_bytes / HBM_BYTES_PER_S)
   log(f"{task_id} step bound (no fused kernel yet, queued): "
       f"{res['bound_us']:.3f} us per step of {n} envs ({n_bytes} B, bytes)")
-  log(f"{task_id}: {n} envs, reset + {half} steps via step ({res['sps']:.1f} "
-      f"env-steps/s, {res['step_ms']:.2f} ms per step) + {steps - half} in the "
-      f"xla() loop ({res['sps_xla']:.1f} env-steps/s, {res['xla_step_ms']:.2f} "
-      f"ms); {res['episodes']} episodes ended ({res['lanes_ended']} lanes), "
-      f"{res['auto_resets']} auto-resets checked, every output finite; peak "
-      f"memory {res['peak_gib']:.3f} GiB [{card}]")
+  log(f"{task_id}: {n} envs, reset {reset_s:.3f} s + {half} steps via step "
+      f"({res['sps']:.1f} env-steps/s, {res['step_ms']:.2f} ms per step) + "
+      f"{steps - half} in the xla() loop ({res['sps_xla']:.1f} env-steps/s, "
+      f"{res['xla_step_ms']:.2f} ms); {res['episodes']} episodes ended "
+      f"({res['lanes_ended']} lanes), {res['auto_resets']} auto-resets "
+      f"checked, every output finite; peak memory {res['peak_gib']:.3f} GiB "
+      f"[{card}]")
   log_profile(f"{task_id} {traced} of {n} envs", busy_us, rows, step_us, card, top=8)
   return res
+
+
+def flat_obs(obs) -> np.ndarray:
+  """A gymnasium observation (a dict for the dm_control ids) as one
+  ``[N, k]`` array."""
+  if isinstance(obs, dict):
+    return np.concatenate([np.asarray(obs[k]).reshape(len(obs[k]), -1)
+                           for k in sorted(obs)], 1)
+  return np.asarray(obs).reshape(len(obs), -1)
 
 
 def mujoco_states(mdl, n: int, seed: int):
@@ -1524,10 +1563,66 @@ def contact_cmp_actions(envpool_torch, task_id):
                         MUJOCO_CMP_ENVS)
 
 
+# --------------------------------------------------------------- phase 13
+
+# the dm_control device tier at bench.py's widths (bench.py:362-363
+# CheetahJaxRun-v1 at 4096, :366-367 HumanoidJaxRun-v1 at 1024), registry
+# defaults: (envs, steps after the reset, half through step and half in
+# the xla() loop). The reset is timed on its own (cheetah's settles 200
+# substeps); Humanoid traces one forward evaluation (times 5 per step)
+DMC_RUNS = {"CheetahJaxRun-v1": (4096, 40), "HumanoidJaxRun-v1": (1024, 10)}
+DMC_TRACE_STEP = ("CheetahJaxRun-v1",)
+# the card against the CPU port: float64 step_smooth of one env-step from
+# seeded states (256 lanes, humanoid 64) to 1e-10 relative with TF32
+# requested, for the box and tendon models; the float32 pools of one task
+# per domain at 64 envs over 10 steps (swimmer15 and humanoid 5), a lane
+# parting as in phase 11, counted against the id's share. The shares are
+# set from the first two runs of this phase on an H100 (PERF.md section 5),
+# which parted no lane but 1 of 64 of swimmer15: 3 lanes of 64 for each
+# id, 4 for swimmer15
+DMC_F64 = {"cartpole_three_poles": 256, "ball_in_cup": 256, "humanoid": 64}
+DMC_CMP = {
+  "PendulumJaxSwingup-v1": 10, "CartpoleJaxThreePoles-v1": 10,
+  "AcrobotJaxSwingup-v1": 10, "ReacherJaxHard-v1": 10,
+  "PointMassJaxHard-v1": 10, "SwimmerJaxSwimmer15-v1": 5,
+  "FishJaxSwim-v1": 10, "FingerJaxTurnHard-v1": 10, "HopperJaxHop-v1": 10,
+  "WalkerJaxRun-v1": 10, "CheetahJaxRun-v1": 10, "BallInCupJaxCatch-v1": 10,
+  "HumanoidJaxRun-v1": 5,
+}
+DMC_CMP_ENVS = 64
+DMC_PARTED = {t: 3 / DMC_CMP_ENVS for t in DMC_CMP}
+DMC_PARTED["SwimmerJaxSwimmer15-v1"] = 4 / DMC_CMP_ENVS
+
+
+def dmc_float64_inputs(name: str):
+  """(model, substeps of one env-step, seeded float64 (q, v, ctrl)) of a
+  dm_control model variant: ``contact_states``' mix for humanoid, the
+  poles and the cup's ball perturbed for the others."""
+  from envpool_torch.envs.mujoco.device_model import load_dmc_model
+  mdl = load_dmc_model(name)
+  nstep = {"cartpole_three_poles": 1, "ball_in_cup": 10, "humanoid": 5}[name]
+  if name == "humanoid":
+    arrays = contact_states(mdl, "HumanoidJax-v4", DMC_F64[name], SEED + 31)
+  else:
+    rng = np.random.default_rng(SEED + 31)
+    n = DMC_F64[name]
+    q = mdl.init_qpos + rng.uniform(-0.4, 0.4, (n, mdl.nq))
+    arrays = (q, rng.uniform(-1.0, 1.0, (n, mdl.nv)),
+              rng.uniform(-1.0, 1.0, (n, len(mdl.act_gear))))
+  return mdl, nstep, arrays
+
+
+def dmc_cmp_actions(envpool_torch, task_id):
+  return mujoco_actions(envpool_torch, task_id, SEED + 32, DMC_CMP[task_id],
+                        DMC_CMP_ENVS)
+
+
 def cpu_reference(path: str) -> int:
-  """The CPU side of phase 12, in a process of its own: per contact id the
-  float64 env-step from ``contact_states`` and the float32 pool's outputs,
-  written to ``path`` (npz)."""
+  """The CPU side of phases 12 and 13, in a process of its own: per
+  contact id the float64 env-step from ``contact_states`` and the float32
+  pool's outputs, per dm_control model of ``DMC_F64`` its float64 env-step
+  and per id of ``DMC_CMP`` its pool's outputs, written to ``path``
+  (npz)."""
   import torch
 
   sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1546,19 +1641,40 @@ def cpu_reference(path: str) -> int:
       for k, x in zip(keys, o):
         out[f"{task_id}/pool/{t}/{k}"] = np.asarray(x)
     print(f"cpu reference {task_id}: {time.perf_counter() - t0:.1f} s", flush=True)
+  for name in DMC_F64:
+    t0 = time.perf_counter()
+    mdl, nstep, arrays = dmc_float64_inputs(name)
+    out[f"{name}/f64/q"], out[f"{name}/f64/v"] = mujoco_step64(
+      torch, mdl, nstep, arrays, "cpu")
+    print(f"cpu reference {name} float64: {time.perf_counter() - t0:.1f} s", flush=True)
+  for task_id in DMC_CMP:
+    t0 = time.perf_counter()
+    keys, outs, _ = pool_run(envpool_torch, task_id, "cpu",
+                             dmc_cmp_actions(envpool_torch, task_id), {})
+    for t, o in enumerate(outs):
+      for k, x in zip(keys, o):
+        out[f"{task_id}/pool/{t}/{k}"] = np.asarray(x)
+    print(f"cpu reference {task_id}: {time.perf_counter() - t0:.1f} s", flush=True)
   np.savez(path, **out)
   return 0
 
 
-def contact_phase(torch, envpool_torch, device, card, scratch: str) -> dict:
-  """Phase 12: the six ids' throughput runs first, with nothing else on the
-  host; then a child process (no card) computes the CPU reference while the
-  card computes its side of the comparisons; then each id is held to it."""
+def contact_phase(torch, envpool_torch, device, card, scratch: str):
+  """Phases 12 and 13: the six contact ids' and then the two dm_control
+  cells' throughput runs first, with nothing else on the host; then a
+  child process (no card) computes the CPU reference of both phases while
+  the card computes its side of the comparisons; then each id is held to
+  it. Returns (phase 12's results, phase 13's)."""
   t12 = time.perf_counter()
   res = {t: mujoco_family(torch, envpool_torch, device, t, card, n, steps,
                           trace_step=t in CONTACT_TRACE_STEP)
          for t, (n, steps) in CONTACT_RUNS.items()}
   log(f"contact throughput runs: {time.perf_counter() - t12:.1f} s")
+  t13 = time.perf_counter()
+  dmc = {t: mujoco_family(torch, envpool_torch, device, t, card, n, steps,
+                          trace_step=t in DMC_TRACE_STEP)
+         for t, (n, steps) in DMC_RUNS.items()}
+  log(f"dm_control throughput runs: {time.perf_counter() - t13:.1f} s")
   t12c = time.perf_counter()
   ref_path = os.path.join(scratch, "contact_reference.npz")
   log_path = os.path.join(scratch, "contact_reference.log")
@@ -1574,7 +1690,17 @@ def contact_phase(torch, envpool_torch, device, card, scratch: str) -> dict:
       keys, got, _ = pool_run(envpool_torch, task_id, device,
                               contact_cmp_actions(envpool_torch, task_id), {})
       on_card[task_id] = nstep, mujoco_step64(torch, mdl, nstep, arrays, device), keys, got
-    log(f"contact card side of the comparisons: {time.perf_counter() - t12c:.1f} s")
+    dmc_f64 = {}
+    for name in DMC_F64:
+      mdl, nstep, arrays = dmc_float64_inputs(name)
+      dmc_f64[name] = nstep, mujoco_step64(torch, mdl, nstep, arrays, device)
+    dmc_pools = {}
+    for task_id in DMC_CMP:
+      keys, got, _ = pool_run(envpool_torch, task_id, device,
+                              dmc_cmp_actions(envpool_torch, task_id), {})
+      dmc_pools[task_id] = keys, got
+    log(f"contact and dm_control card side of the comparisons: "
+        f"{time.perf_counter() - t12c:.1f} s")
     rc = child.wait(timeout=900)
   finally:
     if child.poll() is None:
@@ -1594,12 +1720,28 @@ def contact_phase(torch, envpool_torch, device, card, scratch: str) -> dict:
     cmp = mujoco_card_vs_cpu(task_id, keys, got, want, CONTACT_PARTED[task_id])
     log_checks(task_id, f64, cmp, CONTACT_PARTED[task_id])
     res[task_id].update(float64_card_vs_cpu=f64, card_vs_cpu=cmp)
-  log(f"contact card vs cpu: {time.perf_counter() - t12c:.1f} s")
-  return res
+  for name, (nstep, step64) in dmc_f64.items():
+    f64 = mujoco_float64(name, nstep, step64, [ref[f"{name}/f64/q"], ref[f"{name}/f64/v"]])
+    log(f"{name} float64 step_smooth card vs cpu port, {f64['lanes']} seeded "
+        f"states, {nstep} substeps (TF32 requested): max relative error "
+        f"{f64['max_rel_err']:.3g} (limit {MUJOCO_F64_TOL:g})")
+    dmc.setdefault("float64_card_vs_cpu", {})[name] = f64
+  for task_id, (keys, got) in dmc_pools.items():
+    want = [[ref[f"{task_id}/pool/{t}/{k}"] for k in keys] for t in range(len(got))]
+    cmp = mujoco_card_vs_cpu(task_id, keys, got, want, DMC_PARTED[task_id])
+    first = cmp["first_parted_output"]
+    first = "" if first is None else f"; the first at output {first}"
+    log(f"{task_id} card vs cpu port, {cmp['lanes']} envs, reset + {cmp['steps']} "
+        f"steps: {cmp['parted']} lanes parted (at most {DMC_PARTED[task_id]:.2%} "
+        f"allowed{first}), the others within {cmp['max_rel_err_unparted']:.3g} "
+        f"relative (limit {MUJOCO_TOL:g}) with integer and bool fields equal")
+    dmc.setdefault("card_vs_cpu", {})[task_id] = cmp
+  log(f"contact and dm_control card vs cpu: {time.perf_counter() - t12c:.1f} s")
+  return res, dmc
 
 
 def main(argv) -> int:
-  if argv[:1] == ["--cpu-reference"]:  # phase 12's child process
+  if argv[:1] == ["--cpu-reference"]:  # phases 12 and 13's child process
     return cpu_reference(argv[1])
 
   import torch
@@ -1797,12 +1939,15 @@ def main(argv) -> int:
   t12 = time.perf_counter()
   scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
   os.makedirs(scratch, exist_ok=True)
-  contact = contact_phase(torch, envpool_torch, device, card, scratch)
-  log(f"MuJoCo contact phase: {time.perf_counter() - t12:.1f} s")
+  # 13. the dm_control device tier: CheetahJaxRun-v1 and HumanoidJaxRun-v1,
+  # then the comparisons of phases 12 and 13 together (one CPU child)
+  contact, dmc = contact_phase(torch, envpool_torch, device, card, scratch)
+  log(f"MuJoCo contact and dm_control phases: {time.perf_counter() - t12:.1f} s")
   log(json.dumps({"mujoco_contact": contact}))
+  log(json.dumps({"dmc": dmc}))
 
   log(f"total {time.perf_counter() - t_start:.1f} s")
-  # 13. results
+  # 14. results
   main_case = kres["cases"]["real_fine"]
   kernel = {
     "name": "car_racing_sampler",

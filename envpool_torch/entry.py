@@ -7,5 +7,6 @@ import envpool_torch.envs.toy_text.registration  # noqa: F401
 import envpool_torch.envs.box2d.registration  # noqa: F401
 import envpool_torch.envs.atari.registration  # noqa: F401
 import envpool_torch.envs.mujoco.registration  # noqa: F401
+import envpool_torch.envs.mujoco.dmc.registration  # noqa: F401
 import envpool_torch.envs.minigrid.registration  # noqa: F401
 import envpool_torch.envs.sokoban.registration  # noqa: F401

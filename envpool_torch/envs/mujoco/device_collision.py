@@ -13,8 +13,9 @@ it; here every function takes the batch: ``q`` ``[N, nq]``, ``v``
   every candidate and masks the inactive ones, so shapes are fixed and a
   step reads nothing back to the host.
 - The rows are MuJoCo's soft constraints in the JAX order: joint limits,
-  then the condim-1 points, then the four pyramid facets of each condim-3
-  point (``geom_normal_forces`` and ``contact_wrenches`` rely on it).
+  then the limited tendons, then the condim-1 points, then the four
+  pyramid facets of each condim-3 point (``contact_wrenches`` and the dmc
+  touch sensors rely on it).
 - The solve is MuJoCo's primal Newton over qacc with an exact
   piecewise-quadratic line search, ``iters`` and ``ls_iters`` Python loops
   of the model's depth with no early exit; the active set is a mask. The
@@ -23,9 +24,12 @@ it; here every function takes the batch: ``q`` ``[N, nq]``, ``v``
   factor is the engine's floored Cholesky (``_psd_solver``).
 
 The families the port has: plane-capsule/sphere and capsule-capsule
-(spheres are capsules with zero half-length), condim 1 and 3, joint-limit
-rows. The cylinder and box families and limited tendon rows come with a
-later slice (``device_model.check_supported`` refuses them).
+(spheres are capsules with zero half-length), plane-box (eight corner
+candidates, the lower ones gated in) and sphere/capsule-box (the box SDF
+and a golden-section search of fixed length along the capsule axis),
+condim 1 and 3, joint-limit rows and the rows of limited 2-site spatial
+tendons. The cylinder families come with a later slice
+(``device_model.check_supported`` refuses them).
 """
 
 from __future__ import annotations
@@ -80,6 +84,33 @@ def _contact_arrays(mdl: DeviceModel) -> Dict[str, np.ndarray]:
     out.update(_family_arrays(cd, cd.cc_g2, "cc2_"))
     out.update(cc_r1=cd.geom_size[g1, 0], cc_r2=cd.geom_size[g2, 0],
                cc_hl1=cd.geom_size[g1, 1], cc_hl2=cd.geom_size[g2, 1])
+  if cd.pb_plane:
+    sz = cd.geom_size[np.asarray(cd.pb_box, np.int64)]           # [npb, 3]
+    out.update(_family_arrays(cd, cd.pb_plane, "pbp_"))
+    out.update(_family_arrays(cd, cd.pb_box, "pbb_"))
+    # the box corners in mjc_PlaneBox's order: i&1 -> +x, i&2 -> +y, i&4 -> +z
+    signs = np.array([[1.0 if i & (1 << k) else -1.0 for k in range(3)]
+                      for i in range(8)])
+    out.update(pb_corners=signs[None] * sz[:, None])          # [npb, 8, 3]
+  if cd.sb_cap:
+    caps = np.asarray(cd.sb_cap, np.int64)
+    three = np.asarray(cd.sb_three, bool)
+    out.update(_family_arrays(cd, cd.sb_cap, "sbc_"))
+    out.update(_family_arrays(cd, cd.sb_box, "sbb_"))
+    out.update(
+      sb_r=cd.geom_size[caps, 0],
+      sb_hl=np.where(three, cd.geom_size[caps, 1], 0.0),
+      sb_size=cd.geom_size[np.asarray(cd.sb_box, np.int64)],    # [ns, 3]
+      # the candidate rows: a sphere keeps its first of three, a capsule
+      # all three (both endpoints, then the mid-segment point)
+      sb_rows=np.asarray([p * 3 + e for p in range(len(three))
+                          for e in range(3 if three[p] else 1)], np.int64),
+    )
+  T = cd.ten_site_body.shape[0]
+  if T:
+    out.update(ten_body=cd.ten_site_body, ten_spos=cd.ten_site_pos,
+               ten_anc=cd.ten_anc[..., None],                   # [T, 2, nv, 1]
+               ten_lo=cd.ten_lo, ten_hi=cd.ten_hi)
   one = np.where(cd.point_condim == 1)[0]
   pyr = np.where(cd.point_condim == 3)[0]
   # contact row -> its point: the condim-1 points, then 4 facets each
@@ -94,24 +125,24 @@ def _contact_arrays(mdl: DeviceModel) -> Dict[str, np.ndarray]:
       assign[p, int(cd.point_b2[p])] += 1.0
     if int(cd.point_b1[p]) != 0:
       assign[p, int(cd.point_b1[p])] -= 1.0
-  # the limits' and the points' soft-constraint constants side by side:
-  # [L limits, P points]; the impedance spline's endpoints clamped as
-  # mj_assignImpedance does
-  si = np.concatenate([cd.lim_solimp, cd.point_solimp])
+  # the limits', the tendons' and the points' soft-constraint constants
+  # side by side: [L limits, T tendons, P points]; the impedance spline's
+  # endpoints clamped as mj_assignImpedance does
+  si = np.concatenate([cd.lim_solimp, cd.ten_solimp, cd.point_solimp])
   mid, power = si[:, 3], si[:, 4]
   out.update(
     e_y=np.array([0.0, 1.0, 0.0]), e_z=np.array([0.0, 0.0, 1.0]),
-    margin=np.concatenate([cd.lim_margin, cd.point_incmargin]),
+    margin=np.concatenate([cd.lim_margin, cd.ten_margin, cd.point_incmargin]),
     width=si[:, 2],
-    K=np.concatenate([cd.lim_K, cd.point_K]),
-    diagA=np.concatenate([cd.lim_diagA, cd.point_diagA]),
+    K=np.concatenate([cd.lim_K, cd.ten_K, cd.point_K]),
+    diagA=np.concatenate([cd.lim_diagA, cd.ten_diagA, cd.point_diagA]),
     imp_d0=np.clip(si[:, 0], 1e-4, 0.9999),
     imp_dmax=np.clip(si[:, 1], 1e-4, 0.9999),
     imp_mid=mid, imp_power=power,
     imp_a=1.0 / mid ** (power - 1), imp_b=1.0 / (1.0 - mid) ** (power - 1),
-    # constraint row -> its entry of [L limits, P points]
-    row_idx=np.concatenate([np.arange(L), L + rowpt]).astype(np.int64),
-    row_B=np.concatenate([cd.lim_B, cd.point_B[rowpt]]),
+    # constraint row -> its entry of [L limits, T tendons, P points]
+    row_idx=np.concatenate([np.arange(L + T), L + T + rowpt]).astype(np.int64),
+    row_B=np.concatenate([cd.lim_B, cd.ten_B, cd.point_B[rowpt]]),
     pt_sgn=cd.point_sgn[:, None, :],                    # [P, 1, nv]
     pyr_mu=cd.point_mu[pyr][:, :, None],                # [Pp, 2, 1]
     pyr_sign=np.array([1.0, -1.0])[:, None],           # [2, 1]
@@ -127,7 +158,8 @@ def _contact_arrays(mdl: DeviceModel) -> Dict[str, np.ndarray]:
 
 
 _INDEX_KEYS = ("pc_rows", "row_idx", "one", "pyr", "pt_order", "lim_qadr",
-               "pcp_body", "pcc_body", "cc1_body", "cc2_body")
+               "pcp_body", "pcc_body", "cc1_body", "cc2_body", "pbp_body",
+               "pbb_body", "sbc_body", "sbb_body", "sb_rows", "ten_body")
 
 
 @functools.lru_cache(maxsize=64)
@@ -184,23 +216,59 @@ def _all_world(cd: ContactData, geoms) -> bool:
 def contact_points(mdl: DeviceModel, xpos: List[Tensor], xmat: List[Tensor]):
   """Narrow phase over all candidates.
 
-  Returns (pos ``[N, P, 3]``, dist ``[N, P]``, n, t1, t2 ``[N, P, 3]``), in
-  the tables' point order. Plane-capsule: one candidate per endpoint sphere
-  (``mjc_PlaneCapsule``): dist = n.(e - p0) - r, pos = e - n (r + dist/2);
-  the first tangent is the capsule axis projected onto the plane
-  (mju_makeFrame where that is degenerate, and for spheres).
-  Capsule-capsule: the closest points of the axis segments (clamped
-  parametric solve), one candidate. Normals point geom1 -> geom2, as
-  mjContact.frame does. Every candidate of these families is gated by its
-  margin only (the JAX code's ``gate`` is True for them).
+  Returns (pos ``[N, P, 3]``, dist ``[N, P]``, n, t1, t2 ``[N, P, 3]``,
+  gate ``[N, P]``), in the tables' point order. ``gate`` is a condition of
+  activation beyond the margin test: True everywhere but at the plane-box
+  corners, where it keeps the lower half of the box. Plane-capsule: one
+  candidate per endpoint sphere (``mjc_PlaneCapsule``): dist = n.(e - p0)
+  - r, pos = e - n (r + dist/2); the first tangent is the capsule axis
+  projected onto the plane (mju_makeFrame where that is degenerate, and
+  for spheres). Capsule-capsule: the closest points of the axis segments
+  (clamped parametric solve), one candidate. Plane-box: the eight corners
+  (``mjc_PlaneBox``' order). Sphere/capsule-box: the closest point of the
+  box to each endpoint sphere and to the capsule-axis point that a
+  48-step golden-section search finds. Normals point geom1 -> geom2, as
+  mjContact.frame does.
   """
-  pos, dist, frame = _points(mdl, xpos, xmat)
-  return pos, dist, frame[:, :, 0], frame[:, :, 1], frame[:, :, 2]
+  pos, dist, frame, gate = _points(mdl, xpos, xmat)
+  if gate is None:
+    gate = torch.ones_like(dist, dtype=torch.bool)
+  return pos, dist, frame[:, :, 0], frame[:, :, 1], frame[:, :, 2], gate
+
+
+def _point_box_v(c: Tensor, size: Tensor):
+  """Points ``c`` ``[..., 3]`` against solid boxes of half-sizes ``size``
+  (broadcast), in the box frames: (surface point ``[..., 3]``, signed
+  distance ``[...]``, outward unit normal ``[..., 3]``). Outside, the
+  closest surface point (a clamp) and the separation along it; inside, the
+  nearest face with negative distance, ties split evenly (the JAX code's
+  ``_point_box_v``)."""
+  qv = torch.abs(c) - size
+  out = torch.clamp_min(qv, 0.0)
+  od = torch.sqrt((out * out).sum(-1) + 1e-30)
+  outside = qv.amax(-1) > 0
+  cl = torch.minimum(torch.maximum(c, -size), size)
+  n_out = (c - cl) / od[..., None]
+  qi = size - torch.abs(c)
+  qmin = qi.amin(-1, keepdim=True)
+  oh = (qi == qmin).to(c.dtype)
+  oh = oh / oh.sum(-1, keepdim=True)
+  sgn = torch.where(c >= 0, 1.0, -1.0).to(c.dtype)
+  n_in = oh * sgn
+  face = c * (1.0 - oh) + oh * sgn * size
+  sdist = torch.where(outside, od, -qmin[..., 0])
+  nrm = torch.where(outside[..., None], n_out, n_in)
+  surf = torch.where(outside[..., None], cl, face)
+  return surf, sdist, nrm
+
+
+_GOLDEN = float((np.sqrt(5.0) - 1.0) / 2.0)
 
 
 def _points(mdl: DeviceModel, xpos: List[Tensor], xmat: List[Tensor]):
   """``contact_points`` with the contact frames stacked: (pos, dist, frame
-  ``[N, P, 3, 3]`` whose rows are n, t1, t2)."""
+  ``[N, P, 3, 3]`` whose rows are n, t1, t2, gate ``[N, P]`` or None where
+  every candidate is gated in)."""
   cd = mdl.contacts
   c = _cconsts(mdl, xpos[0])
   X = torch.stack(xpos, 1)                                  # [N, nbody, 3]
@@ -231,7 +299,7 @@ def _points(mdl: DeviceModel, xpos: List[Tensor], xmat: List[Tensor]):
     if not all(cd.pc_two):  # a sphere gives one candidate: gather the rows
       rows = c["pc_rows"]
       pos2, dist2, frame = pos2[:, rows], dist2[:, rows], frame[:, rows]
-    blocks.append((pos2, dist2, frame))
+    blocks.append((pos2, dist2, frame, None))
   if cd.cc_g1:
     p1, r1m = _geom_poses(c, X, R, "cc1_", _all_world(cd, cd.cc_g1))
     p2, r2m = _geom_poses(c, X, R, "cc2_", _all_world(cd, cd.cc_g2))
@@ -256,10 +324,91 @@ def _points(mdl: DeviceModel, xpos: List[Tensor], xmat: List[Tensor]):
     dist = sep - r1 - r2
     pos = q1 + n * (r1 + 0.5 * dist)[..., None]
     t1, t2 = _make_frames_v(n, c)
-    blocks.append((pos, dist, torch.stack([n, t1, t2], 2)))
+    blocks.append((pos, dist, torch.stack([n, t1, t2], 2), None))
+  if cd.pb_plane:
+    blocks.append(_plane_box(cd, c, X, R))
+  if cd.sb_cap:
+    blocks.append(_sphere_capsule_box(cd, c, X, R))
   if len(blocks) == 1:
     return blocks[0]
-  return tuple(torch.cat([b[k] for b in blocks], 1) for k in range(3))
+  gates = [b[3] for b in blocks]
+  gate = None
+  if any(g is not None for g in gates):
+    gate = torch.cat([
+      torch.ones_like(b[1], dtype=torch.bool) if g is None else g
+      for b, g in zip(blocks, gates)], 1)
+  return tuple(torch.cat([b[k] for b in blocks], 1) for k in range(3)) + (gate,)
+
+
+def _plane_box(cd: ContactData, c: Dict[str, Tensor], X: Tensor, R: Tensor):
+  """Plane-box: eight corner candidates per pair (``mjc_PlaneBox``' order:
+  i&1 -> +x, i&2 -> +y, i&4 -> +z), each a plane-point contact midway
+  between the corner and the plane. ``mjc_PlaneBox`` emits only the
+  corners of the box's lower half (corner offset . plane normal <= 0),
+  whatever their depth: that is the gate."""
+  ppos, prot = _geom_poses(c, X, R, "pbp_", _all_world(cd, cd.pb_plane))
+  n = prot[..., 2]                                          # [N, npb, 3]
+  bpos, brot = _geom_poses(c, X, R, "pbb_", False)
+  offs = _mv(brot[:, :, None], c["pb_corners"])             # [N, npb, 8, 3]
+  corners = bpos[:, :, None] + offs
+  dist8 = (n[:, :, None] * (corners - ppos[:, :, None])).sum(-1)
+  pos8 = corners - n[:, :, None] * (0.5 * dist8)[..., None]
+  lower = (offs * n[:, :, None]).sum(-1) <= 0
+  t1, t2 = _make_frames_v(n, c)
+  frame = torch.stack([n, t1, t2], 2).repeat_interleave(8, 1)
+  return pos8.flatten(1, 2), dist8.flatten(1), frame, lower.flatten(1)
+
+
+def _sphere_capsule_box(cd: ContactData, c: Dict[str, Tensor], X: Tensor,
+                        R: Tensor):
+  """Sphere/capsule-box: the closest box point to each candidate sphere of
+  the capsule (a sphere has one, a capsule three: its endpoints and the
+  axis point nearest the box). The axis point minimises the box's signed
+  distance along the segment (convex along a line), found by 48 steps of
+  golden-section search: a Python loop of fixed length, the bracket
+  updated per lane by ``torch.where``, both probes of a step evaluated in
+  one pass."""
+  cpos, crot = _geom_poses(c, X, R, "sbc_", False)
+  bpos, brot = _geom_poses(c, X, R, "sbb_", False)
+  r, hl, sz = c["sb_r"], c["sb_hl"], c["sb_size"]
+  axis = crot[..., 2]                                       # [N, ns, 3]
+  brot2 = brot[:, :, None]                                  # [N, ns, 1, 3, 3]
+
+  def sdist_s(s):
+    """The boxes' signed distance of the axis points C(s) ``[N, ns, k]``."""
+    cw = cpos[:, :, None] + s[..., None] * axis[:, :, None]
+    cb = _vm(cw - bpos[:, :, None], brot2)                  # box frames
+    qv = torch.abs(cb) - sz[:, None]
+    out = torch.clamp_min(qv, 0.0)
+    od = torch.sqrt((out * out).sum(-1) + 1e-30)
+    inner = qv.amax(-1)
+    return torch.where(inner > 0, od, inner)
+
+  lo = (-hl).expand(X.shape[0], -1)
+  hi = hl.expand(X.shape[0], -1)
+  for _ in range(48):
+    width = hi - lo
+    x1 = hi - _GOLDEN * width
+    x2 = lo + _GOLDEN * width
+    sd = sdist_s(torch.stack([x1, x2], -1))
+    take_lo = sd[..., 0] < sd[..., 1]
+    lo, hi = torch.where(take_lo, lo, x1), torch.where(take_lo, x2, hi)
+  s_mid = 0.5 * (lo + hi)
+  cands = torch.stack([cpos - hl[:, None] * axis, cpos + hl[:, None] * axis,
+                       cpos + s_mid[..., None] * axis], 2)  # [N, ns, 3, 3]
+  cb = _vm(cands - bpos[:, :, None], brot2)                 # box frames
+  surf, sdist, outward = _point_box_v(cb, sz[:, None])
+  dist3 = sdist - r[:, None]
+  nrm3 = -_mv(brot2, outward)                               # geom1 -> geom2
+  ps = cands + nrm3 * r[:, None, None]
+  surf_w = bpos[:, :, None] + _mv(brot2, surf)
+  pos3 = 0.5 * (ps + surf_w)
+  pos3, dist3, nrm3 = pos3.flatten(1, 2), dist3.flatten(1), nrm3.flatten(1, 2)
+  if not all(cd.sb_three):  # a sphere keeps one candidate
+    rows = c["sb_rows"]
+    pos3, dist3, nrm3 = pos3[:, rows], dist3[:, rows], nrm3[:, rows]
+  t1, t2 = _make_frames_v(nrm3, c)
+  return pos3, dist3, torch.stack([nrm3, t1, t2], 2), None
 
 
 def _impedance_v(c: Dict[str, Tensor], x: Tensor) -> Tensor:
@@ -283,50 +432,86 @@ def _pick(x: Tensor, idx: np.ndarray, t: Tensor, dim: int = 1) -> Tensor:
   return x.index_select(dim, t)
 
 
+def _tendon_rows(cd: ContactData, c: Dict[str, Tensor], X: Tensor, R: Tensor,
+                 S: Tensor):
+  """The limited 2-site spatial tendons: (length ``[N, T]``, dL/dq ``[N, T,
+  nv]``). dL/dq = u . (V(p2) - V(p1)) with u the unit vector p1 -> p2 and
+  V(p) the velocity Jacobian of site point p, [S_lin + S_ang x p], over the
+  dofs that move the site's body."""
+  body = c["ten_body"]                                      # [T, 2]
+  p = X[:, body] + _mv(R[:, body], c["ten_spos"])           # [N, T, 2, 3]
+  Sa = S[:, None, None, :, :3]                              # [N, 1, 1, nv, 3]
+  Vd = S[:, None, None, :, 3:] + torch.linalg.cross(Sa, p[:, :, :, None])
+  Jp = Vd * c["ten_anc"]                                    # [N, T, 2, nv, 3]
+  diff = p[:, :, 1] - p[:, :, 0]
+  length = torch.sqrt((diff * diff).sum(-1) + 1e-30)
+  u = diff / length[..., None]
+  return length, _mv(Jp[:, :, 1] - Jp[:, :, 0], u)
+
+
 def assemble_rows(mdl: DeviceModel, cd: ContactData, q: Tensor, v: Tensor, ctx):
   """All constraint rows of the batch -> (J ``[N, m, nv]``, aref, D, mask
   ``[N, m]``).
 
-  Row order: joint limits, then the condim-1 points' normal rows, then per
-  condim-3 point its pyramid facets (n + mu t1, n - mu t1, n + mu t2,
-  n - mu t2), mirroring mjData.efc_* (limits before contacts). A limit row
-  is +-e_dof by the nearer limit; a contact row is the point's frame
-  direction through the point-velocity Jacobian, n.(S_lin + S_ang x pos) =
-  [pos x n; n].S per dof, signed by the dof's influence on body2 - body1.
-  Limits and points share one impedance pass:
+  Row order: joint limits, then the limited tendons, then the condim-1
+  points' normal rows, then per condim-3 point its pyramid facets (n + mu
+  t1, n - mu t1, n + mu t2, n - mu t2), mirroring mjData.efc_* (limits
+  before contacts). A limit row is +-e_dof by the nearer limit, a tendon
+  row +-dL/dq by the nearer limit of its length; a contact row is the
+  point's frame direction through the point-velocity Jacobian,
+  n.(S_lin + S_ang x pos) = [pos x n; n].S per dof, signed by the dof's
+  influence on body2 - body1. All rows share one impedance pass:
     aref = -B J.v - K imp (dist - margin),  D = 1/R,
-    R = (1 - imp)/imp diagApprox,  active: dist < margin.
+    R = (1 - imp)/imp diagApprox,  active: dist < margin (and the gate).
   """
   xpos, xmat, S, _ = ctx
   c = _cconsts(mdl, q)
+  P = cd.point_b1.shape[0]
+  T = cd.ten_site_body.shape[0]
   with no_tf32(q.device):
-    pos, dist, frame = _points(mdl, xpos, xmat)
-    # the limits' distances to the nearer limit, then the points'
+    # the limits' distances to the nearer limit, then the tendons', then
+    # the points'
     ql = q[:, c["lim_qadr"]]
     dist_lo = ql - c["lim_lo"]
     dist_hi = c["lim_hi"] - ql
     use_lo = dist_lo < dist_hi
     s = torch.where(use_lo, 1.0, -1.0).to(q.dtype)
-    dist = torch.cat([torch.where(use_lo, dist_lo, dist_hi), dist], 1)
+    dists = [torch.where(use_lo, dist_lo, dist_hi)]
+    J_l = [s[:, :, None] * c["lim_unit"]]
+    if T:
+      length, dLdq = _tendon_rows(cd, c, torch.stack(xpos, 1),
+                                  torch.stack(xmat, 1), S)
+      dist_lo = length - c["ten_lo"]
+      dist_hi = c["ten_hi"] - length
+      use_lo = dist_lo < dist_hi
+      dists.append(torch.where(use_lo, dist_lo, dist_hi))
+      J_l.append(torch.where(use_lo, 1.0, -1.0).to(q.dtype)[..., None] * dLdq)
+    gate = None
+    if P:
+      pos, dist, frame, gate = _points(mdl, xpos, xmat)
+      dists.append(dist)
+    dist = torch.cat(dists, 1)
     active = dist < c["margin"]
+    if gate is not None:
+      active = torch.cat([active[:, :-P], active[:, -P:] & gate], 1)
     off = dist - c["margin"]
     imp = _impedance_v(c, torch.abs(off) / c["width"])
     kpos = c["K"] * imp * off
     D = 1.0 / ((1.0 - imp) / imp * c["diagA"])
-    # Jacobian rows of each point's frame: [pos x f; f] . S_d
-    G = torch.cat([torch.linalg.cross(pos[:, :, None], frame), frame], -1)
-    Jf = torch.matmul(G.flatten(1, 2), S.transpose(1, 2))
-    Jf = Jf.unflatten(1, (-1, 3)) * c["pt_sgn"]              # [N, P, 3, nv]
-    J_l = [s[:, :, None] * c["lim_unit"]]
-    one = np.where(cd.point_condim == 1)[0]
-    pyr = np.where(cd.point_condim == 3)[0]
-    if len(one):
-      J_l.append(_pick(Jf, one, c["one"])[:, :, 0])
-    if len(pyr):
-      Jp = _pick(Jf, pyr, c["pyr"])
-      # (t1, +), (t1, -), (t2, +), (t2, -) facets of each point
-      facets = Jp[:, :, :1, None] + c["pyr_sign"] * (Jp[:, :, 1:] * c["pyr_mu"])[:, :, :, None]
-      J_l.append(facets.flatten(1, 3))
+    if P:
+      # Jacobian rows of each point's frame: [pos x f; f] . S_d
+      G = torch.cat([torch.linalg.cross(pos[:, :, None], frame), frame], -1)
+      Jf = torch.matmul(G.flatten(1, 2), S.transpose(1, 2))
+      Jf = Jf.unflatten(1, (-1, 3)) * c["pt_sgn"]            # [N, P, 3, nv]
+      one = np.where(cd.point_condim == 1)[0]
+      pyr = np.where(cd.point_condim == 3)[0]
+      if len(one):
+        J_l.append(_pick(Jf, one, c["one"])[:, :, 0])
+      if len(pyr):
+        Jp = _pick(Jf, pyr, c["pyr"])
+        # (t1, +), (t1, -), (t2, +), (t2, -) facets of each point
+        facets = Jp[:, :, :1, None] + c["pyr_sign"] * (Jp[:, :, 1:] * c["pyr_mu"])[:, :, :, None]
+        J_l.append(facets.flatten(1, 3))
     J = torch.cat(J_l, 1)
     rows = c["row_idx"]
     aref = -c["row_B"] * torch.matmul(J, v[:, :, None])[..., 0] - kpos[:, rows]
@@ -388,14 +573,16 @@ def contact_wrenches(cd: ContactData, mdl: DeviceModel, q: Tensor, v: Tensor,
   facets: F = n sum(lam) + mu1 t1 (lam1 - lam2) + mu2 t2 (lam3 - lam4);
   condim-1: F = n lam) and adds +wrench to body2 and -wrench to body1, as
   mj_rnePostConstraint's cfrc_ext does, skipping the world body. The row
-  layout is ``assemble_rows``': limits, condim-1 points, 4 facets per
-  condim-3 point. The narrow phase is evaluated again here.
+  layout is ``assemble_rows``': limits, tendons, condim-1 points, 4 facets
+  per condim-3 point. The narrow phase is evaluated again here.
   """
-  del v, nbody  # the JAX signature's
+  del v  # the JAX signature's
+  if not cd.point_b1.shape[0]:
+    return q.new_zeros(q.shape[0], nbody, 6)
   xpos, xmat = ctx[0], ctx[1]
   c = _cconsts(mdl, q)
-  pos, _, frame = _points(mdl, xpos, xmat)
-  L = len(cd.lim_dof)
+  pos, _, frame, _ = _points(mdl, xpos, xmat)
+  L = len(cd.lim_dof) + cd.ten_site_body.shape[0]  # rows before contacts
   one = np.where(cd.point_condim == 1)[0]
   pyr = np.where(cd.point_condim == 3)[0]
   F_l = []

@@ -24,12 +24,13 @@ those of the JAX code up to the order of a few sums
 Scope: kinematic trees of hinge, slide and free joints (a free joint's
 quaternion integrated as ``mj_integratePos`` does), motor actuators, joint
 damping, armature and springs, gravity, the inertia-box fluid model,
-MuJoCo's soft joint-limit constraint, and contacts through
-``device_collision.py`` (the plane-capsule/sphere and capsule-capsule
-narrow phase, pyramidal rows and the primal Newton solve, warm-started
-along each env-step's substeps as ``mjData.qacc_warmstart`` is).
-``device_model.check_supported`` refuses the contact families the port
-does not have yet, and ``step_smooth`` calls it.
+MuJoCo's soft joint-limit constraint, and contacts and limited tendons
+through ``device_collision.py`` (the plane-capsule/sphere, capsule-capsule,
+plane-box and sphere/capsule-box narrow phase, pyramidal rows, tendon
+rows and the primal Newton solve, warm-started along each env-step's
+substeps as ``mjData.qacc_warmstart`` is). ``device_model.check_supported``
+refuses the contact families the port does not have yet (the cylinders),
+and ``step_smooth`` calls it.
 
 Every function works in the dtype of ``q``: the tasks run float32, the
 tests float64, where the engine matches the JAX engine under x64 and
@@ -711,10 +712,12 @@ def _qacc_smooth_parts(mdl: DeviceModel, q: Tensor, v: Tensor, tau: Tensor):
 
 
 def _has_contact_points(mdl: DeviceModel) -> bool:
-  """True when the Newton row solve is needed (contact candidates; the
-  tendon-limit rows, which ``check_supported`` refuses, are not ported);
-  limit-only models take the closed-form path."""
-  return mdl.contacts is not None and mdl.contacts.point_b1.shape[0] > 0
+  """True when the Newton row solve is needed (contact candidates or
+  tendon-limit rows); limit-only models take the closed-form path."""
+  return mdl.contacts is not None and (
+    mdl.contacts.point_b1.shape[0] > 0
+    or mdl.contacts.ten_site_body.shape[0] > 0
+  )
 
 
 def _contact_solve(mdl: DeviceModel, q: Tensor, v: Tensor, M: Tensor,
@@ -855,11 +858,14 @@ def _guard(mdl: DeviceModel, q: Tensor, v: Tensor, last=None, aux=None):
   return q, v, last, aux
 
 
-def step_smooth(mdl: DeviceModel, q: Tensor, v: Tensor, ctrl: Tensor,
-                nstep: int = 1, want_aux: bool = False):
+def step_smooth(mdl: DeviceModel, q: Tensor, v: Tensor, ctrl: Optional[Tensor],
+                nstep: int = 1, want_aux: bool = False,
+                tau: Optional[Tensor] = None):
   """mj_step x nstep, per the model's integrator, each step followed by the
   divergence guard. Returns (q, v), and with ``want_aux`` (contact models)
-  (q, v, (q_fwd, v_fwd, fext, f)).
+  (q, v, (q_fwd, v_fwd, fext, f)). ``tau`` (``[N, nv]``), where given,
+  is the generalised actuator force in place of ``actuator_force(ctrl)``:
+  dmc point_mass mixes its controls through fixed tendons itself.
 
   - Euler (``mj_Euler``): qacc solves (M + h diag(damping)) qacc =
     tau + spring(q) - damping v - c(q, v) + qfrc_constraint, the
@@ -885,7 +891,7 @@ def step_smooth(mdl: DeviceModel, q: Tensor, v: Tensor, ctrl: Tensor,
   npdt = np.float32 if q.dtype == torch.float32 else np.float64
   h = npdt(mdl.timestep)
   half, h6 = float(npdt(0.5) * h), float(h / npdt(6.0))
-  tau = actuator_force(mdl, ctrl)
+  tau = actuator_force(mdl, ctrl) if tau is None else tau.to(q.dtype)
 
   def one_step(q, v, warm, aux_here):
     aux = None
@@ -949,6 +955,56 @@ def body_xmat(mdl: DeviceModel, q: Tensor, name: str) -> Tensor:
   """World rotation matrix ``[N, 3, 3]`` of a named body (data.xmat)."""
   _, xmat, _, _ = fk(mdl, q)
   return xmat[mdl.body_name2id[name]]
+
+
+def geom_xpos(mdl: DeviceModel, q: Tensor, name: str) -> Tensor:
+  """World position ``[N, 3]`` of a named geom (data.geom_xpos)."""
+  xpos, xmat, _, _ = fk(mdl, q)
+  g = mdl.geom_name2id[name]
+  b = mdl.geom_body[g]
+  return xpos[b] + _mv(xmat[b], _consts(mdl, q)["geom_pos"][g])
+
+
+def subtree_linvel(mdl: DeviceModel, q: Tensor, v: Tensor, name: str) -> Tensor:
+  """mj_subtreeVel's subtree COM linear velocity ``[N, 3]`` of a named body
+  (the ``subtreelinvel`` sensor dmc locomotion rewards read)."""
+  return subtree_linvel_at(mdl, fk(mdl, q), v, name)
+
+
+def subtree_linvel_at(mdl: DeviceModel, kin, v: Tensor, name: str) -> Tensor:
+  """``subtree_linvel`` from a kinematics pass ``kin`` (``fk``'s outputs)
+  the caller already made: the mass-weighted mean of the COM velocities of
+  the subtree's bodies with mass, as one masked sum over them."""
+  xpos, xmat, anchors, axes = kin
+  vel = body_velocities(mdl, v, _motion_subspaces(mdl, anchors, axes))
+  bodies, idx, ipos, mass, inv_msum = _subtree_table(
+    _ByIdentity(mdl), name, v.dtype, v.device)
+  vel = vel.index_select(1, idx)                            # [N, k, 6]
+  pos = torch.stack([xpos[b] for b in bodies], 1)
+  rot = torch.stack([xmat[b] for b in bodies], 1)
+  com = pos + _mv(rot, ipos)
+  lin = vel[..., 3:] + torch.linalg.cross(vel[..., :3], com)
+  return (mass * lin).sum(1) * inv_msum
+
+
+@functools.lru_cache(maxsize=64)
+def _subtree_table(key: _ByIdentity, name: str, dtype: torch.dtype,
+                   device: torch.device):
+  """``subtree_linvel``'s constants: the subtree's bodies with mass, their
+  rows of the moving-body passes, COM offsets and masses ``[k, 1]`` on the
+  device, and the reciprocal of their total mass in ``dtype`` (XLA
+  multiplies by it where the JAX code divides; see ``prng.inv32``)."""
+  mdl = key.mdl
+  root = mdl.body_name2id[name]
+  bodies = [b for b in range(1, mdl.nbody)
+            if mdl.ancestor[root][b] and float(mdl.body_mass[b]) != 0.0]
+  msum = sum(float(mdl.body_mass[b]) for b in bodies)
+  inv = (float(np.float32(1.0) / np.float32(msum)) if dtype == torch.float32
+         else 1.0 / msum)
+  return (bodies, torch.as_tensor([b - 1 for b in bodies], device=device),
+          torch.as_tensor(mdl.body_ipos[bodies], dtype=dtype, device=device),
+          torch.as_tensor(mdl.body_mass[bodies][:, None], dtype=dtype,
+                          device=device), inv)
 
 
 def site_xpos(mdl: DeviceModel, q: Tensor, name: str) -> Tensor:

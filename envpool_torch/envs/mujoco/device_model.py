@@ -15,12 +15,17 @@ package's extraction::
 The model carries the contact tables of
 ``envpool_tpu/envs/mujoco/device_collision.py`` (``ContactData``, extracted
 by ``extract_contacts``, the port's copy of it), or None where the JAX
-package's is None. The port's engine has the plane-capsule/sphere and
-capsule-capsule narrow phase, joint-limit rows and free joints;
-``check_supported`` refuses the cylinder and box families and limited
-tendon rows, which come with a later slice. Every gym device model is
+package's is None. The port's engine has the plane-capsule/sphere,
+capsule-capsule, plane-box and sphere/capsule-box narrow phase, joint-limit
+and limited-tendon rows and free joints; ``check_supported`` refuses the
+cylinder families, which come with a later slice. Every gym device model is
 written (Pusher's too, so its slice needs no regeneration);
 ``models/refused.json`` lists those the loader refuses, with the reason.
+
+The dm_control replicas (``dmc/assets.py``, the port's copy of the JAX
+package's) are written the same way under ``models/dmc/``, one file per
+model variant of ``dmc.assets.DMC_XMLS`` (``load_dmc_model``), with their
+own refusal list ``models/dmc/refused.json``.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ _GEOM_PLANE, _GEOM_SPHERE, _GEOM_CAPSULE, _GEOM_CYLINDER = 0, 2, 3, 5
 _GEOM_BOX = 6
 
 MODELS_DIR = Path(__file__).resolve().parent / "models"
+DMC_MODELS_DIR = MODELS_DIR / "dmc"
 
 # the XML assets of the JAX package's gym device tier
 # (``envpool_tpu/envs/mujoco/device_tasks.py``), written by ``--write``
@@ -568,6 +574,13 @@ def extract_model(xml_path: str) -> DeviceModel:
   return _extract_model(mujoco.MjModel.from_xml_path(xml_path))
 
 
+def extract_model_string(xml: str) -> DeviceModel:
+  """Like :func:`extract_model` but from an MJCF string (the dmc
+  replicas)."""
+  import mujoco
+  return _extract_model(mujoco.MjModel.from_xml_string(xml))
+
+
 def _extract_model(m) -> DeviceModel:
   import mujoco
 
@@ -733,17 +746,13 @@ def _extract_model(m) -> DeviceModel:
 
 
 def check_supported(mdl: DeviceModel) -> None:
-  """Refuse what the port's engine does not have yet: the cylinder and box
-  narrow phase and limited tendon rows."""
+  """Refuse what the port's engine does not have yet: the cylinder narrow
+  phase."""
   cd = mdl.contacts
   if cd is None:
     return
   if cd.pcy_plane or cd.cyc_cap:
     raise NotImplementedError("cylinder contacts: not yet ported")
-  if cd.pb_plane or cd.sb_cap:
-    raise NotImplementedError("box contacts: not yet ported")
-  if cd.ten_site_body.shape[0]:
-    raise NotImplementedError("tendon limit rows: not yet ported")
 
 
 # ------------------------------------------------------------ data files
@@ -807,9 +816,10 @@ def read_model(path: Path) -> DeviceModel:
   return DeviceModel(contacts=contacts, **fields)
 
 
-def refused_models() -> Dict[str, str]:
-  """Gym device models the writer refused: xml name -> reason."""
-  with open(MODELS_DIR / "refused.json") as f:
+def refused_models(models_dir: Path = MODELS_DIR) -> Dict[str, str]:
+  """Models the writer refused: name -> reason (the gym device models by
+  xml name; with ``DMC_MODELS_DIR``, the dmc variants by name)."""
+  with open(models_dir / "refused.json") as f:
     return json.load(f)
 
 
@@ -824,6 +834,18 @@ def load_model(xml_name: str) -> DeviceModel:
   return mdl
 
 
+@functools.lru_cache(maxsize=32)
+def load_dmc_model(name: str) -> DeviceModel:
+  """The committed model of a dm_control variant of
+  ``dmc.assets.DMC_XMLS``, e.g. ``"cartpole_three_poles"``."""
+  reason = refused_models(DMC_MODELS_DIR).get(name)
+  if reason is not None:
+    raise NotImplementedError(reason)
+  mdl = read_model(DMC_MODELS_DIR / f"{name}.npz")
+  check_supported(mdl)
+  return mdl
+
+
 def gym_asset(xml_name: str) -> str:
   """Path of a gymnasium MuJoCo asset (where gymnasium is installed)."""
   import gymnasium
@@ -832,35 +854,52 @@ def gym_asset(xml_name: str) -> str:
   )
 
 
-def write_models(out_dir: Path = MODELS_DIR) -> Dict[str, str]:
-  """Extract every gym device model from gymnasium's assets to
-  ``<stem>.npz``, and list those the engine refuses in ``refused.json``."""
+def _write_all(out_dir: Path, models) -> Dict[str, str]:
+  """Save each ``(name, file stem, model)`` to ``<stem>.npz`` and list
+  those the engine refuses in ``refused.json``."""
   out_dir.mkdir(parents=True, exist_ok=True)
   refused = {}
-  for xml_name in GYM_DEVICE_XMLS:
-    mdl = extract_model(gym_asset(xml_name))
+  for name, stem, mdl in models:
     try:
       check_supported(mdl)
     except NotImplementedError as err:
-      refused[xml_name] = str(err)
-    save_model(mdl, out_dir / (Path(xml_name).stem + ".npz"))
+      refused[name] = str(err)
+    save_model(mdl, out_dir / f"{stem}.npz")
   with open(out_dir / "refused.json", "w") as f:
     json.dump(refused, f, indent=1, sort_keys=True)
     f.write("\n")
   return refused
 
 
+def write_models(out_dir: Path = MODELS_DIR) -> Dict[str, str]:
+  """Extract every gym device model from gymnasium's assets to
+  ``<stem>.npz`` and every dm_control variant from the replicas to
+  ``dmc/<name>.npz``, each directory with its ``refused.json``. Returns the
+  gym models' refusals."""
+  from .dmc.assets import DMC_XMLS
+  _write_all(out_dir / "dmc", (
+    (name, name, extract_model_string(xml)) for name, xml in DMC_XMLS.items()
+  ))
+  return _write_all(out_dir, (
+    (xml, Path(xml).stem, extract_model(gym_asset(xml)))
+    for xml in GYM_DEVICE_XMLS
+  ))
+
+
 def main(argv: Sequence[str] = ()) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--write", action="store_true",
-                      help="regenerate models/ from gymnasium's assets")
+                      help="regenerate models/ from gymnasium's assets and "
+                           "the dmc replicas")
   args = parser.parse_args(list(argv))
   if not args.write:
     parser.print_help()
     return 2
   refused = write_models()
-  print(f"wrote {len(GYM_DEVICE_XMLS)} models to {MODELS_DIR}; "
-        f"refused {sorted(refused)}")
+  from .dmc.assets import DMC_XMLS
+  print(f"wrote {len(GYM_DEVICE_XMLS)} gym and {len(DMC_XMLS)} dmc models "
+        f"to {MODELS_DIR}; refused {sorted(refused)}, dmc "
+        f"{sorted(refused_models(DMC_MODELS_DIR))}")
   return 0
 
 

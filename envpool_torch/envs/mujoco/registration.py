@@ -1,7 +1,8 @@
 """MuJoCo task registration of the port: the on-device ``-Jax-v4`` ids of
 ``envpool_tpu/envs/mujoco/registration.py:89-111``, in its order and with
-the same class names and caps. ``PusherJax-v4`` (cylinder contacts), the
-dm_control ``-Jax-v1`` ids and the host tier wait for their slices."""
+the same class names and caps. ``PusherJax-v4`` (cylinder contacts) and
+the host tier wait for their slices; the dm_control ``-Jax-v1`` ids are
+registered by ``dmc/registration.py``."""
 
 from envpool_torch.registration import register
 

@@ -1,7 +1,9 @@
 """The port's twin of ``tests/test_determinism.py`` (CPU pools), with the
 Box2D and the on-device MuJoCo ids added (of the contact ids HalfCheetah
-and Hopper): the same seed gives identical trajectories, another seed a
-different one. Mirrors ``envpool/box2d/box2d_deterministic_test.py:28-44``.
+and Hopper; of the dm_control ids CheetahJaxRun-v1 and
+BallInCupJaxCatch-v1, whose observations are dicts, compared key by key):
+the same seed gives identical trajectories, another seed a different one.
+Mirrors ``envpool/box2d/box2d_deterministic_test.py:28-44``.
 """
 
 import numpy as np
@@ -22,6 +24,7 @@ TASKS = [
   ("ReacherJax-v4", 20), ("InvertedPendulumJax-v4", 20),
   ("InvertedDoublePendulumJax-v4", 20), ("SwimmerJax-v4", 20),
   ("HalfCheetahJax-v4", 10), ("HopperJax-v4", 10),
+  ("CheetahJaxRun-v1", 10), ("BallInCupJaxCatch-v1", 10),
 ]
 
 
@@ -40,6 +43,8 @@ def _rollout(task: str, seed: int, steps: int) -> np.ndarray:
         act_space.low, act_space.high, (num_envs, *act_space.shape)
       ).astype(np.float32)
     obs, rew, term, trunc, info = env.step(act)
+    if isinstance(obs, dict):
+      obs = np.concatenate([obs[k].reshape(num_envs, -1) for k in sorted(obs)], 1)
     obs_sum.append(obs.copy())
   return np.stack(obs_sum)
 

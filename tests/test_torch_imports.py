@@ -18,6 +18,8 @@ for name in ("jax", "jaxlib", "flax", "optax", "optree", "gymnasium", "dm_env",
              "envpool_tpu", "Box2D", "mujoco"):
   sys.modules[name] = None
 import numpy as np
+import torch
+torch.set_num_threads(1)  # the eager MuJoCo steps are many tiny ops
 import envpool_torch
 import envpool_torch.models
 import envpool_torch.ops
@@ -31,7 +33,18 @@ assert envpool_torch.list_all_envs() == [
   "CarRacing-v2", "PongJaxDemo-v5", "ReacherJax-v4", "InvertedPendulumJax-v4",
   "InvertedDoublePendulumJax-v4", "SwimmerJax-v4", "HalfCheetahJax-v4",
   "HopperJax-v4", "Walker2dJax-v4", "AntJax-v4", "HumanoidJax-v4",
-  "HumanoidStandupJax-v4", "MiniGrid-Empty-5x5-v0",
+  "HumanoidStandupJax-v4", "AcrobotJaxSwingup-v1", "BallInCupJaxCatch-v1",
+  "HumanoidJaxStand-v1", "HumanoidJaxWalk-v1", "HumanoidJaxRun-v1",
+  "HumanoidJaxRunPureState-v1", "AcrobotJaxSwingupSparse-v1",
+  "CartpoleJaxBalance-v1", "CartpoleJaxBalanceSparse-v1",
+  "CartpoleJaxSwingup-v1", "CartpoleJaxSwingupSparse-v1",
+  "CartpoleJaxTwoPoles-v1", "CartpoleJaxThreePoles-v1", "CheetahJaxRun-v1",
+  "FingerJaxSpin-v1", "FingerJaxTurnEasy-v1", "FingerJaxTurnHard-v1",
+  "FishJaxUpright-v1", "FishJaxSwim-v1", "SwimmerJaxSwimmer6-v1",
+  "SwimmerJaxSwimmer15-v1", "HopperJaxStand-v1", "HopperJaxHop-v1",
+  "WalkerJaxStand-v1", "WalkerJaxWalk-v1", "WalkerJaxRun-v1",
+  "PendulumJaxSwingup-v1", "PointMassJaxEasy-v1", "PointMassJaxHard-v1",
+  "ReacherJaxEasy-v1", "ReacherJaxHard-v1", "MiniGrid-Empty-5x5-v0",
   "MiniGrid-Empty-Random-5x5-v0",
   "MiniGrid-Empty-6x6-v0", "MiniGrid-Empty-Random-6x6-v0",
   "MiniGrid-Empty-8x8-v0", "MiniGrid-Empty-16x16-v0", "Sokoban-v0",
@@ -77,6 +90,20 @@ for task_id, kw, obs_shape, action in (
   obs, rew, term, trunc, info = env.step(action)
   assert info["elapsed_step"].tolist() == [1, 1], task_id
   assert not task_id.endswith("Jax-v4") or np.isfinite(obs).all(), task_id
+# one id of each dm_control domain: every observation finite
+for task_id, n_act in (
+  ("PendulumJaxSwingup-v1", 1), ("CartpoleJaxThreePoles-v1", 1),
+  ("AcrobotJaxSwingup-v1", 1), ("ReacherJaxHard-v1", 2),
+  ("PointMassJaxHard-v1", 2), ("SwimmerJaxSwimmer6-v1", 5),
+  ("FishJaxSwim-v1", 5), ("FingerJaxTurnHard-v1", 2), ("HopperJaxHop-v1", 4),
+  ("WalkerJaxRun-v1", 6), ("CheetahJaxRun-v1", 6),
+  ("BallInCupJaxCatch-v1", 2), ("HumanoidJaxRun-v1", 21),
+):
+  env = envpool_torch.make_gymnasium(task_id, num_envs=2, seed=0, device="cpu")
+  env.reset()
+  obs, rew, term, trunc, info = env.step(np.zeros((2, n_act), np.float32))
+  assert info["elapsed_step"].tolist() == [1, 1], task_id
+  assert all(np.isfinite(x).all() for x in obs.values()), task_id
 from envpool_torch.models import SokobanCNN
 from envpool_torch.train import PPOConfig, make_ppo_train_step, ppo_init
 pool = envpool_torch.make_gymnasium(

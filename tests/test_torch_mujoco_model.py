@@ -1,9 +1,14 @@
 """The port's on-device MuJoCo models as data: the committed ``.npz`` files
 (``envpool_torch/envs/mujoco/models/``) and the port's own extractor equal
 ``envpool_tpu.envs.mujoco.device_engine.extract_model`` field by field and
-exactly for every gym device model, the contact tables (``ContactData``)
-included; the loader and the engine refuse the contact families the port
-does not have yet (Pusher's cylinders, boxes, limited tendons)."""
+exactly for every gym device model, and the committed dm_control variants
+(``models/dmc/``, from the port's copy of the replicas) equal the JAX
+package's ``DmcXxxJaxEnv.mdl(cfg)`` for all 15 domains, the contact tables
+(``ContactData``) included; the loader and the engine refuse the contact
+family the port does not have yet (Pusher's cylinders) and take the box
+and tendon models."""
+
+import types
 
 import numpy as np
 import pytest
@@ -14,7 +19,10 @@ pytest.importorskip("gymnasium")
 
 from envpool_torch.envs.mujoco import device_engine as port_de  # noqa: E402
 from envpool_torch.envs.mujoco import device_model as dm  # noqa: E402
+from envpool_torch.envs.mujoco.dmc import assets as port_assets  # noqa: E402
 from envpool_tpu.envs.mujoco import device_engine as jax_de  # noqa: E402
+from envpool_tpu.envs.mujoco.dmc import assets as jax_assets  # noqa: E402
+from envpool_tpu.envs.mujoco.dmc import device_domains as jax_dd  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -23,6 +31,31 @@ MODELS = ["reacher.xml", "inverted_pendulum.xml",
 CONTACT_MODELS = [x for x in dm.GYM_DEVICE_XMLS if x not in MODELS]
 # the contact models the port runs; pusher.xml (cylinders) is refused
 PORTED_CONTACT_MODELS = [x for x in CONTACT_MODELS if x != "pusher.xml"]
+
+# dm_control variant -> the JAX class and a task that builds it
+DMC_VARIANTS = {
+  "pendulum": ("DmcPendulumJaxEnv", "swingup"),
+  "cartpole": ("DmcCartpoleJaxEnv", "balance"),
+  "cartpole_two_poles": ("DmcCartpoleJaxEnv", "two_poles"),
+  "cartpole_three_poles": ("DmcCartpoleJaxEnv", "three_poles"),
+  "point_mass": ("DmcPointMassJaxEnv", "hard"),
+  "reacher": ("DmcReacherJaxEnv", "easy"),
+  "cheetah": ("DmcCheetahJaxEnv", "run"),
+  "acrobot": ("DmcAcrobotJaxEnv", "swingup"),
+  "ball_in_cup": ("DmcBallInCupJaxEnv", "catch"),
+  "hopper": ("DmcHopperJaxEnv", "hop"),
+  "walker": ("DmcWalkerJaxEnv", "walk"),
+  "finger": ("DmcFingerJaxEnv", "turn_easy"),
+  "swimmer6": ("DmcSwimmerJaxEnv", "swimmer6"),
+  "swimmer15": ("DmcSwimmerJaxEnv", "swimmer15"),
+  "fish": ("DmcFishJaxEnv", "swim"),
+  "humanoid": ("DmcHumanoidJaxEnv", "run"),
+  "manipulator_bring_ball": ("DmcManipulatorJaxEnv", "bring_ball"),
+  "manipulator_bring_peg": ("DmcManipulatorJaxEnv", "bring_peg"),
+  "manipulator_insert_ball": ("DmcManipulatorJaxEnv", "insert_ball"),
+  "manipulator_insert_peg": ("DmcManipulatorJaxEnv", "insert_peg"),
+  "humanoid_cmu": ("DmcHumanoidCMUJaxEnv", "stand"),
+}
 
 FREE_BODY = (
   "<mujoco><worldbody>"
@@ -91,21 +124,22 @@ def test_contact_models_recorded_and_refused(xml):
 
 def test_loader_refuses_half_cheetah():
   """The loader refuses what ``check_supported`` refuses, whatever the
-  file: half_cheetah's committed data given a cylinder pair, a box pair or
-  a limited tendon row is refused with the family's reason, and loads
-  without them."""
+  file: half_cheetah's committed data given a cylinder pair is refused with
+  the family's reason, and loads without it; given a box pair or a limited
+  tendon row (families the engine has since the dm_control slice) it is
+  accepted."""
   cheetah = _committed("half_cheetah.xml")
   dm.check_supported(cheetah)
   cd = cheetah.contacts
-  for change, reason in (
-    (dict(pcy_plane=(0,), pcy_cyl=(1,)), "cylinder contacts"),
-    (dict(cyc_cap=(1,), cyc_cyl=(2,)), "cylinder contacts"),
-    (dict(pb_plane=(0,), pb_box=(1,)), "box contacts"),
-    (dict(sb_cap=(1,), sb_box=(2,), sb_three=(True,)), "box contacts"),
-    (dict(ten_site_body=np.zeros((1, 2), np.int64)), "tendon limit rows"),
-  ):
-    with pytest.raises(NotImplementedError, match=reason + ": not yet ported"):
+  for change in (dict(pcy_plane=(0,), pcy_cyl=(1,)),
+                 dict(cyc_cap=(1,), cyc_cyl=(2,))):
+    with pytest.raises(NotImplementedError,
+                       match="cylinder contacts: not yet ported"):
       dm.check_supported(cheetah._replace(contacts=cd._replace(**change)))
+  for change in (dict(pb_plane=(0,), pb_box=(1,)),
+                 dict(sb_cap=(1,), sb_box=(2,), sb_three=(True,)),
+                 dict(ten_site_body=np.zeros((1, 2), np.int64))):
+    dm.check_supported(cheetah._replace(contacts=cd._replace(**change)))
 
 
 def test_engine_refuses_contacts_and_free_joints(tmp_path):
@@ -138,14 +172,56 @@ def test_engine_refuses_contacts_and_free_joints(tmp_path):
 
 
 def test_written_models_read_back_equal(tmp_path):
-  """``--write`` regenerates what is committed (read back, not bytes: the
-  zip container carries times)."""
+  """``--write`` regenerates what is committed, the gym models and the
+  dm_control variants (read back, not bytes: the zip container carries
+  times)."""
   refused = dm.write_models(tmp_path)
   assert refused == dm.refused_models()
+  assert dm.refused_models(tmp_path / "dmc") == dm.refused_models(
+    dm.DMC_MODELS_DIR) == {}
   for xml in dm.GYM_DEVICE_XMLS:
     stem = xml[:-4]
     _assert_models_equal(dm.read_model(tmp_path / f"{stem}.npz"),
                          _committed(xml), xml)
-  assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
-    p.name for p in dm.MODELS_DIR.iterdir()
-  )
+  for name in port_assets.DMC_XMLS:
+    _assert_models_equal(dm.read_model(tmp_path / "dmc" / f"{name}.npz"),
+                         dm.read_model(dm.DMC_MODELS_DIR / f"{name}.npz"), name)
+  for sub in ("", "dmc"):
+    assert sorted(p.name for p in (tmp_path / sub).iterdir()) == sorted(
+      p.name for p in (dm.MODELS_DIR / sub).iterdir()
+    )
+
+
+def test_dmc_replicas_are_the_jax_packages():
+  """The port's copy of the replicas: every string and every template's
+  output for each task equal to the JAX package's, and point_mass's
+  variant without its tendon transmission too."""
+  for name in ("PENDULUM_XML", "POINT_MASS_XML", "REACHER_XML", "CHEETAH_XML",
+               "ACROBOT_XML", "BALL_IN_CUP_XML", "DMC_HOPPER_XML",
+               "DMC_WALKER_XML", "FINGER_XML", "FISH_XML", "DMC_HUMANOID_XML"):
+    assert getattr(port_assets, name) == getattr(jax_assets, name), name
+  for task in ("balance", "swingup", "two_poles", "three_poles"):
+    assert port_assets.cartpole_xml(task) == jax_assets.cartpole_xml(task)
+  for task in ("swimmer6", "swimmer15"):
+    assert port_assets.swimmer_xml(task) == jax_assets.swimmer_xml(task)
+  for task in ("bring_ball", "bring_peg", "insert_ball", "insert_peg"):
+    assert port_assets.manipulator_xml(task) == jax_assets.manipulator_xml(task)
+  assert port_assets.humanoid_cmu_xml() == jax_assets.humanoid_cmu_xml()
+  assert (port_assets.point_mass_device_xml()
+          == jax_dd._point_mass_device_xml())
+
+
+@pytest.mark.parametrize("source", ["committed", "port_extractor"])
+@pytest.mark.parametrize("name", list(DMC_VARIANTS))
+def test_dmc_model_data_equals_jax_extraction(name, source):
+  """Each dm_control variant, committed or extracted by the port from its
+  copy of the replica, equals the JAX class's model field by field."""
+  cls, task = DMC_VARIANTS[name]
+  cfg = types.SimpleNamespace(task_name=task, frame_skip=1)
+  want = getattr(jax_dd, cls).mdl(cfg)
+  if source == "committed":
+    got = dm.read_model(dm.DMC_MODELS_DIR / f"{name}.npz")
+    _assert_models_equal(dm.load_dmc_model(name), want, f"{name} loaded")
+  else:
+    got = dm.extract_model_string(port_assets.DMC_XMLS[name])
+  _assert_models_equal(got, want, f"{name} {source}")

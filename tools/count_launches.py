@@ -5,12 +5,15 @@ Runs one ``xla()`` step of an ``envpool_torch`` pool on the CPU under a
 other ops that launch no kernel excluded), once with no lane resetting and
 once with one lane's done flag set, so that the reset branch runs too. On
 the card each counted op is about one kernel launch (a few ops launch more
-than one, e.g. ``linalg`` solves). For the on-device MuJoCo ids it also
-counts one forward-dynamics evaluation (``_qacc_full``) alone, and for the
-contact ids one Newton iteration of the contact solve (``newton_qacc`` with
-one iteration less that with none).
+than one, e.g. ``linalg`` solves). For the on-device MuJoCo ids (gym
+``-Jax-v4`` and dm_control ``-Jax-v1``) it also counts one forward-dynamics
+evaluation (``_qacc_full``) alone, for the contact ids one Newton iteration
+of the contact solve (``newton_qacc`` with one iteration less that with
+none), and for the box models one pass of each box block of the narrow
+phase (plane-box, sphere/capsule-box).
 
   python tools/count_launches.py --envs 8192 ReacherJax-v4 SwimmerJax-v4
+  python tools/count_launches.py --envs 4096 CheetahJaxRun-v1
 
 Prints one JSON line per id. Counts depend on the width only through the
 data (which lanes reset), so count at the width that runs.
@@ -87,19 +90,35 @@ def count(task_id: str, n: int) -> dict:
     res[name] = sum(c.ops.values())
     res[name + "_top"] = dict(c.ops.most_common(6))
   env_cls = env.spec._env_cls
-  if task_id.endswith("Jax-v4"):
+  if task_id.endswith(("Jax-v4", "-v1")) and "Jax" in task_id:
     from envpool_torch.envs.mujoco import device_collision as dc
     from envpool_torch.envs.mujoco import device_engine as de
-    mdl = env_cls.mdl()
+    if task_id.endswith("-v1"):  # dm_control: the model and substeps by task
+      mdl = env_cls.mdl(env.spec.config)
+      frame_skip = int(env.spec.config.frame_skip)
+    else:
+      mdl, frame_skip = env_cls.mdl(), env_cls.frame_skip
     st = handle.pool.env
     q, v = st["q"], st["v"]
-    tau = de.actuator_force(mdl, _actions(env, n, rng))
+    tau = torch.zeros_like(v)
     de._qacc_full(mdl, q, v, tau)
     with Count() as c:
       de._qacc_full(mdl, q, v, tau)
     res["forward_eval"] = sum(c.ops.values())
     res["forward_evals_per_step"] = (
-      4 if mdl.integrator == 1 else 1) * env_cls.frame_skip
+      4 if mdl.integrator == 1 else 1) * frame_skip
+    cd = mdl.contacts
+    if cd is not None and (cd.pb_plane or cd.sb_cap):
+      xpos, xmat, _, _ = de.fk(mdl, q)
+      X, R = torch.stack(xpos, 1), torch.stack(xmat, 1)
+      c = dc._cconsts(mdl, q)
+      for name, block, has in (("plane_box", dc._plane_box, cd.pb_plane),
+                               ("capsule_box", dc._sphere_capsule_box,
+                                cd.sb_cap)):
+        if has:
+          with Count() as cnt:
+            block(cd, c, X, R)
+          res[name + "_block"] = sum(cnt.ops.values())
     if de._has_contact_points(mdl):
       M, qfrc, ctx = de._qacc_smooth_parts(mdl, q, v, tau)
       rows = dc.assemble_rows(mdl, mdl.contacts, q, v, ctx)
