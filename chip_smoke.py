@@ -77,7 +77,7 @@ Phases (any failure exits non-zero before the result lines):
      InvertedDoublePendulumJax-v4 and SwimmerJax-v4 at 8192 envs
      (``bench.py:347-348``'s width), the reset (timed alone) + 60
      numpy-seeded uniform actions, half through ``step`` and half in the
-     ``xla()`` loop (phases 12 and 13 drive their ids the same way):
+     ``xla()`` loop (phases 12 to 14 drive their ids the same way):
      env-steps/s, every output finite, Reacher's lanes all truncated at 50
      and restarted, each auto-reset FIRST with elapsed 0 and reward 0, one
      traced ``xla()`` step, peak memory; then per model ``step_smooth``
@@ -110,13 +110,25 @@ Phases (any failure exits non-zero before the result lines):
      through ``step`` and half in the ``xla()`` loop: env-steps/s, every
      output finite, discount 1, one traced ``xla()`` step (Humanoid: one
      traced forward evaluation times 5), peak memory. Their CPU side runs
-     in phase 12's child process, after both phases' timed cells: per box
+     in phase 12's child process, after every timed cell: per box
      or tendon model (cartpole three_poles, ball_in_cup, humanoid)
      ``step_smooth`` of one env-step from seeded float64 states (256 lanes,
      humanoid 64) held on the card to 1e-10 relative with TF32 requested;
      one id of each of the 13 domains at 64 envs over 10 steps (swimmer15
      and humanoid 5), held on the card by the parted-lanes rule;
- 14. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
+ 14. the rest of the device tier (cylinder contacts, the per-env body-pose
+     override, the widest model; no kernel of their own): PusherJax-v4 at
+     4096 envs over 40 steps, ManipulatorJaxInsertPeg-v1 at 4096 over 10
+     and HumanoidCMUJaxRun-v1 at 1024 over 10 (``bench.py:353-367``'s
+     widths), as phase 13 drives its cells (Pusher one traced ``xla()``
+     step; the others one traced forward evaluation times 10). Their CPU
+     side runs in phase 12's child after every timed cell: per model one
+     float64 env-step (Pusher's finger against the object, insert_peg's
+     peg in its slot, humanoid_CMU low over the floor) held on the card to
+     1e-10 relative with TF32 requested; each of the 7 new ids at 64 envs
+     (Pusher 10 steps, manipulator 5, humanoid_CMU 3) held on the card by
+     the parted-lanes rule;
+ 15. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or outside a checkout, it fails and prints no result.
 """
@@ -1374,8 +1386,12 @@ def mujoco_family(torch, envpool_torch, device, task_id, card,
     q, v = (torch.from_numpy(st[k]).to(device) for k in ("q", "v"))
     tau = device_engine.actuator_force(mdl, dev_acts[0])
     evals = (4 if mdl.integrator == 1 else 1) * frame_skip
-    device_engine._qacc_full(mdl, q, v, tau)
-    busy_us, rows = profile_call(torch, lambda: device_engine._qacc_full(mdl, q, v, tau))
+    # manipulator's receptacle and target: the state's body-pose overrides
+    mut = (env_cls._mut(cfg, torch.from_numpy(st["target"]).to(device))
+           if hasattr(env_cls, "_mut") else None)
+    device_engine._qacc_full(mdl, q, v, tau, mut=mut)
+    busy_us, rows = profile_call(
+      torch, lambda: device_engine._qacc_full(mdl, q, v, tau, mut=mut))
     res.update(eval_busy_ms=busy_us / 1e3, eval_launches=sum(r[2] for r in rows),
                evals_per_step=evals)
     busy_us, rows = busy_us * evals, [(k, us * evals, c * evals) for k, us, c in rows]
@@ -1417,18 +1433,22 @@ def mujoco_states(mdl, n: int, seed: int):
   return q, v, rng.uniform(-1.0, 1.0, (n, len(mdl.act_gear)))
 
 
-def mujoco_step64(torch, mdl, nstep: int, arrays, device) -> list:
+def mujoco_step64(torch, mdl, nstep: int, arrays, device, mut=None) -> list:
   """(q, v) after ``step_smooth`` of one env-step (``nstep`` substeps; with
   contacts, the warm-start chain) from float64 (q, v, ctrl) on ``device``,
   with the process asking for TF32: the contact solve's matmuls hold TF32
-  off and the rest runs no matmul, so nothing may round otherwise."""
+  off and the rest runs no matmul, so nothing may round otherwise. With
+  ``mut`` (a function of a float64 tensor of targets to ``fk``'s body-pose
+  overrides) ``arrays`` holds the targets fourth."""
   from envpool_torch.envs.mujoco import device_engine
 
   flag = torch.backends.cuda.matmul.allow_tf32
   torch.backends.cuda.matmul.allow_tf32 = True
   try:
+    q, v, ctrl, *target = (torch.from_numpy(a).to(device) for a in arrays)
+    over = mut(target[0]) if mut is not None else None
     return [x.cpu().numpy() for x in device_engine.step_smooth(
-      mdl, *(torch.from_numpy(a).to(device) for a in arrays), nstep=nstep)]
+      mdl, q, v, ctrl, nstep=nstep, mut=over)]
   finally:
     torch.backends.cuda.matmul.allow_tf32 = flag
 
@@ -1617,12 +1637,95 @@ def dmc_cmp_actions(envpool_torch, task_id):
                         DMC_CMP_ENVS)
 
 
+# --------------------------------------------------------------- phase 14
+
+# the rest of the device tier at bench.py's widths (bench.py:353-354 the
+# contact gym ids at 4096, :362-363 the dm_control ids at 4096, :366-367
+# the humanoid programs at 1024), registry defaults: (envs, steps after the
+# reset, half through step and half in the xla() loop). Manipulator and
+# humanoid_CMU trace one forward evaluation (10 per step)
+LAST_RUNS = {"PusherJax-v4": (4096, 40), "ManipulatorJaxInsertPeg-v1": (4096, 10),
+             "HumanoidCMUJaxRun-v1": (1024, 10)}
+LAST_TRACE_STEP = ("PusherJax-v4",)
+# the card against the CPU port: float64 step_smooth of one env-step per
+# model (64 lanes, humanoid_CMU 32) to 1e-10 relative with TF32 requested;
+# the float32 pools of the 7 new ids at 64 envs, a lane parting as in
+# phase 11, counted against the id's share. The shares, set before the
+# first run of this phase on an H100, are the CPU test files' bounds for
+# these families against the JAX package: Pusher 1/8 (the gym contact
+# ids'), manipulator and humanoid_CMU 1/4 (the dm_control contact ids')
+LAST_F64 = {"PusherJax-v4": 64, "ManipulatorJaxInsertPeg-v1": 64,
+            "HumanoidCMUJaxRun-v1": 32}
+LAST_CMP = {"PusherJax-v4": 10, "ManipulatorJaxBringBall-v1": 5,
+            "ManipulatorJaxBringPeg-v1": 5, "ManipulatorJaxInsertBall-v1": 5,
+            "ManipulatorJaxInsertPeg-v1": 5, "HumanoidCMUJaxStand-v1": 3,
+            "HumanoidCMUJaxRun-v1": 3}
+LAST_CMP_ENVS = 64
+LAST_PARTED = {t: 0.125 if t == "PusherJax-v4" else 0.25 for t in LAST_CMP}
+
+
+def pusher_states(torch, mdl, n: int, seed: int):
+  """(q, v, ctrl) float64 of ``n`` Pusher lanes whose finger capsule
+  (geom 13) reaches the table, the object cylinder (geom 19) dropped
+  0.03-0.09 from it: the capsule-cylinder and plane-cylinder rows."""
+  from envpool_torch.envs.mujoco import device_engine
+
+  rng = np.random.default_rng(seed)
+  draws = 64 * n  # ~4% of uniform arm poses reach the table
+  arm = rng.uniform(mdl.jnt_range[:7, 0], mdl.jnt_range[:7, 1], (draws, 7))
+  q = np.concatenate([arm, np.zeros((draws, mdl.nq - 7))], 1)
+  xpos, xmat, _, _ = device_engine.fk(mdl, torch.from_numpy(q))
+  pos = {g: (xpos[mdl.geom_body[g]] + device_engine._mv(
+    xmat[mdl.geom_body[g]], torch.from_numpy(mdl.geom_pos[g]))).numpy()
+    for g in (13, 19)}
+  low = np.where((pos[13][:, 2] > -0.30) & (pos[13][:, 2] < -0.24))[0][:n]
+  assert len(low) == n, len(low)
+  q = q[low]
+  ang = rng.uniform(0, 2 * np.pi, n)
+  near = pos[13][low, :2] + rng.uniform(0.03, 0.09, (n, 1)) * np.stack(
+    [np.cos(ang), np.sin(ang)], 1)
+  q[:, -3] = near[:, 0] - pos[19][low, 0]  # the object's x slide
+  q[:, -4] = near[:, 1] - pos[19][low, 1]  # its y slide
+  return q, rng.uniform(-1.0, 1.0, (n, mdl.nv)), rng.uniform(-2.0, 2.0, (n, 7))
+
+
+def last_float64_inputs(torch, envpool_torch, task_id):
+  """(model, substeps, seeded float64 (q, v, ctrl[, target]), the
+  overrides' function or None) of one model of phase 14."""
+  spec = envpool_torch.make_spec(task_id)
+  env_cls, cfg, n = spec._env_cls, spec.config, LAST_F64[task_id]
+  if task_id == "PusherJax-v4":
+    mdl = env_cls.mdl()
+    return mdl, env_cls.frame_skip, pusher_states(torch, mdl, n, SEED + 41), None
+  mdl = env_cls.mdl(cfg)
+  rng = np.random.default_rng(SEED + 41)
+  if task_id == "HumanoidCMUJaxRun-v1":
+    return mdl, int(cfg.frame_skip), contact_states(
+      mdl, "HumanoidJax-v4", n, SEED + 41), None
+  # manipulator: the reset's arms and targets, the peg in its slot, tilted
+  # by up to 0.02 rad and moved by up to 5 mm (the box rows active in every
+  # lane). Deeper placements make the step chaotic: 1e-14 on q moves the
+  # float64 result by O(1) within the env-step, on the CPU alone
+  keys = torch.from_numpy(np.stack([np.arange(n), np.full(n, 7)], 1))
+  state, _, _ = env_cls.reset(cfg, None, keys)
+  q, target = (state[k].double().numpy() for k in ("q", "target"))
+  q[:, 8:11] = target + rng.uniform(-1.0, 1.0, (n, 3)) * [0.005, 0.005, 0.02]
+  return mdl, int(cfg.frame_skip), (
+    q, rng.uniform(-0.1, 0.1, (n, mdl.nv)), rng.uniform(-1.0, 1.0, (n, 5)),
+    target), lambda t: env_cls._mut(cfg, t)
+
+
+def last_cmp_actions(envpool_torch, task_id):
+  return mujoco_actions(envpool_torch, task_id, SEED + 42, LAST_CMP[task_id],
+                        LAST_CMP_ENVS)
+
+
 def cpu_reference(path: str) -> int:
-  """The CPU side of phases 12 and 13, in a process of its own: per
+  """The CPU side of phases 12, 13 and 14, in a process of its own: per
   contact id the float64 env-step from ``contact_states`` and the float32
-  pool's outputs, per dm_control model of ``DMC_F64`` its float64 env-step
-  and per id of ``DMC_CMP`` its pool's outputs, written to ``path``
-  (npz)."""
+  pool's outputs, per dm_control model of ``DMC_F64`` its float64 env-step,
+  per id of ``DMC_CMP`` its pool's outputs, and phase 14's of ``LAST_F64``
+  and ``LAST_CMP``, written to ``path`` (npz)."""
   import torch
 
   sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1655,16 +1758,32 @@ def cpu_reference(path: str) -> int:
       for k, x in zip(keys, o):
         out[f"{task_id}/pool/{t}/{k}"] = np.asarray(x)
     print(f"cpu reference {task_id}: {time.perf_counter() - t0:.1f} s", flush=True)
+  for task_id in LAST_F64:
+    t0 = time.perf_counter()
+    mdl, nstep, arrays, mut = last_float64_inputs(torch, envpool_torch, task_id)
+    out[f"{task_id}/f64/q"], out[f"{task_id}/f64/v"] = mujoco_step64(
+      torch, mdl, nstep, arrays, "cpu", mut)
+    print(f"cpu reference {task_id} float64: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+  for task_id in LAST_CMP:
+    t0 = time.perf_counter()
+    keys, outs, _ = pool_run(envpool_torch, task_id, "cpu",
+                             last_cmp_actions(envpool_torch, task_id), {})
+    for t, o in enumerate(outs):
+      for k, x in zip(keys, o):
+        out[f"{task_id}/pool/{t}/{k}"] = np.asarray(x)
+    print(f"cpu reference {task_id}: {time.perf_counter() - t0:.1f} s", flush=True)
   np.savez(path, **out)
   return 0
 
 
 def contact_phase(torch, envpool_torch, device, card, scratch: str):
-  """Phases 12 and 13: the six contact ids' and then the two dm_control
-  cells' throughput runs first, with nothing else on the host; then a
-  child process (no card) computes the CPU reference of both phases while
-  the card computes its side of the comparisons; then each id is held to
-  it. Returns (phase 12's results, phase 13's)."""
+  """Phases 12, 13 and 14: the six contact ids', the two dm_control cells'
+  and phase 14's three cells' throughput runs first, with nothing else on
+  the host; then a child process (no card) computes the CPU reference of
+  the three phases while the card computes its side of the comparisons;
+  then each id is held to it. Returns (phase 12's results, phase 13's,
+  phase 14's)."""
   t12 = time.perf_counter()
   res = {t: mujoco_family(torch, envpool_torch, device, t, card, n, steps,
                           trace_step=t in CONTACT_TRACE_STEP)
@@ -1675,6 +1794,11 @@ def contact_phase(torch, envpool_torch, device, card, scratch: str):
                           trace_step=t in DMC_TRACE_STEP)
          for t, (n, steps) in DMC_RUNS.items()}
   log(f"dm_control throughput runs: {time.perf_counter() - t13:.1f} s")
+  t14 = time.perf_counter()
+  last = {t: mujoco_family(torch, envpool_torch, device, t, card, n, steps,
+                           trace_step=t in LAST_TRACE_STEP)
+          for t, (n, steps) in LAST_RUNS.items()}
+  log(f"phase 14 throughput runs: {time.perf_counter() - t14:.1f} s")
   t12c = time.perf_counter()
   ref_path = os.path.join(scratch, "contact_reference.npz")
   log_path = os.path.join(scratch, "contact_reference.log")
@@ -1699,7 +1823,15 @@ def contact_phase(torch, envpool_torch, device, card, scratch: str):
       keys, got, _ = pool_run(envpool_torch, task_id, device,
                               dmc_cmp_actions(envpool_torch, task_id), {})
       dmc_pools[task_id] = keys, got
-    log(f"contact and dm_control card side of the comparisons: "
+    last_f64, last_pools = {}, {}
+    for task_id in LAST_F64:
+      mdl, nstep, arrays, mut = last_float64_inputs(torch, envpool_torch, task_id)
+      last_f64[task_id] = nstep, mujoco_step64(torch, mdl, nstep, arrays, device, mut)
+    for task_id in LAST_CMP:
+      keys, got, _ = pool_run(envpool_torch, task_id, device,
+                              last_cmp_actions(envpool_torch, task_id), {})
+      last_pools[task_id] = keys, got
+    log(f"contact, dm_control and phase 14 card side of the comparisons: "
         f"{time.perf_counter() - t12c:.1f} s")
     rc = child.wait(timeout=900)
   finally:
@@ -1726,22 +1858,32 @@ def contact_phase(torch, envpool_torch, device, card, scratch: str):
         f"states, {nstep} substeps (TF32 requested): max relative error "
         f"{f64['max_rel_err']:.3g} (limit {MUJOCO_F64_TOL:g})")
     dmc.setdefault("float64_card_vs_cpu", {})[name] = f64
-  for task_id, (keys, got) in dmc_pools.items():
-    want = [[ref[f"{task_id}/pool/{t}/{k}"] for k in keys] for t in range(len(got))]
-    cmp = mujoco_card_vs_cpu(task_id, keys, got, want, DMC_PARTED[task_id])
-    first = cmp["first_parted_output"]
-    first = "" if first is None else f"; the first at output {first}"
-    log(f"{task_id} card vs cpu port, {cmp['lanes']} envs, reset + {cmp['steps']} "
-        f"steps: {cmp['parted']} lanes parted (at most {DMC_PARTED[task_id]:.2%} "
-        f"allowed{first}), the others within {cmp['max_rel_err_unparted']:.3g} "
-        f"relative (limit {MUJOCO_TOL:g}) with integer and bool fields equal")
-    dmc.setdefault("card_vs_cpu", {})[task_id] = cmp
-  log(f"contact and dm_control card vs cpu: {time.perf_counter() - t12c:.1f} s")
-  return res, dmc
+  for pools, parted, out in ((dmc_pools, DMC_PARTED, dmc),
+                             (last_pools, LAST_PARTED, last)):
+    for task_id, (keys, got) in pools.items():
+      want = [[ref[f"{task_id}/pool/{t}/{k}"] for k in keys] for t in range(len(got))]
+      cmp = mujoco_card_vs_cpu(task_id, keys, got, want, parted[task_id])
+      first = cmp["first_parted_output"]
+      first = "" if first is None else f"; the first at output {first}"
+      log(f"{task_id} card vs cpu port, {cmp['lanes']} envs, reset + {cmp['steps']} "
+          f"steps: {cmp['parted']} lanes parted (at most {parted[task_id]:.2%} "
+          f"allowed{first}), the others within {cmp['max_rel_err_unparted']:.3g} "
+          f"relative (limit {MUJOCO_TOL:g}) with integer and bool fields equal")
+      out.setdefault("card_vs_cpu", {})[task_id] = cmp
+  for task_id, (nstep, step64) in last_f64.items():
+    f64 = mujoco_float64(task_id, nstep, step64,
+                         [ref[f"{task_id}/f64/q"], ref[f"{task_id}/f64/v"]])
+    log(f"{task_id} float64 step_smooth card vs cpu port, {f64['lanes']} seeded "
+        f"states, {nstep} substeps (TF32 requested): max relative error "
+        f"{f64['max_rel_err']:.3g} (limit {MUJOCO_F64_TOL:g})")
+    last.setdefault("float64_card_vs_cpu", {})[task_id] = f64
+  log(f"contact, dm_control and phase 14 card vs cpu: "
+      f"{time.perf_counter() - t12c:.1f} s")
+  return res, dmc, last
 
 
 def main(argv) -> int:
-  if argv[:1] == ["--cpu-reference"]:  # phases 12 and 13's child process
+  if argv[:1] == ["--cpu-reference"]:  # phases 12, 13 and 14's child process
     return cpu_reference(argv[1])
 
   import torch
@@ -1939,15 +2081,17 @@ def main(argv) -> int:
   t12 = time.perf_counter()
   scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
   os.makedirs(scratch, exist_ok=True)
-  # 13. the dm_control device tier: CheetahJaxRun-v1 and HumanoidJaxRun-v1,
-  # then the comparisons of phases 12 and 13 together (one CPU child)
-  contact, dmc = contact_phase(torch, envpool_torch, device, card, scratch)
-  log(f"MuJoCo contact and dm_control phases: {time.perf_counter() - t12:.1f} s")
+  # 13. the dm_control device tier: CheetahJaxRun-v1 and HumanoidJaxRun-v1
+  # 14. the rest of the device tier: Pusher, manipulator, humanoid_CMU; then
+  # the comparisons of phases 12, 13 and 14 together (one CPU child)
+  contact, dmc, last = contact_phase(torch, envpool_torch, device, card, scratch)
+  log(f"MuJoCo contact, dm_control and phase 14: {time.perf_counter() - t12:.1f} s")
   log(json.dumps({"mujoco_contact": contact}))
   log(json.dumps({"dmc": dmc}))
+  log(json.dumps({"device_tier_rest": last}))
 
   log(f"total {time.perf_counter() - t_start:.1f} s")
-  # 14. results
+  # 15. results
   main_case = kres["cases"]["real_fine"]
   kernel = {
     "name": "car_racing_sampler",

@@ -1,7 +1,7 @@
 """MuJoCo family of the port: the on-device ``-Jax-v4`` tier's tasks
 (``device_tasks.py`` over ``device_engine.py`` and ``device_collision.py``,
-models from ``device_model.py``'s committed data), Pusher aside. Pusher, the
-dm_control ``-Jax-v1`` tier and the host tier come in later slices."""
+models from ``device_model.py``'s committed data). The dm_control
+``-Jax-v1`` tier is ``dmc/``; the host tier comes in a later slice."""
 
 from envpool_torch.core.envpool_api import py_env
 
@@ -13,6 +13,7 @@ from .device_tasks import (
   HumanoidStandupJaxEnv,
   InvertedDoublePendulumJaxEnv,
   InvertedPendulumJaxEnv,
+  PusherJaxEnv,
   ReacherJaxEnv,
   SwimmerJaxEnv,
   Walker2dJaxEnv,
@@ -23,7 +24,7 @@ __all__ = []
 for _env_cls in (
   ReacherJaxEnv, InvertedPendulumJaxEnv, InvertedDoublePendulumJaxEnv,
   SwimmerJaxEnv, HalfCheetahJaxEnv, HopperJaxEnv, Walker2dJaxEnv, AntJaxEnv,
-  HumanoidJaxEnv, HumanoidStandupJaxEnv,
+  HumanoidJaxEnv, HumanoidStandupJaxEnv, PusherJaxEnv,
 ):
   _spec, _dm, _gym, _gymnasium = py_env(_env_cls)
   _name = _env_cls.name

@@ -23,13 +23,15 @@ it; here every function takes the batch: ``q`` ``[N, nq]``, ``v``
   off, ``ops.image.no_tf32``), the JAX code's ``Precision.HIGHEST``; the
   factor is the engine's floored Cholesky (``_psd_solver``).
 
-The families the port has: plane-capsule/sphere and capsule-capsule
-(spheres are capsules with zero half-length), plane-box (eight corner
-candidates, the lower ones gated in) and sphere/capsule-box (the box SDF
-and a golden-section search of fixed length along the capsule axis),
+The families the port has, every one the extractor writes:
+plane-capsule/sphere and capsule-capsule (spheres are capsules with zero
+half-length), plane-cylinder (four rim candidates, two of them gated in
+below 45 degrees of tilt) and sphere/capsule-cylinder (the solid
+cylinder's signed distance and a golden-section search of fixed length
+along the capsule axis), plane-box (eight corner candidates, the lower
+ones gated in) and sphere/capsule-box (the box SDF and the same search),
 condim 1 and 3, joint-limit rows and the rows of limited 2-site spatial
-tendons. The cylinder families come with a later slice
-(``device_model.check_supported`` refuses them).
+tendons.
 """
 
 from __future__ import annotations
@@ -84,6 +86,18 @@ def _contact_arrays(mdl: DeviceModel) -> Dict[str, np.ndarray]:
     out.update(_family_arrays(cd, cd.cc_g2, "cc2_"))
     out.update(cc_r1=cd.geom_size[g1, 0], cc_r2=cd.geom_size[g2, 0],
                cc_hl1=cd.geom_size[g1, 1], cc_hl2=cd.geom_size[g2, 1])
+  if cd.pcy_plane:
+    cyls = np.asarray(cd.pcy_cyl, np.int64)
+    out.update(_family_arrays(cd, cd.pcy_plane, "pcyp_"))
+    out.update(_family_arrays(cd, cd.pcy_cyl, "pcyc_"))
+    out.update(pcy_r=cd.geom_size[cyls, 0], pcy_h=cd.geom_size[cyls, 1])
+  if cd.cyc_cap:
+    caps = np.asarray(cd.cyc_cap, np.int64)
+    cyls = np.asarray(cd.cyc_cyl, np.int64)
+    out.update(_family_arrays(cd, cd.cyc_cap, "cycc_"))
+    out.update(_family_arrays(cd, cd.cyc_cyl, "cycy_"))
+    out.update(cyc_rcap=cd.geom_size[caps, 0], cyc_hl=cd.geom_size[caps, 1],
+               cyc_R=cd.geom_size[cyls, 0], cyc_H=cd.geom_size[cyls, 1])
   if cd.pb_plane:
     sz = cd.geom_size[np.asarray(cd.pb_box, np.int64)]           # [npb, 3]
     out.update(_family_arrays(cd, cd.pb_plane, "pbp_"))
@@ -158,8 +172,9 @@ def _contact_arrays(mdl: DeviceModel) -> Dict[str, np.ndarray]:
 
 
 _INDEX_KEYS = ("pc_rows", "row_idx", "one", "pyr", "pt_order", "lim_qadr",
-               "pcp_body", "pcc_body", "cc1_body", "cc2_body", "pbp_body",
-               "pbb_body", "sbc_body", "sbb_body", "sb_rows", "ten_body")
+               "pcp_body", "pcc_body", "cc1_body", "cc2_body", "pcyp_body",
+               "pcyc_body", "cycc_body", "cycy_body", "pbp_body", "pbb_body",
+               "sbc_body", "sbb_body", "sb_rows", "ten_body")
 
 
 @functools.lru_cache(maxsize=64)
@@ -218,16 +233,20 @@ def contact_points(mdl: DeviceModel, xpos: List[Tensor], xmat: List[Tensor]):
 
   Returns (pos ``[N, P, 3]``, dist ``[N, P]``, n, t1, t2 ``[N, P, 3]``,
   gate ``[N, P]``), in the tables' point order. ``gate`` is a condition of
-  activation beyond the margin test: True everywhere but at the plane-box
-  corners, where it keeps the lower half of the box. Plane-capsule: one
+  activation beyond the margin test: True everywhere but at the
+  plane-cylinder face rims, which count only below 45 degrees of tilt, and
+  at the plane-box corners, where it keeps the lower half of the box.
+  Plane-capsule: one
   candidate per endpoint sphere (``mjc_PlaneCapsule``): dist = n.(e - p0)
   - r, pos = e - n (r + dist/2); the first tangent is the capsule axis
   projected onto the plane (mju_makeFrame where that is degenerate, and
   for spheres). Capsule-capsule: the closest points of the axis segments
-  (clamped parametric solve), one candidate. Plane-box: the eight corners
-  (``mjc_PlaneBox``' order). Sphere/capsule-box: the closest point of the
-  box to each endpoint sphere and to the capsule-axis point that a
-  48-step golden-section search finds. Normals point geom1 -> geom2, as
+  (clamped parametric solve), one candidate. Plane-cylinder: four rim
+  points (``mjc_PlaneCylinder``' regimes). Sphere/capsule-cylinder: one
+  closest-point candidate. Plane-box: the eight corners (``mjc_PlaneBox``'
+  order). Sphere/capsule-box: the closest point of the box to each
+  endpoint sphere and to the capsule-axis point that a 48-step
+  golden-section search finds. Normals point geom1 -> geom2, as
   mjContact.frame does.
   """
   pos, dist, frame, gate = _points(mdl, xpos, xmat)
@@ -325,6 +344,10 @@ def _points(mdl: DeviceModel, xpos: List[Tensor], xmat: List[Tensor]):
     pos = q1 + n * (r1 + 0.5 * dist)[..., None]
     t1, t2 = _make_frames_v(n, c)
     blocks.append((pos, dist, torch.stack([n, t1, t2], 2), None))
+  if cd.pcy_plane:
+    blocks.append(_plane_cylinder(cd, c, X, R))
+  if cd.cyc_cap:
+    blocks.append(_capsule_cylinder(cd, c, X, R))
   if cd.pb_plane:
     blocks.append(_plane_box(cd, c, X, R))
   if cd.sb_cap:
@@ -338,6 +361,118 @@ def _points(mdl: DeviceModel, xpos: List[Tensor], xmat: List[Tensor]):
       torch.ones_like(b[1], dtype=torch.bool) if g is None else g
       for b, g in zip(blocks, gates)], 1)
   return tuple(torch.cat([b[k] for b in blocks], 1) for k in range(3)) + (gate,)
+
+
+_C120, _S120 = -0.5, float(np.sqrt(3.0) / 2.0)
+
+
+def _plane_cylinder(cd: ContactData, c: Dict[str, Tensor], X: Tensor,
+                    R: Tensor):
+  """Plane-cylinder: four candidates per pair, ``mjc_PlaneCylinder``'
+  regimes: the deepest point of the rim nearer the plane, the two points
+  of that rim at +-120 degrees from it (gated in only below 45 degrees of
+  tilt, where the face rests), and the deepest point of the far rim (the
+  side resting). Each is a plane-point contact midway between the point
+  and the plane. Where the axis is exactly normal to the plane, the
+  radial direction is the cylinder's local x projected onto the plane.
+  The tangents are mju_makeFrame's of the plane normal."""
+  ppos, prot = _geom_poses(c, X, R, "pcyp_", _all_world(cd, cd.pcy_plane))
+  cpos, crot = _geom_poses(c, X, R, "pcyc_", _all_world(cd, cd.pcy_cyl))
+  n = prot[..., 2]                                          # [N, npcy, 3]
+  r, h = c["pcy_r"][:, None], c["pcy_h"][:, None]
+  ax = crot[..., 2]
+  prj = (ax * n).sum(-1, keepdim=True)
+  flip = torch.where(prj > 0, -1.0, 1.0).to(ax.dtype)
+  axf = flip * ax                      # the axis pointing toward the plane
+  prjf = flip * prj                    # <= 0
+  raw = prjf * axf - n                 # the radial direction of descent
+  slen = torch.sqrt(torch.clamp_min(1.0 - prjf * prjf, 0.0))
+  cx = crot[..., 0]
+  fb = cx - (cx * n).sum(-1, keepdim=True) * n
+  fb = fb / torch.sqrt((fb * fb).sum(-1, keepdim=True) + 1e-30)
+  d_r = torch.where(slen > 1e-10, raw / torch.clamp_min(slen, 1e-30), fb)
+  t_perp = torch.linalg.cross(axf, d_r)
+  e_lo = cpos + h * axf
+  face = (slen < -prjf)[..., 0]        # tilt below 45 degrees
+  cands = torch.stack([
+    e_lo + r * d_r,
+    e_lo + r * (_C120 * d_r + _S120 * t_perp),
+    e_lo + r * (_C120 * d_r - _S120 * t_perp),
+    cpos - h * axf + r * d_r,
+  ], 2)                                                     # [N, npcy, 4, 3]
+  dist4 = (n[:, :, None] * (cands - ppos[:, :, None])).sum(-1)
+  pos4 = cands - n[:, :, None] * (0.5 * dist4)[..., None]
+  yes = torch.ones_like(face)
+  gate = torch.stack([yes, face, face, yes], 2)
+  t1, t2 = _make_frames_v(n, c)
+  frame = torch.stack([n, t1, t2], 2).repeat_interleave(4, 1)
+  return pos4.flatten(1, 2), dist4.flatten(1), frame, gate.flatten(1)
+
+
+def _capsule_cylinder(cd: ContactData, c: Dict[str, Tensor], X: Tensor,
+                      R: Tensor):
+  """Sphere/capsule-cylinder: one closest-point candidate per pair. The
+  signed distance of a point to the solid cylinder is exact; the capsule
+  axis point that minimises it (convex along a line) is found by 48 steps
+  of golden-section search, as for the boxes. Outside, the contact is
+  along the segment to the closest surface point (side, rim or face);
+  inside, along the nearer exit (side or face), the depth MPR reports for
+  a swept sphere. Normal capsule -> cylinder, the point midway between
+  the two surfaces."""
+  p1, r1m = _geom_poses(c, X, R, "cycc_", _all_world(cd, cd.cyc_cap))
+  p2, r2m = _geom_poses(c, X, R, "cycy_", _all_world(cd, cd.cyc_cyl))
+  a1, a2 = r1m[..., 2], r2m[..., 2]                         # [N, nc, 3]
+  rcap, hl = c["cyc_rcap"], c["cyc_hl"]
+  Rc, H = c["cyc_R"], c["cyc_H"]
+
+  def radial(s):
+    """Axis point C(s), its offset w from the cylinder's centre, axial
+    coordinate z, radial vector and radius, for ``s`` ``[N, nc(, k)]``."""
+    e = (slice(None), slice(None)) + ((None,) if s.ndim == 3 else ())
+    cpt = p1[e] + s[..., None] * a1[e]
+    w = cpt - p2[e]
+    z = (w * a2[e]).sum(-1)
+    rv = w - z[..., None] * a2[e]
+    return cpt, z, rv, torch.sqrt((rv * rv).sum(-1) + 1e-30)
+
+  def sdist(s):
+    _, z, _, rho = radial(s)
+    k = (slice(None),) + ((None,) if s.ndim == 3 else ())
+    dz = torch.clamp_min(torch.abs(z) - H[k], 0.0)
+    dr = torch.clamp_min(rho - Rc[k], 0.0)
+    out = torch.sqrt(dz * dz + dr * dr)
+    return torch.where(out > 0, out,
+                       torch.maximum(rho - Rc[k], torch.abs(z) - H[k]))
+
+  lo = (-hl).expand(X.shape[0], -1)
+  hi = hl.expand(X.shape[0], -1)
+  for _ in range(48):
+    width = hi - lo
+    x1 = hi - _GOLDEN * width
+    x2 = lo + _GOLDEN * width
+    sd = sdist(torch.stack([x1, x2], -1))
+    take_lo = sd[..., 0] < sd[..., 1]
+    lo, hi = torch.where(take_lo, lo, x1), torch.where(take_lo, x2, hi)
+  cpt, z, rv, rho = radial(0.5 * (lo + hi))
+  rhat = rv / rho[..., None]
+  inside = ((rho <= Rc) & (torch.abs(z) <= H))[..., None]
+  sgnz = torch.where(z >= 0, 1.0, -1.0).to(z.dtype)
+  zc = torch.minimum(torch.maximum(z, -H), H)
+  surf_out = p2 + zc[..., None] * a2 + torch.minimum(rho, Rc)[..., None] * rhat
+  diff = cpt - surf_out
+  dd = torch.sqrt((diff * diff).sum(-1) + 1e-30)
+  n_out = -diff / dd[..., None]
+  side = ((rho - Rc) >= (torch.abs(z) - H))[..., None]
+  surf_in = torch.where(side, p2 + z[..., None] * a2 + Rc[:, None] * rhat,
+                        p2 + (sgnz * H)[..., None] * a2 + rv)
+  n_in = torch.where(side, -rhat, -(sgnz[..., None] * a2))
+  dist_in = torch.maximum(rho - Rc, torch.abs(z) - H) - rcap
+  nrm = torch.where(inside, n_in, n_out)
+  dist = torch.where(inside[..., 0], dist_in, dd - rcap)
+  surf = torch.where(inside, surf_in, surf_out)
+  pos = 0.5 * ((cpt + rcap[:, None] * nrm) + surf)
+  t1, t2 = _make_frames_v(nrm, c)
+  return pos, dist, torch.stack([nrm, t1, t2], 2), None
 
 
 def _plane_box(cd: ContactData, c: Dict[str, Tensor], X: Tensor, R: Tensor):
@@ -532,8 +667,12 @@ def newton_qacc(floor, M: Tensor, a0: Tensor, J: Tensor, aref: Tensor,
   piecewise-quadratic line search), alpha in [0, 2]. ``floor`` is the
   per-dof pivot floor of the Hessian's Cholesky factor (``_psd_solver``).
   Fixed depth, no early exit and no host read. Returns (qacc, efc_force).
+  An inactive row's D is dropped, not multiplied by 0: it is inf where
+  both bodies are static (a receptacle placed by ``fk``'s ``mut`` over the
+  floor: diagApprox 0), and XLA turns the JAX code's ``D * mask`` into
+  that select.
   """
-  Dm = D * mask
+  Dm = torch.where(mask, D, 0.0)
   a = a0 if start is None else start
   with no_tf32(M.device):
     for _ in range(iters):

@@ -26,11 +26,10 @@ quaternion integrated as ``mj_integratePos`` does), motor actuators, joint
 damping, armature and springs, gravity, the inertia-box fluid model,
 MuJoCo's soft joint-limit constraint, and contacts and limited tendons
 through ``device_collision.py`` (the plane-capsule/sphere, capsule-capsule,
-plane-box and sphere/capsule-box narrow phase, pyramidal rows, tendon
-rows and the primal Newton solve, warm-started along each env-step's
-substeps as ``mjData.qacc_warmstart`` is). ``device_model.check_supported``
-refuses the contact families the port does not have yet (the cylinders),
-and ``step_smooth`` calls it.
+plane-cylinder, sphere/capsule-cylinder, plane-box and sphere/capsule-box
+narrow phase, pyramidal rows, tendon rows and the primal Newton solve,
+warm-started along each env-step's substeps as ``mjData.qacc_warmstart``
+is), and per-env overrides of body poses (``fk``'s ``mut``).
 
 Every function works in the dtype of ``q``: the tasks run float32, the
 tests float64, where the engine matches the JAX engine under x64 and
@@ -54,7 +53,7 @@ import torch
 
 from envpool_torch.ops.image import no_tf32
 
-from .device_model import DeviceModel, _JNT_FREE, _JNT_HINGE, check_supported
+from .device_model import DeviceModel, _JNT_FREE, _JNT_HINGE
 
 Tensor = torch.Tensor
 
@@ -288,7 +287,8 @@ def _mv_const(A: Tensor, x: np.ndarray, xt: Tensor) -> Optional[Tensor]:
   return _mv(A, xt)
 
 
-def fk(mdl: DeviceModel, q: Tensor):
+def fk(mdl: DeviceModel, q: Tensor,
+       mut: Optional[Dict[int, Tuple[Tensor, Tensor]]] = None):
   """mj_kinematics: world pose per body + world anchor/axis per dof.
 
   Returns (xpos [nbody] of [N, 3], xmat [nbody] of [N, 3, 3],
@@ -300,6 +300,13 @@ def fk(mdl: DeviceModel, q: Tensor):
   an identity local rotation or a zero offset is not applied, a unit axis
   selects a column, a joint whose reference is 0 takes q as its
   displacement (the JAX code multiplies by 1 and adds 0).
+
+  ``mut`` (optional), ``{body id: (pos [N, 3], rotm [N, 3, 3])}``,
+  overrides those bodies' local frames (body_pos, body_quat) per env: the
+  counterpart of tasks that set mjModel body poses per episode
+  (manipulator's receptacle and target). An overridden body takes none of
+  the constant frames' shortcuts but the world parent's, which is exact
+  for any frame.
   """
   c = _consts(mdl, q)
   n = q.shape[0]
@@ -309,7 +316,12 @@ def fk(mdl: DeviceModel, q: Tensor):
   axes: Dict[int, Tensor] = {}
   for b in range(1, mdl.nbody):
     p = mdl.parent[b]
-    if p == 0:
+    if mut is not None and b in mut:
+      pos, rot = mut[b]
+      if p != 0:
+        pos = xpos[p] + _mv(xmat[p], pos)
+        rot = _mm3(xmat[p], rot)
+    elif p == 0:
       pos = c["body_pos"][b].expand(n, 3)
       rot = c["body_rotm"][b].expand(n, 3, 3)
     else:
@@ -397,10 +409,10 @@ def _spatial_inertias(mdl: DeviceModel, xpos, xmat) -> Tensor:
   return torch.cat([top, bot], -2)
 
 
-def _kin_ctx(mdl: DeviceModel, q: Tensor):
-  """One forward-kinematics pass shared by all dynamics terms: (xpos, xmat,
-  S ``[N, nv, 6]``, Is ``[N, nbody - 1, 6, 6]``)."""
-  xpos, xmat, anchors, axes = fk(mdl, q)
+def _kin_ctx(mdl: DeviceModel, q: Tensor, mut=None):
+  """One forward-kinematics pass shared by all dynamics terms (``mut`` as
+  ``fk``'s): (xpos, xmat, S ``[N, nv, 6]``, Is ``[N, nbody - 1, 6, 6]``)."""
+  xpos, xmat, anchors, axes = fk(mdl, q, mut)
   S = _motion_subspaces(mdl, anchors, axes)
   Is = _spatial_inertias(mdl, xpos, xmat)
   return xpos, xmat, S, Is
@@ -695,11 +707,12 @@ def fluid_force(mdl: DeviceModel, q: Tensor, v: Tensor, ctx=None) -> Tensor:
   return per_body.sum(1)
 
 
-def _qacc_smooth_parts(mdl: DeviceModel, q: Tensor, v: Tensor, tau: Tensor):
-  """(M, qfrc_smooth, ctx) from one kinematics pass: qfrc_smooth = tau +
-  springs - damping v - bias (+ fluid)."""
+def _qacc_smooth_parts(mdl: DeviceModel, q: Tensor, v: Tensor, tau: Tensor,
+                       mut=None):
+  """(M, qfrc_smooth, ctx) from one kinematics pass (``mut`` as ``fk``'s):
+  qfrc_smooth = tau + springs - damping v - bias (+ fluid)."""
   c = _consts(mdl, q)
-  ctx = _kin_ctx(mdl, q)
+  ctx = _kin_ctx(mdl, q, mut)
   M = mass_matrix(mdl, q, ctx)
   bias = bias_forces(mdl, q, v, ctx)
   qfrc_smooth = tau
@@ -765,14 +778,16 @@ def _limit_minv_cols(mdl: DeviceModel, M: Tensor) -> Dict[int, Tensor]:
 
 
 def _qacc_full(mdl: DeviceModel, q: Tensor, v: Tensor, tau: Tensor,
-               warm: Optional[Tensor] = None, want_fext: bool = False):
+               warm: Optional[Tensor] = None, want_fext: bool = False,
+               mut=None):
   """Forward dynamics with limit and contact constraints (mj_forward).
 
   ``want_fext`` (contact models) also returns the per-body external
   contact wrench about the world origin (cfrc_ext's precursor) and the
-  row forces: (qacc, fext ``[N, nbody, 6]``, f ``[N, m]``).
+  row forces: (qacc, fext ``[N, nbody, 6]``, f ``[N, m]``). ``mut`` as
+  ``fk``'s.
   """
-  M, qfrc_smooth, ctx = _qacc_smooth_parts(mdl, q, v, tau)
+  M, qfrc_smooth, ctx = _qacc_smooth_parts(mdl, q, v, tau, mut)
   if _has_contact_points(mdl):
     qacc, _, f = _contact_solve(mdl, q, v, M, qfrc_smooth, ctx, warm)
     if want_fext:
@@ -860,12 +875,14 @@ def _guard(mdl: DeviceModel, q: Tensor, v: Tensor, last=None, aux=None):
 
 def step_smooth(mdl: DeviceModel, q: Tensor, v: Tensor, ctrl: Optional[Tensor],
                 nstep: int = 1, want_aux: bool = False,
-                tau: Optional[Tensor] = None):
+                tau: Optional[Tensor] = None, mut=None):
   """mj_step x nstep, per the model's integrator, each step followed by the
   divergence guard. Returns (q, v), and with ``want_aux`` (contact models)
   (q, v, (q_fwd, v_fwd, fext, f)). ``tau`` (``[N, nv]``), where given,
   is the generalised actuator force in place of ``actuator_force(ctrl)``:
-  dmc point_mass mixes its controls through fixed tendons itself.
+  dmc point_mass mixes its controls through fixed tendons itself. ``mut``,
+  ``fk``'s per-env body-pose override, holds for every forward
+  evaluation.
 
   - Euler (``mj_Euler``): qacc solves (M + h diag(damping)) qacc =
     tau + spring(q) - damping v - c(q, v) + qfrc_constraint, the
@@ -884,7 +901,6 @@ def step_smooth(mdl: DeviceModel, q: Tensor, v: Tensor, ctrl: Optional[Tensor],
 
   Constants are rounded to ``q``'s dtype as the JAX code's are.
   """
-  check_supported(mdl)
   contacts = _has_contact_points(mdl)
   if want_aux and not contacts:
     raise ValueError("want_aux requires a contact model")
@@ -896,22 +912,23 @@ def step_smooth(mdl: DeviceModel, q: Tensor, v: Tensor, ctrl: Optional[Tensor],
   def one_step(q, v, warm, aux_here):
     aux = None
     if mdl.integrator == 1:  # RK4
-      a1 = _qacc_full(mdl, q, v, tau, warm)
+      a1 = _qacc_full(mdl, q, v, tau, warm, mut=mut)
       q2, v2 = integrate_pos(mdl, q, v, half), v + half * a1
-      a2 = _qacc_full(mdl, q2, v2, tau, a1 if contacts else None)
+      a2 = _qacc_full(mdl, q2, v2, tau, a1 if contacts else None, mut=mut)
       q3, v3 = integrate_pos(mdl, q, v2, half), v + half * a2
-      a3 = _qacc_full(mdl, q3, v3, tau, a2 if contacts else None)
+      a3 = _qacc_full(mdl, q3, v3, tau, a2 if contacts else None, mut=mut)
       q4, v4 = integrate_pos(mdl, q, v3, float(h)), v + float(h) * a3
       if aux_here:
-        a4, fext, f4 = _qacc_full(mdl, q4, v4, tau, a3, want_fext=True)
+        a4, fext, f4 = _qacc_full(mdl, q4, v4, tau, a3, want_fext=True,
+                                  mut=mut)
         aux = (q4, v4, fext, f4)
       else:
-        a4 = _qacc_full(mdl, q4, v4, tau, a3 if contacts else None)
+        a4 = _qacc_full(mdl, q4, v4, tau, a3 if contacts else None, mut=mut)
       q = integrate_pos(mdl, q, (v + 2 * v2 + 2 * v3 + v4) / 6.0, float(h))
       v = v + h6 * (a1 + 2 * a2 + 2 * a3 + a4)
       last = a4 if contacts else None
     else:  # Euler with implicit damping
-      M, qfrc, ctx = _qacc_smooth_parts(mdl, q, v, tau)
+      M, qfrc, ctx = _qacc_smooth_parts(mdl, q, v, tau, mut)
       flo = _dof_floor(mdl)
       last = None
       if contacts:

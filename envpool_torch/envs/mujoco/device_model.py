@@ -15,12 +15,12 @@ package's extraction::
 The model carries the contact tables of
 ``envpool_tpu/envs/mujoco/device_collision.py`` (``ContactData``, extracted
 by ``extract_contacts``, the port's copy of it), or None where the JAX
-package's is None. The port's engine has the plane-capsule/sphere,
-capsule-capsule, plane-box and sphere/capsule-box narrow phase, joint-limit
-and limited-tendon rows and free joints; ``check_supported`` refuses the
-cylinder families, which come with a later slice. Every gym device model is
-written (Pusher's too, so its slice needs no regeneration);
-``models/refused.json`` lists those the loader refuses, with the reason.
+package's is None. The port's engine has every family the extractor
+writes: the plane-capsule/sphere, capsule-capsule, plane-cylinder,
+sphere/capsule-cylinder, plane-box and sphere/capsule-box narrow phase,
+joint-limit and limited-tendon rows and free joints. Every gym device model
+is written; ``models/refused.json`` lists those the loader refuses, with
+the reason (none: ``check_supported`` refuses nothing).
 
 The dm_control replicas (``dmc/assets.py``, the port's copy of the JAX
 package's) are written the same way under ``models/dmc/``, one file per
@@ -746,13 +746,11 @@ def _extract_model(m) -> DeviceModel:
 
 
 def check_supported(mdl: DeviceModel) -> None:
-  """Refuse what the port's engine does not have yet: the cylinder narrow
-  phase."""
-  cd = mdl.contacts
-  if cd is None:
-    return
-  if cd.pcy_plane or cd.cyc_cap:
-    raise NotImplementedError("cylinder contacts: not yet ported")
+  """Refuse what the port's engine does not have. It has every contact
+  family ``extract_contacts`` writes, as the JAX engine does (the extractor
+  refuses the rest: mesh geoms, elliptic cones, condim 4 and 6, explicit
+  pairs), so no model is refused and ``refused.json`` is empty."""
+  del mdl
 
 
 # ------------------------------------------------------------ data files

@@ -2,17 +2,18 @@
 
 Counterpart of ``envpool_tpu/envs/mujoco/device_tasks.py``: the four
 contact-free tasks ``ReacherJax-v4``, ``InvertedPendulumJax-v4``,
-``InvertedDoublePendulumJax-v4`` and ``SwimmerJax-v4``, and the contact
+``InvertedDoublePendulumJax-v4`` and ``SwimmerJax-v4``, the contact
 locomotion tasks ``HalfCheetahJax-v4``, ``HopperJax-v4``,
 ``Walker2dJax-v4``, ``AntJax-v4`` (free quaternion root), ``HumanoidJax-v4``
 and ``HumanoidStandupJax-v4`` (23 dofs, all-pairs collision, the 376-dim
-com-frame observation), which run MuJoCo's contact pipeline
-(``device_collision.py``). Same names, models, ``frame_skip``, configs,
-specs, state keys (``{"q", "v"}``, Humanoid's with ``"mc"``), key use,
-observations, rewards, info fields and termination as the JAX package,
-which follows the v4 generation of ``envpool/mujoco/gym/*.h``; written
-over ``[N, ...]`` tensors on the engine of ``device_engine.py``, with the
-models loaded from the committed data (``device_model.load_model``).
+com-frame observation), and ``PusherJax-v4`` (cylinder contacts), which
+run MuJoCo's contact pipeline (``device_collision.py``). Same names,
+models, ``frame_skip``, configs, specs, state keys (``{"q", "v"}``,
+Humanoid's with ``"mc"``), key use, observations, rewards, info fields
+and termination as the JAX package, which follows the v4 generation of
+``envpool/mujoco/gym/*.h``; written over ``[N, ...]`` tensors on the
+engine of ``device_engine.py``, with the models loaded from the committed
+data (``device_model.load_model``).
 
 Known deviations from the host/gym implementation (documented contract):
 - RNG streams are jax.random, not MT19937 — reset noise is identically
@@ -23,8 +24,6 @@ Known deviations from the host/gym implementation (documented contract):
   the post-step state; gym reports the value MuJoCo cached from the last
   substep's pre-integration forward pass. Both are exactly zero whenever
   the cart's rail limit is inactive, i.e. in the entire healthy regime.
-
-Pusher (cylinder contacts) comes with a later slice.
 """
 
 from __future__ import annotations
@@ -833,4 +832,122 @@ class HumanoidStandupJaxEnv(HumanoidJaxEnv):
     return {"q": q1, "v": v1, "mc": mc}, obs, reward, torch.zeros_like(reward, dtype=torch.bool), {
       "reward_linup": reward_linup, "reward_quadctrl": -ctrl_cost,
       "reward_impact": -impact, "reward_alive": survive,
+    }
+
+
+def _hypot32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+  """float32 ``jnp.hypot`` as XLA-CPU computes it: hi sqrt(1 + (lo/hi)^2)
+  with the square and the add contracted into one multiply-add, and a
+  correctly rounded square root (torch's float32 CPU ``sqrt`` is off by an
+  ulp on ~0.6% of the inputs, so it is taken in float64 and rounded)."""
+  a, b = torch.abs(x), torch.abs(y)
+  hi, lo = torch.maximum(a, b), torch.minimum(a, b)
+  zero = hi == 0
+  r = lo / torch.where(zero, 1.0, hi)
+  root = torch.sqrt(prng.fma32(r, r, 1.0).double()).float()
+  return torch.where(zero, hi, hi * root)
+
+
+class PusherJaxEnv(DeviceMujocoEnv):
+  """Pusher-v4 on-device (``envpool/mujoco/gym/pusher.h`` semantics): the
+  engine's cylinder contacts (plane-cylinder and capsule-cylinder, all
+  condim 1). The rewards are the pre-step near and dist costs from the
+  body frame origins (``data_->xpos``), weights 0.5, 1.0 and 0.1.
+
+  The reset draws the object's place as gym does, uniform on the box and
+  redrawn until it is more than ``cylinder_dist_min`` from the goal: per
+  lane, on its own key chain, as the JAX package's ``lax.while_loop``
+  under ``vmap`` does. Each round of the loop reads one flag back to the
+  host (are all lanes placed?), in the reset only.
+  """
+
+  name = "PusherJax"
+  xml_file = "pusher.xml"
+  frame_skip = 5
+
+  @staticmethod
+  def default_config() -> Dict[str, Any]:
+    return {
+      "reward_threshold": 0.0,
+      "ctrl_cost_weight": 0.1,
+      "dist_cost_weight": 1.0,
+      "near_cost_weight": 0.5,
+      "reset_qvel_scale": 0.005,
+      "cylinder_x_min": -0.3, "cylinder_x_max": 0.0,
+      "cylinder_y_min": -0.2, "cylinder_y_max": 0.2,
+      "cylinder_dist_min": 0.17,
+    }
+
+  @staticmethod
+  def state_spec(cfg: Any) -> Dict[str, ArraySpec]:
+    return {
+      "obs": ArraySpec(np.float32, (23,), -_INF, _INF),
+      "info:reward_dist": ArraySpec(np.float32, (-1,)),
+      "info:reward_ctrl": ArraySpec(np.float32, (-1,)),
+    }
+
+  @staticmethod
+  def action_spec(cfg: Any) -> Dict[str, ArraySpec]:
+    return {"action": ArraySpec(np.float32, (-1, 7), -2.0, 2.0)}
+
+  @classmethod
+  def _bodies(cls, q):
+    """The world positions of tips_arm, object and goal ``[N, 3]``, from one
+    kinematics pass."""
+    mdl = cls.mdl()
+    xpos = de.fk(mdl, q)[0]
+    return [xpos[mdl.body_name2id[b]] for b in ("tips_arm", "object", "goal")]
+
+  @classmethod
+  def _obs(cls, state):
+    q, v = state["q"], state["v"]
+    return torch.cat([q[:, :7], v[:, :7]] + cls._bodies(q), 1)
+
+  @classmethod
+  def reset(cls, cfg: Any, state: Any, keys: torch.Tensor):
+    del state
+    mdl = cls.mdl()
+    kc, kv = prng.split(keys).unbind(-2)
+    xlo, xhi = float(cfg.cylinder_x_min), float(cfg.cylinder_x_max)
+    ylo, yhi = float(cfg.cylinder_y_min), float(cfg.cylinder_y_max)
+    dmin = float(np.float32(cfg.cylinder_dist_min))
+    x = torch.zeros(keys.shape[0], dtype=torch.float32, device=keys.device)
+    y = torch.zeros_like(x)
+    placed = torch.zeros_like(x, dtype=torch.bool)
+    while True:
+      kc_next, k1, k2 = prng.split(kc, 3).unbind(-2)
+      xd = prng.uniform(k1, (), xlo, xhi)
+      yd = prng.uniform(k2, (), ylo, yhi)
+      draw = ~placed
+      x = torch.where(draw, xd, x)
+      y = torch.where(draw, yd, y)
+      kc = torch.where(draw[:, None], kc_next, kc)
+      placed = placed | (_hypot32(xd, yd) > dmin)
+      if bool(placed.all()):
+        break
+    q = _qpos0(mdl, keys).expand(keys.shape[0], mdl.nq)
+    zero = torch.zeros_like(q[:, :2])
+    q = torch.cat([q[:, :-4], x[:, None], y[:, None], zero], 1)
+    s = float(cfg.reset_qvel_scale)
+    v = prng.uniform(kv, (mdl.nv,), -s, s)
+    v = torch.cat([v[:, :-4], torch.zeros_like(v[:, -4:])], 1)
+    state = {"q": q, "v": v}
+    zero = torch.zeros_like(x)
+    return state, cls._obs(state), {"reward_dist": zero, "reward_ctrl": zero}
+
+  @classmethod
+  def step(cls, cfg: Any, state: Any, action: Any, keys: torch.Tensor):
+    del keys
+    action = action.to(torch.float32)
+    tips, obj, goal = cls._bodies(state["q"])
+    near_cost = torch.sqrt(((obj - tips) ** 2).sum(-1))
+    dist_cost = torch.sqrt(((obj - goal) ** 2).sum(-1))
+    q1, v1 = cls._physics(state, action)
+    state = {"q": q1, "v": v1}
+    ctrl_cost = (action * action).sum(-1)
+    reward = -(float(cfg.dist_cost_weight) * dist_cost
+               + float(cfg.ctrl_cost_weight) * ctrl_cost
+               + float(cfg.near_cost_weight) * near_cost)
+    return state, cls._obs(state), reward, torch.zeros_like(reward, dtype=torch.bool), {
+      "reward_dist": -dist_cost, "reward_ctrl": -ctrl_cost
     }

@@ -1,6 +1,6 @@
 """dm_control-suite family of the port: the on-device ``...Jax-v1`` tier
-(``device_domains.py``) for 13 of its 15 domains. Manipulator,
-humanoid_CMU and the host tier come in later slices."""
+(``device_domains.py``), all 15 of its domains. The host tier comes in a
+later slice."""
 
 from envpool_torch.core.envpool_api import py_env
 
@@ -12,7 +12,9 @@ from .device_domains import (
   DmcFingerJaxEnv,
   DmcFishJaxEnv,
   DmcHopperJaxEnv,
+  DmcHumanoidCMUJaxEnv,
   DmcHumanoidJaxEnv,
+  DmcManipulatorJaxEnv,
   DmcPendulumJaxEnv,
   DmcPointMassJaxEnv,
   DmcReacherJaxEnv,
@@ -25,7 +27,8 @@ __all__ = []
 for _env_cls in (
   DmcAcrobotJaxEnv, DmcBallInCupJaxEnv, DmcCartpoleJaxEnv,
   DmcCheetahJaxEnv, DmcFingerJaxEnv, DmcFishJaxEnv, DmcHopperJaxEnv,
-  DmcHumanoidJaxEnv, DmcPendulumJaxEnv, DmcPointMassJaxEnv,
+  DmcHumanoidJaxEnv, DmcHumanoidCMUJaxEnv, DmcManipulatorJaxEnv,
+  DmcPendulumJaxEnv, DmcPointMassJaxEnv,
   DmcReacherJaxEnv, DmcSwimmerJaxEnv, DmcWalkerJaxEnv,
 ):
   _spec, _dm, _gym, _gymnasium = py_env(_env_cls)

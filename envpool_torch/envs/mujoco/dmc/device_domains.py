@@ -1,12 +1,11 @@
 """On-device dm_control-suite domains (``...Jax-v1``), the port's batched
 versions.
 
-Counterpart of ``envpool_tpu/envs/mujoco/dmc/device_domains.py`` for 13 of
-its 15 domains (manipulator and humanoid_CMU come with a later slice):
-the same class names, ``default_config``, specs, state keys, key use,
-observations, rewards and ``discount`` info, written over ``[N, ...]``
-tensors on the port's engine (``device_engine.py``, ``device_collision.py``)
-with the models loaded from the committed data
+Counterpart of ``envpool_tpu/envs/mujoco/dmc/device_domains.py`` for all
+15 of its domains: the same class names, ``default_config``, specs, state
+keys, key use, observations, rewards and ``discount`` info, written over
+``[N, ...]`` tensors on the port's engine (``device_engine.py``,
+``device_collision.py``) with the models loaded from the committed data
 (``device_model.load_dmc_model``, extracted from the replicas in
 ``assets.py``). The task semantics are those of
 ``envpool/mujoco/dmc/<domain>.h``:
@@ -23,10 +22,10 @@ with the models loaded from the committed data
   ``core/prng.py``): identically *distributed* to the host tier's MT19937,
   not bit-identical; point_mass "hard"'s rejection loop for actuator-gain
   directions is replaced by an exact draw on the acceptance region
-  (loop-free); the collision-free redraws of finger, ball_in_cup and
-  humanoid are a static set of ``_INIT_DRAWS`` candidates (the first
-  collision-free one, else the least penetrating), evaluated in one
-  batched pass.
+  (loop-free); the collision-free redraws of finger, ball_in_cup,
+  manipulator and the humanoids are a static set of ``_INIT_DRAWS``
+  candidates (the first collision-free one, else the least penetrating),
+  evaluated in one batched pass.
 
 The JAX package writes one env and ``vmap``s it, calling forward
 kinematics once per readout; here a step computes it once for its
@@ -112,25 +111,33 @@ def randomize_limited_and_rotational_joints(
   return q
 
 
-def _pick_collision_free(mdl: DeviceModel, qc: Tensor, n: int) -> Tensor:
-  """The first collision-free init candidate of each lane.
+def _pick_collision_free(mdl: DeviceModel, qc: Tensor, n: int,
+                         mut=None) -> Tensor:
+  """The index ``[n]`` of each lane's first collision-free init candidate.
 
-  ``qc`` holds ``k`` candidates per lane, ``[n * k, nq]`` lane-major. The
-  host reference rejection-samples unboundedly (e.g.
+  ``qc`` holds ``k`` candidates per lane, ``[n * k, nq]`` lane-major
+  (``mut``, where given, their body-pose overrides, ``fk``'s). The host
+  reference rejection-samples unboundedly (e.g.
   ``envpool/mujoco/dmc/humanoid.h:98-110``); the device tier draws a static
   ``k`` candidates and takes the first with every gated contact candidate
   separated (ncon == 0). When all ``k`` collide it falls back to the LEAST
   penetrating candidate (the max over candidates of the min gated contact
   distance), not to candidate 0. All candidates go through one forward
   kinematics and narrow-phase pass; both choices are an ``argmax``."""
-  xpos, xmat, _, _ = de.fk(mdl, qc)
+  xpos, xmat, _, _ = de.fk(mdl, qc, mut)
   _, dist, _, _, _, gate = dc.contact_points(mdl, xpos, xmat)
   oks = ((dist >= 0) | ~gate).all(-1).view(n, -1)
   mindist = torch.where(gate, dist, _INF).amin(-1).view(n, -1)
-  pick = torch.where(oks.any(1), torch.argmax(oks.to(torch.uint8), 1),
+  return torch.where(oks.any(1), torch.argmax(oks.to(torch.uint8), 1),
                      torch.argmax(mindist, 1))
-  cands = qc.view(n, -1, qc.shape[-1])
-  return torch.take_along_dim(cands, pick[:, None, None], 1)[:, 0]
+
+
+def _take(cands: Tensor, pick: Tensor) -> Tensor:
+  """Each lane's picked candidate of ``cands`` ``[n * k, ...]`` (lane-major)
+  -> ``[n, ...]``."""
+  c = cands.view(pick.shape[0], -1, *cands.shape[1:])
+  idx = pick.view(-1, 1, *([1] * (cands.ndim - 1)))
+  return torch.take_along_dim(c, idx, 1)[:, 0]
 
 
 def _site(mdl: DeviceModel, xpos, xmat, name: str) -> Tensor:
@@ -824,7 +831,7 @@ def _touch_table(key: de._ByIdentity, sites: tuple, device: torch.device):
 
 
 def site_touch_forces(mdl: DeviceModel, q: Tensor, f_rows: Tensor,
-                      site_names: Sequence[str]) -> Tensor:
+                      site_names: Sequence[str], mut=None) -> Tensor:
   """mj touch sensors (mjSENS_TOUCH) ``[N, k]``: per site, the sum of
   contact normal forces for contacts on the site's body whose RAY, cast
   from the contact point along the contact normal oriented AWAY from that
@@ -833,11 +840,12 @@ def site_touch_forces(mdl: DeviceModel, q: Tensor, f_rows: Tensor,
   orientation against mujoco 3.10 (4000 random finger states). ``q`` and
   ``f_rows`` are the last forward evaluation's state and row forces from
   ``step_smooth(want_aux=True)``, exactly the state mjData's sensordata
-  was computed at. All sites in one pass."""
+  was computed at; ``mut`` the body-pose overrides of that step. All sites
+  in one pass."""
   cd = mdl.contacts
   sid, bodies, radius, on_b1, on_body = _touch_table(
     de._ByIdentity(mdl), tuple(site_names), q.device)
-  xpos, xmat, _, _ = de.fk(mdl, q)
+  xpos, xmat, _, _ = de.fk(mdl, q, mut)
   pos, _, n, _, _, _ = dc.contact_points(mdl, xpos, xmat)
   normal = _point_normal_forces(cd, f_rows, dc._cconsts(mdl, q))
   c = de.consts_on(mdl, q.dtype, q.device)
@@ -955,7 +963,7 @@ class DmcFingerJaxEnv(DmcDeviceEnv):
     ks = prng.split(kj, cls._INIT_DRAWS).flatten(0, 1)
     qc = randomize_limited_and_rotational_joints(
       mdl, q0.repeat_interleave(cls._INIT_DRAWS, 0), ks)
-    q = _pick_collision_free(mdl, qc, n)
+    q = _take(qc, _pick_collision_free(mdl, qc, n))
     state = {"q": q, "v": v, "touch": torch.zeros_like(q[:, :2])}
     if cls._is_spin(cfg):
       # spin never moves the target site: the world position of the
@@ -1287,7 +1295,7 @@ class DmcBallInCupJaxEnv(DmcDeviceEnv):
     qc = q0.repeat_interleave(cls._INIT_DRAWS, 0)
     qc = _set(qc, 2, prng.uniform(kx, (), -0.2, 0.2))
     qc = _set(qc, 3, prng.uniform(kz, (), 0.2, 0.5))
-    state = {"q": _pick_collision_free(mdl, qc, n), "v": v}
+    state = {"q": _take(qc, _pick_collision_free(mdl, qc, n)), "v": v}
     return state, cls._obs(cfg, state), cls._discount_info(v)
 
   @classmethod
@@ -1296,6 +1304,204 @@ class DmcBallInCupJaxEnv(DmcDeviceEnv):
     state = cls._physics(cfg, state, action.to(torch.float32))
     reward = cls._in_target(cfg, state).to(torch.float32)
     return cls._done(cfg, state, cls._obs(cfg, state), reward)
+
+
+class DmcManipulatorJaxEnv(DmcDeviceEnv):
+  """dmc manipulator bring_ball/bring_peg/insert_ball/insert_peg on-device
+  (``envpool/mujoco/dmc/manipulator.h``): a planar arm with a two-finger
+  gripper (a fixed-tendon grasp actuator), props with capsule and box
+  contacts against the receptacles, and per-episode receptacle and target
+  poses carried in the state (``target``: x, z, angle) and applied through
+  the engine's body-pose override (``fk``'s ``mut``), where the reference
+  sets mjModel's body_pos and body_quat (manipulator.h:186-210).
+
+  The reset draws ``_INIT_DRAWS`` candidates per lane (arm, target and
+  object) and keeps the first collision-free one, all candidates in one
+  kinematics and narrow-phase pass."""
+
+  name = "DmcManipulatorJax"
+  model_name = staticmethod(lambda task: f"manipulator_{task}")
+  _CLOSE = 0.01
+  _P_IN_TARGET = 0.1
+  _P_IN_HAND = 0.1
+  _TOUCH_SITES = (
+    "palm_site", "finger_site", "thumb_site", "fingertip_site",
+    "thumbtip_site",
+  )
+  _INIT_DRAWS = 8
+  _TASKS = ("bring_ball", "bring_peg", "insert_ball", "insert_peg")
+  # qpos addresses: the replica declares the 8 arm joints, then the
+  # object's x, z and angle
+  _ARM, _OBJ = slice(0, 8), slice(8, 11)
+
+  @staticmethod
+  def default_config() -> Dict[str, Any]:
+    return {"frame_skip": 10, "task_name": "bring_ball"}
+
+  @staticmethod
+  def _use_peg(cfg) -> bool:
+    return str(cfg.task_name) in ("bring_peg", "insert_peg")
+
+  @staticmethod
+  def _insert(cfg) -> bool:
+    return str(cfg.task_name) in ("insert_ball", "insert_peg")
+
+  @staticmethod
+  def state_spec(cfg: Any) -> Dict[str, ArraySpec]:
+    if str(cfg.task_name) not in DmcManipulatorJaxEnv._TASKS:
+      raise RuntimeError(
+        f"Unknown task_name {cfg.task_name} for dmc manipulator."
+      )
+    return {
+      "obs:arm_pos": ArraySpec(np.float32, (8, 2)),
+      "obs:arm_vel": ArraySpec(np.float32, (8,)),
+      "obs:touch": ArraySpec(np.float32, (5,)),
+      "obs:hand_pos": ArraySpec(np.float32, (4,)),
+      "obs:object_pos": ArraySpec(np.float32, (4,)),
+      "obs:object_vel": ArraySpec(np.float32, (3,)),
+      "obs:target_pos": ArraySpec(np.float32, (4,)),
+    }
+
+  @staticmethod
+  def action_spec(cfg: Any) -> Dict[str, ArraySpec]:
+    return {"action": ArraySpec(np.float32, (-1, 5), -1.0, 1.0)}
+
+  @classmethod
+  def _target_body(cls, cfg) -> str:
+    return "target_peg" if cls._use_peg(cfg) else "target_ball"
+
+  @classmethod
+  def _mut(cls, cfg, target: Tensor):
+    """The body-pose overrides ``{body: (pos [N, 3], rotm [N, 3, 3])}`` of
+    the episode targets ``[N, 3]`` (x, z, angle about y): the target body,
+    and for the insert tasks the receptacle, at (x, body_pos y, z)."""
+    mdl = cls.mdl(cfg)
+    tx, tz, ang = target.unbind(1)
+    c, s = torch.cos(ang), torch.sin(ang)
+    zero, one = torch.zeros_like(c), torch.ones_like(c)
+    rot = torch.stack([torch.stack([c, zero, s], 1),
+                       torch.stack([zero, one, zero], 1),
+                       torch.stack([-s, zero, c], 1)], 1)
+    names = [cls._target_body(cfg)]
+    if cls._insert(cfg):
+      names.append("slot" if cls._use_peg(cfg) else "cup")
+    mut = {}
+    for name in names:
+      b = mdl.body_name2id[name]
+      y = torch.full_like(tx, float(np.float32(mdl.body_pos[b][1])))
+      mut[b] = (torch.stack([tx, y, tz], 1), rot)
+    return mut
+
+  @classmethod
+  def _obs(cls, cfg, state, xpos):
+    """The observation from the state and a kinematics pass under the
+    state's overrides. The model is planar (every rotation about +y), so a
+    body's (qw, qy) is the half-angle pair of its summed joint angles, as
+    manipulator.h's Body2dPose reads xquat (joint quaternions compose
+    without wrapping)."""
+    mdl = cls.mdl(cfg)
+    q, v = state["q"], state["v"]
+    arm_q = q[:, cls._ARM]
+
+    def pose2d(body, phi):
+      b = mdl.body_name2id[body]
+      return torch.stack([xpos[b][:, 0], xpos[b][:, 2], torch.cos(phi / 2),
+                          torch.sin(phi / 2)], 1)
+    hand_phi = q[:, 0] + q[:, 1] + q[:, 2] + q[:, 3]
+    return {
+      "arm_pos": torch.stack([torch.sin(arm_q), torch.cos(arm_q)], 2),
+      "arm_vel": v[:, cls._ARM],
+      "touch": torch.log1p(state["touch"]),
+      "hand_pos": pose2d("hand", hand_phi),
+      "object_pos": pose2d("peg" if cls._use_peg(cfg) else "ball", q[:, 10]),
+      "object_vel": v[:, cls._OBJ],
+      "target_pos": pose2d(cls._target_body(cfg), state["target"][:, 2]),
+    }
+
+  @classmethod
+  def _reward(cls, cfg, xpos, xmat):
+    mdl = cls.mdl(cfg)
+
+    def close(a, b):
+      d = _norm(_site(mdl, xpos, xmat, a) - _site(mdl, xpos, xmat, b))
+      return tolerance(d, 0.0, cls._CLOSE, cls._CLOSE * 2)
+
+    if cls._use_peg(cfg):
+      grasping = (close("peg_grasp", "grasp") + close("peg_pinch", "pinch")) / 2.0
+      bringing = (close("peg", "target_peg")
+                  + close("target_peg_tip", "peg_tip")) / 2.0
+      return torch.maximum(bringing, grasping / 3.0)
+    return close("ball", "target_ball")
+
+  @classmethod
+  def _candidates(cls, cfg: Any, keys: Tensor):
+    """The reset's ``_INIT_DRAWS`` candidates per lane, lane-major: (q
+    ``[n k, nq]``, v, target ``[n k, 3]``). Each candidate takes 10 keys:
+    the arm joints', the target x's, and 7 more (the target's z and angle,
+    the object's init choice, its uniform x, z, angle and x velocity)."""
+    mdl = cls.mdl(cfg)
+    k = cls._INIT_DRAWS
+    q0, v0 = cls._reset_qv(cfg, keys)
+    ks = prng.split(prng.split(keys, k).flatten(0, 1), 10)   # [n k, 10, 2]
+    qc = q0.repeat_interleave(k, 0)
+    for i in range(8):
+      if mdl.jnt_limited[i]:
+        lo, hi = float(mdl.jnt_range[i, 0]), float(mdl.jnt_range[i, 1])
+      else:
+        lo, hi = -math.pi, math.pi
+      qc[:, i] = prng.uniform(ks[:, i], (), lo, hi)
+    qc[:, 4] = qc[:, 6]  # finger := thumb (manipulator.h:178)
+    tx = prng.uniform(ks[:, 8], (), -0.4, 0.4)
+    kz, ka, kc, kx2, kz2, kang, kvx = prng.split(ks[:, 9], 7).unbind(-2)
+    tz = prng.uniform(kz, (), 0.1, 0.4)
+    span = math.pi / 3 if cls._insert(cfg) else math.pi
+    target = torch.stack([tx, tz, prng.uniform(ka, (), -span, span)], 1)
+    # the object: in the target (p = .1), in the hand (p = .1) or uniform
+    choice = prng.uniform(kc, (), 0.0, 1.0)
+    xpos, xmat, _, _ = de.fk(mdl, qc)
+    grasp = _site(mdl, xpos, xmat, "grasp")
+    gdir = xmat[mdl.body_name2id["hand"]]
+    hand_angle = math.pi - torch.atan2(gdir[:, 2, 0], gdir[:, 0, 0])
+    in_tgt = choice <= float(np.float32(cls._P_IN_TARGET))
+    in_hand = ~in_tgt & (choice <= float(np.float32(cls._P_IN_TARGET + cls._P_IN_HAND)))
+
+    def place(at_target, in_hand_value, uniform):
+      return torch.where(in_tgt, at_target, torch.where(in_hand, in_hand_value, uniform))
+    qc[:, 8] = place(tx, grasp[:, 0], prng.uniform(kx2, (), -0.5, 0.5))
+    qc[:, 9] = place(tz, grasp[:, 2], prng.uniform(kz2, (), 0.0, 0.7))
+    qc[:, 10] = place(target[:, 2], hand_angle,
+                      prng.uniform(kang, (), 0.0, 2 * math.pi))
+    vc = v0.repeat_interleave(k, 0)
+    vc[:, 8] = torch.where(in_tgt | in_hand, 0.0, prng.uniform(kvx, (), -5.0, 5.0))
+    return qc, vc, target
+
+  @classmethod
+  def reset(cls, cfg: Any, state: Any, keys: Tensor):
+    del state
+    mdl = cls.mdl(cfg)
+    n = keys.shape[0]
+    qc, vc, target = cls._candidates(cfg, keys)
+    pick = _pick_collision_free(mdl, qc, n, cls._mut(cfg, target))
+    state = {"q": _take(qc, pick), "v": _take(vc, pick),
+             "touch": torch.zeros(n, 5, dtype=torch.float32, device=keys.device),
+             "target": _take(target, pick)}
+    xpos = de.fk(mdl, state["q"], cls._mut(cfg, state["target"]))[0]
+    return state, cls._obs(cfg, state, xpos), cls._discount_info(keys)
+
+  @classmethod
+  def step(cls, cfg: Any, state: Any, action: Any, keys: Tensor):
+    del keys
+    mdl = cls.mdl(cfg)
+    mut = cls._mut(cfg, state["target"])
+    q, v, aux = de.step_smooth(mdl, state["q"], state["v"],
+                               action.to(torch.float32),
+                               nstep=int(cfg.frame_skip), want_aux=True, mut=mut)
+    q_fwd, _, _, f_rows = aux
+    touch = site_touch_forces(mdl, q_fwd, f_rows, cls._TOUCH_SITES, mut=mut)
+    state = {**state, "q": q, "v": v, "touch": touch}
+    xpos, xmat, _, _ = de.fk(mdl, q, mut)
+    return cls._done(cfg, state, cls._obs(cfg, state, xpos),
+                     cls._reward(cfg, xpos, xmat))
 
 
 class _DmcHumanoidRewardMixin:
@@ -1328,6 +1534,10 @@ class DmcHumanoidJaxEnv(_DmcHumanoidRewardMixin, DmcDeviceEnv):
 
   name = "DmcHumanoidJax"
   model_name = "humanoid"
+  # the body whose frame the observation and reward read, and the entry of
+  # its rotation that the upright term reads (humanoid.h:170: zz)
+  _ROOT = "torso"
+  _UPRIGHT = (2, 2)
   _STAND_HEIGHT = 1.4
   _SPEEDS = {
     "stand": 0.0, "walk": 1.0, "run": 10.0, "run_pure_state": 10.0,
@@ -1376,7 +1586,7 @@ class DmcHumanoidJaxEnv(_DmcHumanoidRewardMixin, DmcDeviceEnv):
         "extremities": z(n, 12), "torso_vertical": z(n, 3),
         "com_velocity": z(n, 3), "position": q, "velocity": v,
       }
-    torso = mdl.body_name2id["torso"]
+    torso = mdl.body_name2id[cls._ROOT]
     frame = xmat[torso]
     ext = torch.stack([xpos[mdl.body_name2id[b]] for b in cls._EXT_BODIES], 1)
     return {
@@ -1391,10 +1601,10 @@ class DmcHumanoidJaxEnv(_DmcHumanoidRewardMixin, DmcDeviceEnv):
 
   @classmethod
   def _readouts(cls, cfg, state):
-    """(xpos, xmat, the torso subtree's COM velocity)."""
+    """(xpos, xmat, the root subtree's COM velocity)."""
     mdl = cls.mdl(cfg)
     kin = de.fk(mdl, state["q"])
-    return kin[0], kin[1], de.subtree_linvel_at(mdl, kin, state["v"], "torso")
+    return kin[0], kin[1], de.subtree_linvel_at(mdl, kin, state["v"], cls._ROOT)
 
   @classmethod
   def reset(cls, cfg: Any, state: Any, keys: Tensor):
@@ -1405,7 +1615,7 @@ class DmcHumanoidJaxEnv(_DmcHumanoidRewardMixin, DmcDeviceEnv):
     ks = prng.split(keys, cls._INIT_DRAWS).flatten(0, 1)
     qc = randomize_limited_and_rotational_joints(
       mdl, q0.repeat_interleave(cls._INIT_DRAWS, 0), ks)
-    state = {"q": _pick_collision_free(mdl, qc, n), "v": v}
+    state = {"q": _take(qc, _pick_collision_free(mdl, qc, n)), "v": v}
     return state, cls._obs(cfg, state, *cls._readouts(cfg, state)), \
       cls._discount_info(v)
 
@@ -1421,7 +1631,64 @@ class DmcHumanoidJaxEnv(_DmcHumanoidRewardMixin, DmcDeviceEnv):
     reward = cls._reward(
       cfg, torch.clamp(ctrl, -1.0, 1.0),
       xpos[mdl.body_name2id["head"]][:, 2],
-      xmat[mdl.body_name2id["torso"]][:, 2, 2], comv,
+      xmat[mdl.body_name2id[cls._ROOT]][:, cls._UPRIGHT[0], cls._UPRIGHT[1]],
+      comv,
     )
     return cls._done(cfg, state, cls._obs(cfg, state, xpos, xmat, comv),
                      reward)
+
+
+class DmcHumanoidCMUJaxEnv(DmcHumanoidJaxEnv):
+  """dmc humanoid_CMU stand/run on-device
+  (``envpool/mujoco/dmc/humanoid_CMU.h``): the 56-actuated-dof CMU skeleton
+  replica (nv 62, 30 bodies, 426 contact candidates), the widest device
+  model. The humanoid's reset (16 candidates) and reward recipe, on the
+  thorax and head, the upright term the thorax's zy entry
+  (humanoid_CMU.h:199-202)."""
+
+  name = "DmcHumanoidCMUJax"
+  model_name = "humanoid_cmu"
+  _ROOT = "thorax"
+  _UPRIGHT = (2, 1)
+  _STAND_HEIGHT = 1.4
+  _SPEEDS = {"stand": 0.0, "run": 10.0}
+  _EXT_BODIES = ("lhand", "lfoot", "rhand", "rfoot")
+
+  @staticmethod
+  def default_config() -> Dict[str, Any]:
+    return {"frame_skip": 10, "task_name": "stand"}
+
+  @staticmethod
+  def state_spec(cfg: Any) -> Dict[str, ArraySpec]:
+    if str(cfg.task_name) not in DmcHumanoidCMUJaxEnv._SPEEDS:
+      raise RuntimeError(
+        f"Unknown task_name {cfg.task_name} for dmc humanoid_CMU."
+      )
+    return {
+      "obs:joint_angles": ArraySpec(np.float32, (56,)),
+      "obs:head_height": ArraySpec(np.float32, ()),
+      "obs:extremities": ArraySpec(np.float32, (12,)),
+      "obs:torso_vertical": ArraySpec(np.float32, (3,)),
+      "obs:com_velocity": ArraySpec(np.float32, (3,)),
+      "obs:velocity": ArraySpec(np.float32, (62,)),
+    }
+
+  @staticmethod
+  def action_spec(cfg: Any) -> Dict[str, ArraySpec]:
+    return {"action": ArraySpec(np.float32, (-1, 56), -1.0, 1.0)}
+
+  @classmethod
+  def _obs(cls, cfg, state, xpos, xmat, comv):
+    mdl = cls.mdl(cfg)
+    q, v = state["q"], state["v"]
+    root = mdl.body_name2id[cls._ROOT]
+    frame = xmat[root]
+    ext = torch.stack([xpos[mdl.body_name2id[b]] for b in cls._EXT_BODIES], 1)
+    return {
+      "joint_angles": q[:, 7:],
+      "head_height": xpos[mdl.body_name2id["head"]][:, 2],
+      "extremities": de._vm(ext - xpos[root][:, None], frame[:, None]).flatten(1),
+      "torso_vertical": frame[:, 2],
+      "com_velocity": comv,
+      "velocity": v,
+    }

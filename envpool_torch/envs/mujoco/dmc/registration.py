@@ -1,8 +1,7 @@
 """dm_control task registration of the port: the on-device ``-Jax-v1`` ids
 of ``envpool_tpu/envs/mujoco/registration.py:115-166``, in its order and
-with the same class names, task names and caps, leaving out the
-``ManipulatorJax…`` and ``HumanoidCMUJax…`` ids (a later slice). The host
-tier's ``-v1`` ids wait for their slice too."""
+with the same class names, task names and caps. The host tier's ``-v1``
+ids wait for their slice."""
 
 from envpool_torch.registration import register
 
@@ -13,6 +12,12 @@ for _domain, _task, _max_episode_steps in [
   ("humanoid", "walk", 1000),
   ("humanoid", "run", 1000),
   ("humanoid", "run_pure_state", 1000),
+  ("humanoid_CMU", "stand", 1000),
+  ("humanoid_CMU", "run", 1000),
+  ("manipulator", "bring_ball", 1000),
+  ("manipulator", "bring_peg", 1000),
+  ("manipulator", "insert_ball", 1000),
+  ("manipulator", "insert_peg", 1000),
   ("acrobot", "swingup_sparse", 1000),
   ("cartpole", "balance", 1000),
   ("cartpole", "balance_sparse", 1000),

@@ -1,8 +1,7 @@
 """MuJoCo task registration of the port: the on-device ``-Jax-v4`` ids of
 ``envpool_tpu/envs/mujoco/registration.py:89-111``, in its order and with
-the same class names and caps. ``PusherJax-v4`` (cylinder contacts) and
-the host tier wait for their slices; the dm_control ``-Jax-v1`` ids are
-registered by ``dmc/registration.py``."""
+the same class names and caps. The host tier waits for its slice; the
+dm_control ``-Jax-v1`` ids are registered by ``dmc/registration.py``."""
 
 from envpool_torch.registration import register
 
@@ -17,6 +16,7 @@ for _task, _max_episode_steps in [
   ("Ant", 1000),
   ("Humanoid", 1000),
   ("HumanoidStandup", 1000),
+  ("Pusher", 100),
 ]:
   register(
     task_id=f"{_task}Jax-v4",

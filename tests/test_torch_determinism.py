@@ -1,7 +1,8 @@
 """The port's twin of ``tests/test_determinism.py`` (CPU pools), with the
-Box2D and the on-device MuJoCo ids added (of the contact ids HalfCheetah
-and Hopper; of the dm_control ids CheetahJaxRun-v1 and
-BallInCupJaxCatch-v1, whose observations are dicts, compared key by key):
+Box2D and the on-device MuJoCo ids added (of the contact ids HalfCheetah,
+Hopper and Pusher; of the dm_control ids CheetahJaxRun-v1,
+BallInCupJaxCatch-v1, ManipulatorJaxInsertPeg-v1 and
+HumanoidCMUJaxStand-v1, whose observations are dicts, compared key by key):
 the same seed gives identical trajectories, another seed a different one.
 Mirrors ``envpool/box2d/box2d_deterministic_test.py:28-44``.
 """
@@ -25,6 +26,8 @@ TASKS = [
   ("InvertedDoublePendulumJax-v4", 20), ("SwimmerJax-v4", 20),
   ("HalfCheetahJax-v4", 10), ("HopperJax-v4", 10),
   ("CheetahJaxRun-v1", 10), ("BallInCupJaxCatch-v1", 10),
+  ("PusherJax-v4", 10), ("ManipulatorJaxInsertPeg-v1", 3),
+  ("HumanoidCMUJaxStand-v1", 2),
 ]
 
 

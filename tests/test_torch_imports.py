@@ -2,7 +2,8 @@
 without optree, gymnasium, dm_env, Box2D and mujoco), lists its ids in the
 JAX package's order, every family steps and one PPO iteration runs so, no
 file of it imports jax, flax, optax, Box2D or envpool_tpu, and mujoco is
-imported only inside the model extractor's functions."""
+imported only inside the model extractor's functions. Its on-device ids
+(those with ``Jax`` in the name) are the JAX package's, in its order."""
 
 import ast
 import os
@@ -33,9 +34,13 @@ assert envpool_torch.list_all_envs() == [
   "CarRacing-v2", "PongJaxDemo-v5", "ReacherJax-v4", "InvertedPendulumJax-v4",
   "InvertedDoublePendulumJax-v4", "SwimmerJax-v4", "HalfCheetahJax-v4",
   "HopperJax-v4", "Walker2dJax-v4", "AntJax-v4", "HumanoidJax-v4",
-  "HumanoidStandupJax-v4", "AcrobotJaxSwingup-v1", "BallInCupJaxCatch-v1",
-  "HumanoidJaxStand-v1", "HumanoidJaxWalk-v1", "HumanoidJaxRun-v1",
-  "HumanoidJaxRunPureState-v1", "AcrobotJaxSwingupSparse-v1",
+  "HumanoidStandupJax-v4", "PusherJax-v4", "AcrobotJaxSwingup-v1",
+  "BallInCupJaxCatch-v1", "HumanoidJaxStand-v1", "HumanoidJaxWalk-v1",
+  "HumanoidJaxRun-v1", "HumanoidJaxRunPureState-v1",
+  "HumanoidCMUJaxStand-v1", "HumanoidCMUJaxRun-v1",
+  "ManipulatorJaxBringBall-v1", "ManipulatorJaxBringPeg-v1",
+  "ManipulatorJaxInsertBall-v1", "ManipulatorJaxInsertPeg-v1",
+  "AcrobotJaxSwingupSparse-v1",
   "CartpoleJaxBalance-v1", "CartpoleJaxBalanceSparse-v1",
   "CartpoleJaxSwingup-v1", "CartpoleJaxSwingupSparse-v1",
   "CartpoleJaxTwoPoles-v1", "CartpoleJaxThreePoles-v1", "CheetahJaxRun-v1",
@@ -80,6 +85,7 @@ for task_id, kw, obs_shape, action in (
   ("AntJax-v4", {}, (2, 27), np.zeros((2, 8), np.float32)),
   ("HumanoidJax-v4", {}, (2, 376), np.zeros((2, 17), np.float32)),
   ("HumanoidStandupJax-v4", {}, (2, 376), np.zeros((2, 17), np.float32)),
+  ("PusherJax-v4", {}, (2, 23), np.zeros((2, 7), np.float32)),
 ):
   env = envpool_torch.make_gymnasium(
     task_id, num_envs=2, seed=0, device="cpu", **kw
@@ -98,6 +104,8 @@ for task_id, n_act in (
   ("FishJaxSwim-v1", 5), ("FingerJaxTurnHard-v1", 2), ("HopperJaxHop-v1", 4),
   ("WalkerJaxRun-v1", 6), ("CheetahJaxRun-v1", 6),
   ("BallInCupJaxCatch-v1", 2), ("HumanoidJaxRun-v1", 21),
+  ("ManipulatorJaxBringBall-v1", 5), ("ManipulatorJaxInsertPeg-v1", 5),
+  ("HumanoidCMUJaxRun-v1", 56),
 ):
   env = envpool_torch.make_gymnasium(task_id, num_envs=2, seed=0, device="cpu")
   env.reset()
@@ -176,3 +184,17 @@ def test_mujoco_imported_only_inside_functions():
     assert not set(_module_level_imports(path)) & {"mujoco", "gymnasium"}, path
   extractor = ROOT / "envpool_torch" / "envs" / "mujoco" / "device_model.py"
   assert "mujoco" in set(_imported_roots(extractor))
+
+
+def test_device_ids_are_the_jax_packages():
+  """Every on-device id of the JAX package (the ``...Jax...`` ids: the
+  Pong demo, the gym MuJoCo ``-Jax-v4`` and the dm_control ``-Jax-v1``
+  tiers) is registered in the port, in the same order."""
+  import envpool_torch
+  import envpool_tpu
+
+  def device(ids):
+    return [i for i in ids if "Jax" in i]
+  want = device(envpool_tpu.list_all_envs())
+  assert len(want) == 49
+  assert device(envpool_torch.list_all_envs()) == want

@@ -4,9 +4,8 @@
 exactly for every gym device model, and the committed dm_control variants
 (``models/dmc/``, from the port's copy of the replicas) equal the JAX
 package's ``DmcXxxJaxEnv.mdl(cfg)`` for all 15 domains, the contact tables
-(``ContactData``) included; the loader and the engine refuse the contact
-family the port does not have yet (Pusher's cylinders) and take the box
-and tendon models."""
+(``ContactData``) included; the loader and the engine take every model the
+JAX engine takes (the cylinder, box and tendon models too)."""
 
 import types
 
@@ -29,8 +28,6 @@ torch.set_num_threads(1)
 MODELS = ["reacher.xml", "inverted_pendulum.xml",
           "inverted_double_pendulum.xml", "swimmer.xml"]
 CONTACT_MODELS = [x for x in dm.GYM_DEVICE_XMLS if x not in MODELS]
-# the contact models the port runs; pusher.xml (cylinders) is refused
-PORTED_CONTACT_MODELS = [x for x in CONTACT_MODELS if x != "pusher.xml"]
 
 # dm_control variant -> the JAX class and a task that builds it
 DMC_VARIANTS = {
@@ -97,8 +94,7 @@ def test_model_data_equals_jax_extraction(xml, source):
   want = jax_de.extract_model(dm.gym_asset(xml))
   if source == "committed":
     got = _committed(xml)
-    if xml != "pusher.xml":
-      _assert_models_equal(dm.load_model(xml), want, f"{xml} loaded")
+    _assert_models_equal(dm.load_model(xml), want, f"{xml} loaded")
   else:
     got = dm.extract_model(dm.gym_asset(xml))
   _assert_models_equal(got, want, f"{xml} {source}")
@@ -107,50 +103,40 @@ def test_model_data_equals_jax_extraction(xml, source):
 @pytest.mark.parametrize("xml", CONTACT_MODELS)
 def test_contact_models_recorded_and_refused(xml):
   """The port's extractor builds the contact tables exactly where the JAX
-  package does; the loader takes the six contact models the engine runs
-  and refuses Pusher, whose cylinder pairs it does not have yet."""
+  package does; the loader takes all seven contact models (Pusher's
+  cylinder pairs too: nothing is refused)."""
   want = jax_de.extract_model(dm.gym_asset(xml))
   got = dm.extract_model(dm.gym_asset(xml))
   assert want.contacts is not None and got.contacts is not None
   assert got.contacts.point_b1.shape[0] >= 1
-  if xml == "pusher.xml":
-    assert dm.refused_models() == {xml: "cylinder contacts: not yet ported"}
-    with pytest.raises(NotImplementedError, match="cylinder contacts"):
-      dm.load_model(xml)
-  else:
-    assert xml not in dm.refused_models()
-    dm.check_supported(dm.load_model(xml))
+  assert dm.refused_models() == {}
+  dm.check_supported(dm.load_model(xml))
 
 
 def test_loader_refuses_half_cheetah():
-  """The loader refuses what ``check_supported`` refuses, whatever the
-  file: half_cheetah's committed data given a cylinder pair is refused with
-  the family's reason, and loads without it; given a box pair or a limited
-  tendon row (families the engine has since the dm_control slice) it is
-  accepted."""
+  """``check_supported`` refuses no family the JAX engine has:
+  half_cheetah's committed data given a cylinder pair (plane-cylinder,
+  capsule-cylinder), a box pair or a limited tendon row is accepted."""
   cheetah = _committed("half_cheetah.xml")
   dm.check_supported(cheetah)
   cd = cheetah.contacts
   for change in (dict(pcy_plane=(0,), pcy_cyl=(1,)),
-                 dict(cyc_cap=(1,), cyc_cyl=(2,))):
-    with pytest.raises(NotImplementedError,
-                       match="cylinder contacts: not yet ported"):
-      dm.check_supported(cheetah._replace(contacts=cd._replace(**change)))
-  for change in (dict(pb_plane=(0,), pb_box=(1,)),
+                 dict(cyc_cap=(1,), cyc_cyl=(2,)),
+                 dict(pb_plane=(0,), pb_box=(1,)),
                  dict(sb_cap=(1,), sb_box=(2,), sb_three=(True,)),
                  dict(ten_site_body=np.zeros((1, 2), np.int64))):
     dm.check_supported(cheetah._replace(contacts=cd._replace(**change)))
 
 
 def test_engine_refuses_contacts_and_free_joints(tmp_path):
-  """The engine refuses the contact families it does not have (Pusher's
-  cylinders) and steps a free body (``integrate_pos``' quaternion branch)
-  under gravity as mj_step does."""
+  """The engine steps Pusher's cylinder contacts (it refuses no contact
+  family the JAX engine has) and a free body (``integrate_pos``'
+  quaternion branch) under gravity as mj_step does."""
   pusher = dm.extract_model(dm.gym_asset("pusher.xml"))
   q = torch.zeros(2, pusher.nq, dtype=torch.float64)
-  with pytest.raises(NotImplementedError, match="cylinder contacts"):
-    port_de.step_smooth(pusher, q, torch.zeros(2, pusher.nv, dtype=q.dtype),
-                        torch.zeros(2, 7, dtype=q.dtype))
+  q, v = port_de.step_smooth(pusher, q, torch.zeros(2, pusher.nv, dtype=q.dtype),
+                             torch.zeros(2, 7, dtype=q.dtype))
+  assert torch.isfinite(q).all() and torch.isfinite(v).all()
   path = tmp_path / "free.xml"
   path.write_text(FREE_BODY)
   free = dm.extract_model(str(path))

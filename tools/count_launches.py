@@ -9,11 +9,14 @@ than one, e.g. ``linalg`` solves). For the on-device MuJoCo ids (gym
 ``-Jax-v4`` and dm_control ``-Jax-v1``) it also counts one forward-dynamics
 evaluation (``_qacc_full``) alone, for the contact ids one Newton iteration
 of the contact solve (``newton_qacc`` with one iteration less that with
-none), and for the box models one pass of each box block of the narrow
-phase (plane-box, sphere/capsule-box).
+none), and for the cylinder and box models one pass of each such block of
+the narrow phase (plane-cylinder, sphere/capsule-cylinder, plane-box,
+sphere/capsule-box).
 
   python tools/count_launches.py --envs 8192 ReacherJax-v4 SwimmerJax-v4
   python tools/count_launches.py --envs 4096 CheetahJaxRun-v1
+  python tools/count_launches.py --envs 4096 PusherJax-v4 ManipulatorJaxInsertPeg-v1
+  python tools/count_launches.py --envs 1024 HumanoidCMUJaxRun-v1
 
 Prints one JSON line per id. Counts depend on the width only through the
 data (which lanes reset), so count at the width that runs.
@@ -108,13 +111,16 @@ def count(task_id: str, n: int) -> dict:
     res["forward_evals_per_step"] = (
       4 if mdl.integrator == 1 else 1) * frame_skip
     cd = mdl.contacts
-    if cd is not None and (cd.pb_plane or cd.sb_cap):
+    if cd is not None:
       xpos, xmat, _, _ = de.fk(mdl, q)
       X, R = torch.stack(xpos, 1), torch.stack(xmat, 1)
       c = dc._cconsts(mdl, q)
-      for name, block, has in (("plane_box", dc._plane_box, cd.pb_plane),
-                               ("capsule_box", dc._sphere_capsule_box,
-                                cd.sb_cap)):
+      for name, block, has in (
+        ("plane_cylinder", dc._plane_cylinder, cd.pcy_plane),
+        ("capsule_cylinder", dc._capsule_cylinder, cd.cyc_cap),
+        ("plane_box", dc._plane_box, cd.pb_plane),
+        ("capsule_box", dc._sphere_capsule_box, cd.sb_cap),
+      ):
         if has:
           with Count() as cnt:
             block(cd, c, X, R)
