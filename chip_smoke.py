@@ -87,10 +87,12 @@ Phases (any failure exits non-zero before the result lines):
      lanes that part counted against a bound, the others to 1e-3 relative
      with integer and bool fields equal;
  12. the contact device MuJoCo ids (plane-capsule and capsule-capsule
-     contacts, the free joint; no kernel of their own): HalfCheetahJax-v4,
-     HopperJax-v4 and Walker2dJax-v4 at 4096 envs over 40 steps,
-     AntJax-v4 at 2048 over 20, HumanoidJax-v4 and HumanoidStandupJax-v4 at
-     1024 over 10 (``bench.py:353-367``'s widths), half through ``step``
+     contacts, the free joint; no kernel of their own): HalfCheetahJax-v4
+     at 4096 envs over 40 steps, HopperJax-v4 and Walker2dJax-v4 at 4096
+     over 20, AntJax-v4 at 2048 over 10, HumanoidJax-v4 and
+     HumanoidStandupJax-v4 at 1024 over 6 (``bench.py:353-367``'s widths;
+     all but HalfCheetah cut in depth to make room for phase 15), half
+     through ``step``
      and half in the ``xla()`` loop: env-steps/s, every output finite, the
      lanes that ended and their auto-resets, one traced ``xla()`` step
      (Ant and the Humanoids: one traced forward evaluation, times the
@@ -118,9 +120,10 @@ Phases (any failure exits non-zero before the result lines):
      and humanoid 5), held on the card by the parted-lanes rule;
  14. the rest of the device tier (cylinder contacts, the per-env body-pose
      override, the widest model; no kernel of their own): PusherJax-v4 at
-     4096 envs over 40 steps, ManipulatorJaxInsertPeg-v1 at 4096 over 10
-     and HumanoidCMUJaxRun-v1 at 1024 over 10 (``bench.py:353-367``'s
-     widths), as phase 13 drives its cells (Pusher one traced ``xla()``
+     4096 envs over 20 steps, ManipulatorJaxInsertPeg-v1 at 4096 over 6
+     and HumanoidCMUJaxRun-v1 at 1024 over 6 (``bench.py:353-367``'s
+     widths; cut in depth to make room for phase 15), as phase 13 drives
+     its cells (Pusher one traced ``xla()``
      step; the others one traced forward evaluation times 10). Their CPU
      side runs in phase 12's child after every timed cell: per model one
      float64 env-step (Pusher's finger against the object, insert_peg's
@@ -128,7 +131,20 @@ Phases (any failure exits non-zero before the result lines):
      1e-10 relative with TF32 requested; each of the 7 new ids at 64 envs
      (Pusher 10 steps, manipulator 5, humanoid_CMU 3) held on the card by
      the parted-lanes rule;
- 15. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
+ 15. sharding (``envpool_torch.parallel``; the sampler is its only kernel):
+     on ``make_mesh()`` (one shard on this card) and on a mesh of 4 logical
+     shards of cuda:0, CarRacing-v2 at 1024 envs over 50 steps bit for bit
+     against ``TorchEnvPool`` with the sampler launched once per shard per
+     render, and Sokoban-v0 at 16384 envs over 100 steps in both level
+     modes bit for bit against the unsharded pool (env-steps/s, launches
+     of a traced ``xla()`` step); PPO at ``examples/ppo_sokoban.py``'s
+     width (``SokobanCNN()``, 1024 envs, 32 steps) for 2 iterations
+     unsharded and on the 4-shard env mesh, and one iteration on a (2, 2)
+     env x model mesh: the rollouts' pool outputs equal where the actions
+     agree, the differing actions within a bound, the metrics within rtol
+     1e-3; a file checkpoint of the 4-shard Sokoban pool replayed bit for
+     bit; a ``trace`` that lists CUDA kernels; ``dryrun_multichip(8)``;
+ 16. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or outside a checkout, it fails and prints no result.
 """
@@ -362,7 +378,30 @@ def check_background(torch, envpool_torch, device, card: str) -> dict:
       "ms": ms, "ms_cold": ms_cold, "plain_ms": plain_ms, "bound_ms": bound_ms,
       "bound_by": "bytes" if byte_ms >= op_ms else "operations",
     }
+    if name == "real_fine":
+      res["shard"] = background_shard(torch, args, card)
   return res
+
+
+def background_shard(torch, args, card) -> dict:
+  """The main path's all-fine render at one shard's width (N / SHARDS
+  envs, phase 15's 4-shard pool): bit-exact, warm time against its bound."""
+  from envpool_torch.envs.box2d import sampler
+
+  k = N_ENVS // SHARDS
+  fine, coarse, use_fine, palette = args
+  cut = [(p[0], *(t[:k] for t in p[1:])) for p in (fine, coarse)]
+  shard_args = (*cut, use_fine[:k], palette)
+  got = sampler.fused_background(*shard_args)
+  if not torch.equal(got, sampler.background_plain(*shard_args)):
+    raise AssertionError("background at one shard's width: kernel != plain")
+  ms = time_cuda(torch, lambda: sampler.fused_background(*shard_args), 50)
+  byte_ms, op_ms, n_bytes = background_bound(torch, *shard_args)
+  bound_ms = max(byte_ms, op_ms)
+  log(f"background real_fine at one shard's width: N={k}, bit-exact, kernel "
+      f"{ms:.4f} ms warm, bound {bound_ms * 1e3:.2f} us ({n_bytes} B), "
+      f"{100 * bound_ms / ms:.1f}% of bound [{card}]")
+  return {"n": k, "ms": ms, "bound_ms": bound_ms}
 
 
 # --------------------------------------------------------------- phase 4
@@ -1529,12 +1568,13 @@ def mujoco_checks(torch, envpool_torch, device, task_id) -> dict:
 # the six contact ids at bench.py's widths (bench.py:353-354 HalfCheetah at
 # 4096, :358-359 Ant at 2048 x 100 steps, :366-367 the humanoid program at
 # 1024), registry defaults: (envs, steps after the reset, half through step
-# and half in the xla() loop). Ant and the Humanoids trace one forward
-# evaluation (their steps are 37k-100k launches), the others one step
+# and half in the xla() loop; 40, 40, 40, 20, 10 and 10 steps until phase
+# 15 came). Ant and the Humanoids trace one forward evaluation (their
+# steps are 37k-100k launches), the others one step
 CONTACT_RUNS = {
-  "HalfCheetahJax-v4": (4096, 40), "HopperJax-v4": (4096, 40),
-  "Walker2dJax-v4": (4096, 40), "AntJax-v4": (2048, 20),
-  "HumanoidJax-v4": (1024, 10), "HumanoidStandupJax-v4": (1024, 10),
+  "HalfCheetahJax-v4": (4096, 40), "HopperJax-v4": (4096, 20),
+  "Walker2dJax-v4": (4096, 20), "AntJax-v4": (2048, 10),
+  "HumanoidJax-v4": (1024, 6), "HumanoidStandupJax-v4": (1024, 6),
 }
 CONTACT_TRACE_STEP = ("HalfCheetahJax-v4", "HopperJax-v4", "Walker2dJax-v4")
 # the card against the CPU port: float64 step_smooth of one env-step (the
@@ -1543,10 +1583,16 @@ CONTACT_TRACE_STEP = ("HalfCheetahJax-v4", "HopperJax-v4", "Walker2dJax-v4")
 # over 20 steps (the Humanoids 10), lanes that part counted against the
 # id's share. HalfCheetah's Euler contacts part lanes at float32 rounding
 # (the JAX package against itself at two XLA optimisation levels parts 7
-# of 16 lanes in 20 steps); no lane of the others parted on the CPU
+# of 16 lanes in 20 steps); no lane of the others parted on the CPU. The
+# others' shares are set from the readings on an H100 (PERF.md section 5;
+# the same in every run): twice the lanes that parted, at least 3 of 256
 CONTACT_CMP_STEPS = {t: 10 if t.startswith("Humanoid") else 20 for t in CONTACT_RUNS}
 CONTACT_F64_LANES = {t: 64 if t.startswith("Humanoid") else 256 for t in CONTACT_RUNS}
-CONTACT_PARTED = {t: 0.5 if t == "HalfCheetahJax-v4" else 0.1 for t in CONTACT_RUNS}
+CONTACT_PARTED = {
+  "HalfCheetahJax-v4": 0.5, "HopperJax-v4": 3 / MUJOCO_CMP_ENVS,
+  "Walker2dJax-v4": 3 / MUJOCO_CMP_ENVS, "AntJax-v4": 6 / MUJOCO_CMP_ENVS,
+  "HumanoidJax-v4": 3 / MUJOCO_CMP_ENVS, "HumanoidStandupJax-v4": 12 / MUJOCO_CMP_ENVS,
+}
 
 
 def contact_states(mdl, task_id: str, n: int, seed: int):
@@ -1642,18 +1688,18 @@ def dmc_cmp_actions(envpool_torch, task_id):
 # the rest of the device tier at bench.py's widths (bench.py:353-354 the
 # contact gym ids at 4096, :362-363 the dm_control ids at 4096, :366-367
 # the humanoid programs at 1024), registry defaults: (envs, steps after the
-# reset, half through step and half in the xla() loop). Manipulator and
-# humanoid_CMU trace one forward evaluation (10 per step)
-LAST_RUNS = {"PusherJax-v4": (4096, 40), "ManipulatorJaxInsertPeg-v1": (4096, 10),
-             "HumanoidCMUJaxRun-v1": (1024, 10)}
+# reset, half through step and half in the xla() loop; 40, 10 and 10
+# steps until phase 15 came). Manipulator and humanoid_CMU trace one
+# forward evaluation (10 per step)
+LAST_RUNS = {"PusherJax-v4": (4096, 20), "ManipulatorJaxInsertPeg-v1": (4096, 6),
+             "HumanoidCMUJaxRun-v1": (1024, 6)}
 LAST_TRACE_STEP = ("PusherJax-v4",)
 # the card against the CPU port: float64 step_smooth of one env-step per
 # model (64 lanes, humanoid_CMU 32) to 1e-10 relative with TF32 requested;
 # the float32 pools of the 7 new ids at 64 envs, a lane parting as in
-# phase 11, counted against the id's share. The shares, set before the
-# first run of this phase on an H100, are the CPU test files' bounds for
-# these families against the JAX package: Pusher 1/8 (the gym contact
-# ids'), manipulator and humanoid_CMU 1/4 (the dm_control contact ids')
+# phase 11, counted against the id's share. The shares are set from the
+# readings on an H100 (PERF.md section 5: no lane parted but 1 of 64 of
+# insert_peg), as phase 13's are: 3 lanes of 64 per id
 LAST_F64 = {"PusherJax-v4": 64, "ManipulatorJaxInsertPeg-v1": 64,
             "HumanoidCMUJaxRun-v1": 32}
 LAST_CMP = {"PusherJax-v4": 10, "ManipulatorJaxBringBall-v1": 5,
@@ -1661,7 +1707,7 @@ LAST_CMP = {"PusherJax-v4": 10, "ManipulatorJaxBringBall-v1": 5,
             "ManipulatorJaxInsertPeg-v1": 5, "HumanoidCMUJaxStand-v1": 3,
             "HumanoidCMUJaxRun-v1": 3}
 LAST_CMP_ENVS = 64
-LAST_PARTED = {t: 0.125 if t == "PusherJax-v4" else 0.25 for t in LAST_CMP}
+LAST_PARTED = {t: 3 / LAST_CMP_ENVS for t in LAST_CMP}
 
 
 def pusher_states(torch, mdl, n: int, seed: int):
@@ -1882,6 +1928,281 @@ def contact_phase(torch, envpool_torch, device, card, scratch: str):
   return res, dmc, last
 
 
+# --------------------------------------------------------------- phase 15
+
+# sharding on the card (envpool_torch.parallel): make_mesh(), one shard on
+# this card, and a mesh of SHARDS logical shards of cuda:0
+SHARDS = 4
+SHARD_DEVICE = "cuda:0"
+SHARD_CAR_STEPS = 50
+SHARD_SOKOBAN_STEPS = 100
+SHARD_PPO_ITERS = 2
+# PPO on Sokoban, sharded against unsharded from the same parameters and
+# key. A shard's convs and GEMMs run at a quarter of the batch, where cuDNN
+# and cuBLAS may pick other kernels: a logit off in its last bits flips a
+# near-tie of the Gumbel draw, and that lane's trajectory goes its own way.
+# The share of actions that may differ per rollout, set from the readings
+# (PERF.md section 5: none differed in 3 rollouts of 32,768 actions): 0.1%;
+# the metrics within rtol 1e-3 (atol 1e-5: pg_loss is a mean of
+# near-cancelling terms), ten times the CPU test's 1e-4 / 1e-6 in bf16
+SHARD_PPO_FLIPS = 1e-3
+SHARD_PPO_RTOL, SHARD_PPO_ATOL = 1e-3, 1e-5
+
+
+def shard_meshes(torch):
+  from envpool_torch.parallel import make_mesh
+
+  return {"make_mesh()": make_mesh(),
+          f"{SHARDS} shards of cuda:0": make_mesh(devices=[SHARD_DEVICE] * SHARDS)}
+
+
+def same_outputs(got, want, tag: str) -> None:
+  """Equal values through the dialect's tuples and dicts (NaN equal)."""
+  if isinstance(want, dict):
+    assert sorted(got) == sorted(want), tag
+    for k in want:
+      same_outputs(got[k], want[k], f"{tag}/{k}")
+  elif isinstance(want, tuple):
+    for i, (g, w) in enumerate(zip(got, want)):
+      same_outputs(g, w, f"{tag}/{i}")
+  else:
+    np.testing.assert_array_equal(got, want, err_msg=tag)
+
+
+def lockstep(torch, envpool_torch, task_id, kw, acts, pools_for, counter=None):
+  """The unsharded pool and one sharded pool per mesh driven in lockstep
+  through ``step``, every output field of each step bit for bit against
+  the unsharded pool's. Returns per pool name (env, env-steps/s, counter
+  increments, renders expected from its shards' done flags)."""
+  from envpool_torch.parallel.sharded import ShardedGymnasiumEnvPool
+
+  spec = envpool_torch.make_spec(task_id, **kw)
+  pools = {"unsharded": envpool_torch.make_gymnasium(task_id, device=SHARD_DEVICE, **kw)}
+  for name, mesh in pools_for.items():
+    pools[name] = ShardedGymnasiumEnvPool(spec, mesh)
+  n = int(spec.config.num_envs)
+  res = {k: {"env": p, "secs": 0.0, "launches": 0, "renders": 0} for k, p in pools.items()}
+  done = {k: np.ones(n, bool) for k in pools}
+  for t in range(len(acts) + 1):
+    want = None
+    for name, env in pools.items():
+      r = res[name]
+      shards = len(getattr(env, "_shards", [None]))
+      b = n // shards
+      r["renders"] += sum(renders_for(done[name][s * b:(s + 1) * b]) for s in range(shards))
+      if counter is not None:
+        counter.launches = 0
+      sync(torch, SHARD_DEVICE)
+      t0 = time.perf_counter()
+      out = env.reset() if t == 0 else env.step(acts[t - 1])
+      sync(torch, SHARD_DEVICE)
+      if t:
+        r["secs"] += time.perf_counter() - t0
+        done[name] = out[2] | out[3]
+      else:
+        done[name] = np.zeros(n, bool)
+      if counter is not None:
+        r["launches"] += counter.launches
+      if want is None:
+        want = out
+      else:
+        same_outputs(out, want, f"{task_id} {name} step {t}")
+  for r in res.values():
+    r["sps"] = len(acts) * n / r["secs"]
+  return res
+
+
+def car_racing_sharded(torch, envpool_torch, sampler, card) -> dict:
+  """CarRacing-v2 at N_ENVS, reset + SHARD_CAR_STEPS steps, on both meshes
+  bit for bit against TorchEnvPool; the sampler launched once per shard per
+  render."""
+  rng = np.random.default_rng(SEED + 40)
+  acts = [random_actions(rng, N_ENVS) for _ in range(SHARD_CAR_STEPS)]
+  res = lockstep(torch, envpool_torch, "CarRacing-v2", dict(num_envs=N_ENVS, seed=SEED),
+                 acts, shard_meshes(torch), counter=sampler.fused_background)
+  out = {}
+  for name, r in res.items():
+    if r["launches"] != r["renders"]:
+      raise AssertionError(f"CarRacing {name}: sampler launches {r['launches']}, "
+                           f"expected {r['renders']} (one per shard per render)")
+    per_render = r["launches"] / (SHARD_CAR_STEPS + 1)
+    out[name] = {"sps": r["sps"], "launches": r["launches"], "per_render": per_render}
+    log(f"sharded CarRacing-v2 {name}: {N_ENVS} envs, reset + {SHARD_CAR_STEPS} "
+        f"steps bit for bit against TorchEnvPool; sampler launches "
+        f"{r['launches']} = {per_render:.0f} per render (one per shard); "
+        f"{r['sps']:.1f} env-steps/s via step [{card}]")
+  return out
+
+
+def sokoban_sharded(torch, envpool_torch, card) -> dict:
+  """Sokoban-v0 at SOKOBAN_ENVS over SHARD_SOKOBAN_STEPS steps of actions
+  in [-1, 3], random and sequential level modes (every lane auto-resets at
+  the cap of 60), both meshes bit for bit against the unsharded pool;
+  env-steps/s and launches per traced xla() step. Returns the results and
+  the 4-shard random-mode pool."""
+  out, keep = {}, None
+  for mode in ("random", "sequential"):
+    kw = dict(num_envs=SOKOBAN_ENVS, seed=SEED, **SOKOBAN_KW,
+              load_sequentially=mode == "sequential")
+    acts = sokoban_actions(SEED + 41, SHARD_SOKOBAN_STEPS, SOKOBAN_ENVS)
+    res = lockstep(torch, envpool_torch, "Sokoban-v0", kw, acts, shard_meshes(torch))
+    dev_acts = torch.from_numpy(sokoban_actions(SEED + 42, 4, SOKOBAN_ENVS)).to(SHARD_DEVICE)
+    for name, r in res.items():
+      busy_us, rows = profile_steps(torch, r["env"], dev_acts)
+      launches = sum(x[2] for x in rows)
+      out[f"{mode} {name}"] = {"sps": r["sps"], "launches": launches,
+                               "busy_us": busy_us}
+      log(f"sharded Sokoban-v0 {mode} mode {name}: {SOKOBAN_ENVS} envs, reset + "
+          f"{SHARD_SOKOBAN_STEPS} steps bit for bit against the unsharded pool; "
+          f"{r['sps']:.1f} env-steps/s via step; a traced xla() step "
+          f"{launches:.0f} launches, {busy_us:.1f} us of device kernels [{card}]")
+    if mode == "random":
+      keep = res[f"{SHARDS} shards of cuda:0"]["env"]
+  return out, keep
+
+
+def flips_and_outputs(want, got):
+  """(share of differing actions, pool outputs checked): the rollouts'
+  obs, reward and done equal wherever the lane's actions agreed so far."""
+  wa, ga = want["action"].cpu().numpy(), got["action"].cpu().numpy()
+  agree = np.cumprod(wa == ga, axis=0).astype(bool)          # [T, N]
+  before = np.concatenate([np.ones_like(agree[:1]), agree[:-1]])
+  checked = 0
+  for k, mask in (("obs", before), ("reward", agree), ("done", agree)):
+    w, g = want[k].cpu().numpy()[mask], got[k].cpu().numpy()[mask]
+    np.testing.assert_array_equal(g, w, err_msg=f"sharded PPO rollout {k}")
+    checked += int(mask.sum())
+  return float((wa != ga).mean()), checked
+
+
+def metrics_close(got: dict, want: dict, tag: str) -> float:
+  worst = 0.0
+  for k in want:
+    diff = abs(got[k] - want[k])
+    if not (np.isfinite(got[k]) and diff <= SHARD_PPO_ATOL + SHARD_PPO_RTOL * abs(want[k])):
+      raise AssertionError(f"{tag}: {k} {got[k]} against {want[k]}")
+    worst = max(worst, diff / max(abs(want[k]), 1e-12))
+  return worst
+
+
+def ppo_sharded(torch, envpool_torch, card) -> dict:
+  """examples/ppo_sokoban.py's full width (SokobanCNN(), 1024 envs,
+  PPOConfig(num_steps=32, lr=2.5e-4)): SHARD_PPO_ITERS iterations unsharded
+  and on the 4-shard env mesh, and one on a (2, 2) mesh with
+  model_axis="model". Each sharded iteration starts from the unsharded
+  run's parameters, optimizer state and key (its pool from its own last
+  iteration): bf16 would carry the float32 parameters' last-bit
+  differences into whole bf16 steps. Rollout outputs equal where the
+  actions agree, differing actions within SHARD_PPO_FLIPS, metrics close."""
+  from envpool_torch.models import SokobanCNN
+  from envpool_torch.parallel import Mesh, ShardedEnvPool, make_mesh
+  from envpool_torch.train import PPOConfig, make_ppo_train_step, ppo_init
+
+  n = 1024
+  spec = envpool_torch.make_spec("Sokoban-v0", num_envs=n, seed=SEED, **SOKOBAN_KW)
+  cfg = PPOConfig(num_steps=PPO_STEPS, lr=PPO_LR)
+  layouts = {
+    "unsharded": (None, None, SHARD_PPO_ITERS),
+    f"env mesh of {SHARDS}": (make_mesh(devices=[SHARD_DEVICE] * SHARDS), None,
+                              SHARD_PPO_ITERS),
+    "(2, 2) env x model": (Mesh(np.array([SHARD_DEVICE] * 4, object).reshape(2, 2),
+                                ("env", "model")), "model", 1),
+  }
+  runs = {}
+  for name, (mesh, model_axis, _) in layouts.items():
+    pool = (envpool_torch.make_gymnasium("Sokoban-v0", num_envs=n, seed=SEED,
+                                         device=SHARD_DEVICE, **SOKOBAN_KW)
+            if mesh is None else ShardedEnvPool(spec, mesh))
+    net = SokobanCNN()
+    state, tx = ppo_init(pool, net, cfg, seed=SEED)
+    runs[name] = {"state": state, "rows": [],
+                  "step": make_ppo_train_step(pool, net, cfg, tx, mesh=mesh,
+                                              model_axis=model_axis)}
+  for it in range(SHARD_PPO_ITERS):
+    start = runs["unsharded"]["state"]
+    for name, (mesh, _, iters) in layouts.items():
+      if it >= iters:
+        continue
+      run = runs[name]
+      state = run["state"]._replace(params=start.params, opt_state=start.opt_state,
+                                    key=start.key)
+      step = run["step"]
+      sync(torch, SHARD_DEVICE)
+      t0 = time.perf_counter()
+      rollout = step.rollout(state)
+      sync(torch, SHARD_DEVICE)
+      t1 = time.perf_counter()
+      run["state"], metrics = step.update(state, rollout)
+      sync(torch, SHARD_DEVICE)
+      t2 = time.perf_counter()
+      traj = rollout[2] if mesh is None else step.gather(rollout[2], torch.device(SHARD_DEVICE))
+      run["rows"].append({"traj": traj, "metrics": {k: float(v) for k, v in metrics.items()},
+                          "rollout_ms": 1e3 * (t1 - t0), "update_ms": 1e3 * (t2 - t1)})
+  out = {}
+  base = runs["unsharded"]["rows"]
+  for name, run in runs.items():
+    res = []
+    for it, row in enumerate(run["rows"]):
+      m = row["metrics"]
+      if not all(np.isfinite(v) for v in m.values()):
+        raise AssertionError(f"PPO {name} iteration {it}: {m}")
+      entry = {"iter_ms": row["rollout_ms"] + row["update_ms"],
+               "rollout_ms": row["rollout_ms"], "update_ms": row["update_ms"], **m}
+      extra = ""
+      if name != "unsharded":
+        flips, checked = flips_and_outputs(base[it]["traj"], row["traj"])
+        entry["flips"] = flips
+        entry["metric_max_rel"] = metrics_close(m, base[it]["metrics"], f"PPO {name} {it}")
+        if flips > SHARD_PPO_FLIPS:
+          raise AssertionError(f"PPO {name} iteration {it}: {flips:.5f} of the "
+                               f"actions differ (bound {SHARD_PPO_FLIPS})")
+        extra = (f"; {100 * flips:.4f}% of {PPO_STEPS * n} actions differ from the "
+                 f"unsharded rollout (bound {100 * SHARD_PPO_FLIPS:g}%), pool outputs "
+                 f"equal at the {checked} (step, lane) fields where the lane's actions "
+                 f"agreed; metrics within {entry['metric_max_rel']:.3g} relative")
+      res.append(entry)
+      log(f"PPO Sokoban-v0 {name}, {n} envs, iteration {it}: {entry['iter_ms']:.1f} ms "
+          f"(rollout {entry['rollout_ms']:.1f}, update {entry['update_ms']:.1f}); "
+          f"pg_loss {m['pg_loss']:.6f} v_loss {m['v_loss']:.6f} entropy "
+          f"{m['entropy']:.6f} mean_reward {m['mean_reward']:.6f}{extra} [{card}]")
+    out[name] = res
+  return out
+
+
+def checkpoint_and_trace(torch, envpool_torch, pool, scratch, card) -> dict:
+  """A file checkpoint of the 4-shard Sokoban pool replays 5 steps bit for
+  bit; ``trace`` of 2 steps writes a Chrome trace that lists CUDA kernels."""
+  from envpool_torch.utils import load_pool_state, save_pool_state, trace
+
+  path = os.path.join(scratch, "sharded_sokoban")
+  save_pool_state(pool, path)
+  acts = sokoban_actions(SEED + 43, 5, SOKOBAN_ENVS)
+  want = [pool.step(a) for a in acts]
+  load_pool_state(pool, path)
+  for t, a in enumerate(acts):
+    same_outputs(pool.step(a), want[t], f"checkpoint replay step {t}")
+  size = os.path.getsize(path + ".npz")
+  log(f"checkpoint: {SHARDS}-shard Sokoban-v0 at {SOKOBAN_ENVS} envs, "
+      f"{size} B file, 5 steps replayed bit for bit")
+  log_dir = os.path.join(scratch, "trace")
+  with trace(log_dir) as prof:
+    for a in acts[:2]:
+      pool.step(a)
+  from torch.autograd import DeviceType
+
+  kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+  files = sorted(os.listdir(log_dir))
+  with open(os.path.join(log_dir, files[-1])) as f:
+    events = json.load(f)["traceEvents"]
+  in_file = sum(1 for e in events if e.get("cat") == "kernel")
+  if not kernels or not in_file:
+    raise AssertionError(f"trace: {len(kernels)} CUDA kernels in the profile, "
+                         f"{in_file} kernel events in {files[-1]}")
+  log(f"trace: {files[-1]} lists {in_file} CUDA kernel events ({len(kernels)} "
+      f"kinds) of 2 steps of the {SHARDS}-shard pool [{card}]")
+  return {"checkpoint_bytes": size, "trace_kernel_events": in_file}
+
+
 def main(argv) -> int:
   if argv[:1] == ["--cpu-reference"]:  # phases 12, 13 and 14's child process
     return cpu_reference(argv[1])
@@ -2090,8 +2411,25 @@ def main(argv) -> int:
   log(json.dumps({"dmc": dmc}))
   log(json.dumps({"device_tier_rest": last}))
 
+  # 15. sharding on the card: CarRacing and Sokoban sharded bit for bit,
+  # PPO on the env and (2, 2) meshes, checkpoint and trace, the dry run
+  t15 = time.perf_counter()
+  from envpool_torch.parallel.dryrun import dryrun_multichip
+
+  shard = {"car_racing": car_racing_sharded(torch, envpool_torch, sampler, card)}
+  shard["sokoban"], sharded_pool = sokoban_sharded(torch, envpool_torch, card)
+  shard["ppo"] = ppo_sharded(torch, envpool_torch, card)
+  shard.update(checkpoint_and_trace(torch, envpool_torch, sharded_pool, scratch, card))
+  del sharded_pool
+  t_dry = time.perf_counter()
+  dryrun_multichip(8)
+  log(f"dryrun_multichip(8) on the card: a (4, 2) env x model mesh of cuda:0, "
+      f"one PPO iteration, finite pg_loss, {time.perf_counter() - t_dry:.1f} s")
+  log(f"sharding phase: {time.perf_counter() - t15:.1f} s")
+  log(json.dumps({"sharding": shard}))
+
   log(f"total {time.perf_counter() - t_start:.1f} s")
-  # 15. results
+  # 16. results
   main_case = kres["cases"]["real_fine"]
   kernel = {
     "name": "car_racing_sampler",
@@ -2109,6 +2447,8 @@ def main(argv) -> int:
             "top-level times: the main path's all-fine inputs, L2 warm",
     "ms_cold": main_case["ms_cold"],
     "cases": kres["cases"],
+    "sharded": {name: r["per_render"] for name, r in shard["car_racing"].items()},
+    "shard_case": kres["shard"],
   }
   log(json.dumps({"kernels": [kernel]}))
   log(json.dumps({

@@ -46,7 +46,7 @@ families the flags are set only on the first step and on forced resets.
 from __future__ import annotations
 
 from collections import deque, namedtuple
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -131,15 +131,30 @@ class TorchEnvPool:
   _spec: EnvSpec
 
   def __init__(
-    self, spec: EnvSpec, device: Union[None, str, torch.device] = None
+    self, spec: EnvSpec, device: Union[None, str, torch.device] = None,
+    env_ids: Optional[Sequence[int]] = None,
   ) -> None:
+    """``env_ids``: the global ids of this pool's lanes, all of
+    ``spec.config.num_envs`` by default. A ``ShardedEnvPool`` holds one
+    contiguous block per shard (``parallel/sharded.py``): the block's keys,
+    ``info:env_id`` and env state follow its global ids, and the family sees
+    the global config."""
+    self._setup(spec, device, env_ids)
+    self._state: PoolState = self._init(int(self._cfg.seed))
+    # FIFO of device output lists pending recv
+    self._pending: deque = deque()
+    self._last_out: Optional[List[torch.Tensor]] = None
+
+  def _setup(self, spec: EnvSpec, device: Union[None, str, torch.device],
+             env_ids: Optional[Sequence[int]] = None) -> None:
+    """Everything but the pool state: spec, config, keys, the lanes."""
     self._spec = spec
     self.spec = spec
     self.device = resolve_device(device)
     cfg = spec.config
     self._cfg = cfg
     self._env_cls: FuncEnv = spec._env_cls
-    self._num_envs = int(cfg.num_envs)
+    self._num_envs = int(cfg.num_envs) if env_ids is None else len(env_ids)
     self._batch_size = int(cfg.batch_size) or self._num_envs
     self._env_resets = bool(self._env_cls.env_resets)
     self._max_players = int(cfg.max_num_players)
@@ -177,7 +192,10 @@ class TorchEnvPool:
     ]
     self._action_array_spec = spec.action_array_spec
     n = self._num_envs
-    self._env_ids = torch.arange(n, dtype=torch.int32, device=self.device)
+    self._env_ids = (
+      torch.arange(n, dtype=torch.int32, device=self.device) if env_ids is None
+      else torch.as_tensor(list(env_ids), dtype=torch.int32).to(self.device)
+    )
     # per-player action fields (leading -1) get the padded player axis
     self._zero_action = {
       k: torch.zeros(
@@ -187,10 +205,6 @@ class TorchEnvPool:
       )
       for k in self._env_action_keys
     }
-    self._state: PoolState = self._init(int(cfg.seed))
-    # FIFO of device output lists pending recv
-    self._pending: deque = deque()
-    self._last_out: Optional[List[torch.Tensor]] = None
 
   # ------------------------------------------------------------------ engine
 
@@ -371,6 +385,26 @@ class TorchEnvPool:
     new_ps, outs = self._advance(forced, self._zero_action, mask, False)
     return new_ps, _gather(outs, env_id)
 
+  def _advance_ids(
+    self,
+    ps: Any,
+    action_b: Optional[Dict[str, torch.Tensor]],
+    env_id: Any,
+    reset: bool,
+  ) -> Tuple[Any, List[Any]]:
+    """One advance of ``ps`` -> (new state, outputs): the entry that
+    ``_send``, ``_reset`` and ``xla()``'s ``send`` share. ``env_id`` None
+    steps every lane (forces every lane's reset with ``reset``); otherwise
+    it lists lane ids (host or device), and the outputs are their rows in
+    its order. ``action_b`` None is the zero action."""
+    if env_id is None:
+      action = self._zero_action if action_b is None else action_b
+      return self._advance(ps, action, None, reset)
+    env_id = torch.as_tensor(env_id).to(device=self.device, dtype=torch.int64)
+    if reset:
+      return self._reset_masked(ps, env_id)
+    return self._advance_masked(ps, action_b, env_id)
+
   # ----------------------------------------------------------- low-level API
 
   def _send(self, action_list: List[np.ndarray]) -> None:
@@ -387,17 +421,13 @@ class TorchEnvPool:
       k: torch.as_tensor(np.asarray(adict[k])).to(self.device)
       for k in self._env_action_keys
     }
-    if len(env_id) == self._num_envs and np.array_equal(
+    full = len(env_id) == self._num_envs and np.array_equal(
       env_id, np.arange(self._num_envs, dtype=env_id.dtype)
-    ):
-      self._state, outs = self._advance(self._state, action_b, None, False)
-      self._pending.append(outs)
-    else:
-      dev_env_id = torch.as_tensor(env_id, dtype=torch.int64).to(self.device)
-      self._state, outs = self._advance_masked(
-        self._state, action_b, dev_env_id
-      )
-      self._pending.append(outs)
+    )
+    self._state, outs = self._advance_ids(
+      self._state, action_b, None if full else env_id, False
+    )
+    self._pending.append(outs)
     self._last_out = outs
 
   def _scatter_player_actions(self, adict: Dict[str, Any]) -> Dict[str, Any]:
@@ -472,17 +502,12 @@ class TorchEnvPool:
     """
     env_id = np.asarray(env_id, dtype=np.int32)
     if len(env_id) == self._num_envs and self._batch_size == self._num_envs:
-      self._state, outs = self._advance(
-        self._state, self._zero_action, None, True
-      )
-      self._pending.append(outs)
-      self._last_out = outs
-      return
-    bs = self._batch_size
-    for i in range(0, len(env_id), bs):
-      chunk = env_id[i:i + bs]
-      dev = torch.as_tensor(chunk, dtype=torch.int64).to(self.device)
-      self._state, outs = self._reset_masked(self._state, dev)
+      chunks = [None]
+    else:
+      bs = self._batch_size
+      chunks = [env_id[i:i + bs] for i in range(0, len(env_id), bs)]
+    for chunk in chunks:
+      self._state, outs = self._advance_ids(self._state, None, chunk, True)
       self._pending.append(outs)
       self._last_out = outs
 
@@ -518,12 +543,7 @@ class TorchEnvPool:
       }
 
     def send(handle: XlaHandle, action: Any, env_id=None) -> XlaHandle:
-      action_b = _adict(action)
-      if env_id is None:
-        new_ps, outs = self._advance(handle.pool, action_b, None, False)
-      else:
-        env_id = torch.as_tensor(env_id).to(device=device, dtype=torch.int64)
-        new_ps, outs = self._advance_masked(handle.pool, action_b, env_id)
+      new_ps, outs = self._advance_ids(handle.pool, _adict(action), env_id, False)
       return XlaHandle(pool=new_ps, out=tuple(outs))
 
     def recv(handle: XlaHandle) -> Tuple[XlaHandle, Tuple[torch.Tensor, ...]]:

@@ -31,6 +31,7 @@ other name for name.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Sequence, Tuple
 
@@ -61,6 +62,15 @@ class _Dense(nn.Module):
   def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return F.linear(x.to(dtype), self.weight.to(dtype), self.bias.to(dtype))
 
+  def forward_columns(self, blocks: Sequence[torch.Tensor], bias: torch.Tensor,
+                      x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``forward`` with the weight given as output-feature blocks on their
+    devices: each block's outputs on its device, gathered on ``x``'s."""
+    return _gather_columns(
+      blocks, bias, x, -1,
+      lambda xd, w, b: F.linear(xd.to(dtype), w.to(dtype), b.to(dtype)),
+    )
+
 
 class _Conv(nn.Module):
   """``nn.Conv`` with "SAME" padding: ``weight`` OIHW (flax's HWIO kernel
@@ -72,17 +82,76 @@ class _Conv(nn.Module):
     self.bias = nn.Parameter(torch.zeros(n_out))
     self.stride = stride
 
-  def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+  def _pad(self, x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int]]:
     k, s = self.weight.shape[-1], self.stride
     (top, bottom), (left, right) = (_same_pad(n, k, s) for n in x.shape[-2:])
     if (top, left) == (bottom, right):
-      padding = (top, left)
-    else:
-      x = F.pad(x, (left, right, top, bottom))
-      padding = (0, 0)
+      return x, (top, left)
+    return F.pad(x, (left, right, top, bottom)), (0, 0)
+
+  def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    x, padding = self._pad(x)
     return F.conv2d(
-      x.to(dtype), self.weight.to(dtype), self.bias.to(dtype), s, padding
+      x.to(dtype), self.weight.to(dtype), self.bias.to(dtype), self.stride,
+      padding,
     )
+
+  def forward_columns(self, blocks: Sequence[torch.Tensor], bias: torch.Tensor,
+                      x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``forward`` with the weight given as output-channel blocks on their
+    devices: each block's channels on its device, gathered on ``x``'s."""
+    x, padding = self._pad(x)
+    return _gather_columns(
+      blocks, bias, x, 1,
+      lambda xd, w, b: F.conv2d(
+        xd.to(dtype), w.to(dtype), b.to(dtype), self.stride, padding
+      ),
+    )
+
+
+def _gather_columns(blocks, bias, x, dim, layer):
+  """Run ``layer(x, weight block, bias slice)`` per block on the block's
+  device, and concatenate the outputs along ``dim`` on ``x``'s device.
+  ``x`` enters in float32 (the layers cast it back, exactly), so that
+  autograd sums the blocks' gradients of ``x`` in float32 where the whole
+  layer's one GEMM would have accumulated them."""
+  if x.is_floating_point() and x.element_size() < 4:
+    x = x.float()
+  outs, start = [], 0
+  for w in blocks:
+    b = bias[start:start + w.shape[0]].to(w.device)
+    outs.append(layer(x.to(w.device), w, b).to(x.device))
+    start += w.shape[0]
+  return torch.cat(outs, dim)
+
+
+def forward_split(net: nn.Module, params: Dict[str, torch.Tensor],
+                  columns: Dict[str, Sequence[torch.Tensor]],
+                  obs: torch.Tensor) -> Any:
+  """``net(obs)`` under ``params`` (its state dict, on ``obs``'s device),
+  except that each weight named in ``columns`` is given as blocks of its
+  output features (dim 0 of the ``[out, in]`` and OIHW layouts) on the
+  devices of a model axis: column-parallel layers, each layer's output
+  gathered before the next one uses it. Biases are whole."""
+  layers = {
+    f"{name}.weight": m for name, m in net.named_modules()
+    if isinstance(m, (_Dense, _Conv))
+  }
+  missing = set(columns) - set(layers)
+  if missing:
+    raise ValueError(f"{sorted(missing)} are not weights of dense or conv layers")
+  patched = []
+  try:
+    for name, blocks in columns.items():
+      layer = layers[name]
+      bias = params[name[:-len("weight")] + "bias"]
+      layer.forward = functools.partial(layer.forward_columns, blocks, bias)
+      patched.append(layer)
+    whole = {k: v for k, v in params.items() if k not in columns}
+    return torch.func.functional_call(net, whole, (obs,), strict=False)
+  finally:
+    for layer in patched:
+      del layer.forward
 
 
 class _ActorCritic(nn.Module):

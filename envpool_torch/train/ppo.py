@@ -9,9 +9,12 @@ loss and metrics, and ``optax.chain(clip_by_global_norm, adam)`` as
 runs eagerly: ``lax.scan`` becomes a Python loop over the pool's functional
 ``send``/``recv``, and the gradient comes from ``torch.autograd``.
 
-Not ported yet: the ``mesh``, ``axis_name`` and ``model_axis`` arguments
-(env-sharded data parallelism and tensor-parallel dense kernels); they go
-with the sharding port.
+With ``mesh`` (``envpool_torch.parallel.Mesh``), ``make_ppo_train_step``
+splits the batch over the mesh's ``axis_name`` axis (data parallelism:
+each env shard's policy on its device, the advantage statistics and the
+gradients reduced across shards) and, with ``model_axis``, every weight
+over that axis along its output features (tensor parallelism); see
+``ShardedPPOTrainStep``.
 
 Usage::
 
@@ -25,8 +28,9 @@ Usage::
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +39,7 @@ from torch.func import functional_call
 
 from envpool_torch.core import prng
 from envpool_torch.core.pool import TorchEnvPool, _torch_dtype
+from envpool_torch.models.nets import forward_split
 
 Params = Dict[str, torch.Tensor]
 
@@ -157,27 +162,43 @@ def compute_gae(traj: Dict[str, torch.Tensor], last_value: torch.Tensor,
 
 
 def ppo_loss(net: nn.Module, cfg: PPOConfig, params: Params,
-             batch: Dict[str, torch.Tensor]):
-  """-> (total loss, {"pg_loss", "v_loss", "entropy"}) of one minibatch."""
-  out, value = functional_call(net, params, (batch["obs"],))
+             batch: Dict[str, torch.Tensor], part: Any = None, apply: Any = None):
+  """-> (total loss, {"pg_loss", "v_loss", "entropy"}) of one minibatch.
+
+  ``part`` = (advantage mean, advantage std, minibatch size) makes
+  ``batch`` one shard's rows of a larger minibatch: the advantages are
+  normalised by the whole minibatch's statistics and each mean is this
+  part's sum over the whole size, so the parts' losses and gradients add
+  up to the whole's. ``apply(obs)`` replaces the net's call under
+  ``params`` (the column-parallel forward of the model axis)."""
+  if apply is None:
+    out, value = functional_call(net, params, (batch["obs"],))
+  else:
+    out, value = apply(batch["obs"])
+  if part is None:
+    mean = torch.mean
+  else:
+    adv_mean, adv_std, size = part
+    def mean(x):
+      return x.sum() / size
   if cfg.continuous:
-    mean, log_std = out
-    logp = _gauss_logp(batch["action"], mean, log_std)
-    entropy = torch.sum(
-      log_std + 0.5 * math.log(2 * math.pi * math.e), dim=-1
-    ).mean()
+    mu, log_std = out
+    logp = _gauss_logp(batch["action"], mu, log_std)
+    entropy = mean(torch.sum(log_std + 0.5 * math.log(2 * math.pi * math.e), dim=-1))
   else:
     logp_all = torch.log_softmax(out, dim=-1)
     logp = logp_all.gather(-1, batch["action"][:, None])[:, 0]
-    entropy = -(torch.exp(logp_all) * logp_all).sum(-1).mean()
+    entropy = mean(-(torch.exp(logp_all) * logp_all).sum(-1))
   ratio = torch.exp(logp - batch["logp"])
   adv = batch["adv"]
-  # jnp.std is the population std
-  adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+  if part is None:
+    # jnp.std is the population std
+    adv_mean, adv_std = adv.mean(), adv.std(correction=0)
+  adv = (adv - adv_mean) / (adv_std + 1e-8)
   pg1 = ratio * adv
   pg2 = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv
-  pg_loss = -torch.minimum(pg1, pg2).mean()
-  v_loss = 0.5 * torch.square(value - batch["returns"]).mean()
+  pg_loss = -mean(torch.minimum(pg1, pg2))
+  v_loss = 0.5 * mean(torch.square(value - batch["returns"]))
   total = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * entropy
   return total, {"pg_loss": pg_loss, "v_loss": v_loss, "entropy": entropy}
 
@@ -272,9 +293,237 @@ class PPOTrainStep:
     return self.update(state, self.rollout(state))
 
 
+class _MeshLayout:
+  """Where a mesh puts the trainer's work. Row r of the env axis takes the
+  r-th contiguous block of the batch on ``devices[r, 0]``, with a replica
+  of the parameters; with a model axis of size M, ``devices[r, m]`` holds
+  block m of the output features (dim 0) of every parameter of two or more
+  dimensions, and the biases stay whole on the row's device."""
+
+  def __init__(self, mesh: Any, axis_name: str, model_axis: Optional[str]) -> None:
+    if model_axis is None:
+      self.devices = mesh.grid(axis_name)[:, None]
+    elif model_axis == axis_name:
+      raise ValueError(f"model_axis {model_axis!r} is the env axis")
+    else:
+      self.devices = mesh.grid(axis_name, model_axis)
+    self.rows, self.cols = self.devices.shape
+
+  def place(self, params: Params, grad: bool):
+    """-> (leaves, rows): the tensors autograd differentiates, keyed by
+    (name, block or None, device), one per distinct device (logical shards
+    on one device share them, so autograd sums their gradients); and per
+    row the (whole parameters, weight blocks) its forward uses."""
+    leaves: Dict[Tuple[str, Optional[int], Any], torch.Tensor] = {}
+
+    def leaf(k, m, d, v):
+      if (k, m, d) not in leaves:
+        x = v.detach().to(d)
+        leaves[(k, m, d)] = x.requires_grad_() if grad else x
+      return leaves[(k, m, d)]
+
+    rows = []
+    for r in range(self.rows):
+      whole, columns = {}, {}
+      for k, v in params.items():
+        if self.cols > 1 and v.ndim >= 2:
+          blocks = v.tensor_split(self.cols, 0)
+          columns[k] = [leaf(k, m, self.devices[r, m], blocks[m])
+                        for m in range(self.cols)]
+        else:
+          whole[k] = leaf(k, None, self.devices[r, 0], v)
+      rows.append((whole, columns))
+    return leaves, rows
+
+  def gradients(self, params: Params, leaves, grads, device) -> Params:
+    """The leaves' gradients -> the full gradient on ``device``: summed
+    over the env axis, weight blocks concatenated over the model axis."""
+    acc: Dict[Tuple[str, Optional[int]], List[torch.Tensor]] = {}
+    for (k, m, _), g in zip(leaves, grads):
+      acc.setdefault((k, m), []).append(g.to(device))
+    total = {key: functools.reduce(torch.add, gs) for key, gs in acc.items()}
+    return {
+      k: total[(k, None)] if (k, None) in total
+      else torch.cat([total[(k, m)] for m in range(self.cols)])
+      for k in params
+    }
+
+
+class ShardedPPOTrainStep(PPOTrainStep):
+  """``PPOTrainStep`` over a mesh: the JAX trainer's ``mesh`` /
+  ``axis_name`` / ``model_axis`` (``envpool_tpu/train/ppo.py:78-125``).
+
+  Data parallelism over ``axis_name``: each row of the env axis runs the
+  policy on its block of the batch on its device. The draws keep the
+  unsharded key stream: each is made once at the full batch shape and
+  sliced per row (threefry lays a shape's counters out in two halves, so a
+  row cannot draw its slice alone). In the update, the permutation picks
+  each minibatch's rows as unsharded; each row takes those of its block.
+  The advantage statistics of the minibatch are reduced across rows
+  before any backward pass, each row's loss is its part of the minibatch
+  means, and the gradients are summed across rows, so ``ClipAdam``'s norm
+  sees the full gradient and every replica takes the same step (made once
+  on the first device and copied out). With ``model_axis``, every
+  parameter of two or more dimensions is split over that axis along its
+  output features (``models.nets.forward_split``). The result equals the
+  unsharded trainer's up to the order of float sums.
+  """
+
+  def __init__(self, pool: TorchEnvPool, net: nn.Module, cfg: PPOConfig,
+               tx: ClipAdam, mesh: Any, axis_name: str = "env",
+               model_axis: Optional[str] = None) -> None:
+    super().__init__(pool, net, cfg, tx)
+    self.layout = _MeshLayout(mesh, axis_name, model_axis)
+
+  def _row_apply(self, row, obs: torch.Tensor):
+    whole, columns = row
+    if columns:
+      return forward_split(self.net, whole, columns, obs)
+    return functional_call(self.net, whole, (obs,))
+
+  def _blocks(self, n: int) -> List[slice]:
+    rows = self.layout.rows
+    if n % rows:
+      raise ValueError(f"a batch of {n} does not split over {rows} env shards")
+    b = n // rows
+    return [slice(r * b, (r + 1) * b) for r in range(rows)]
+
+  @torch.no_grad()
+  def rollout(self, state: PPOState):
+    """``num_steps`` pool steps -> (handle, key, per-row trajectories of
+    ``[T, block, ...]`` tensors on the rows' devices, per-row values of the
+    last obs); ``gather`` makes them the unsharded trainer's."""
+    cfg, devs = self.cfg, self.layout.devices
+    handle, key = state.handle, state.key
+    _, rows = self.layout.place(state.params, grad=False)
+    act_dtype = torch.float32 if cfg.continuous else torch.int32
+    steps: List[List[Any]] = [[] for _ in rows]
+    for _ in range(cfg.num_steps):
+      _, states = self._recv(handle)
+      obs = states[self._obs]
+      blocks = self._blocks(obs.shape[0])
+      key, sub = prng.split(key, 2)
+      obs_r = [obs[sl].to(devs[r, 0]) for r, sl in enumerate(blocks)]
+      outs = [self._row_apply(row, o) for row, o in zip(rows, obs_r)]
+      head = outs[0][0][0] if cfg.continuous else outs[0][0]
+      shape = (obs.shape[0], *head.shape[1:])
+      noise = (prng.normal if cfg.continuous else prng.gumbel)(sub, shape)
+      acts = []
+      for r, sl in enumerate(blocks):
+        out, value = outs[r]
+        z = noise[sl].to(devs[r, 0])
+        if cfg.continuous:
+          mean, log_std = out
+          action = mean + torch.exp(log_std) * z
+          logp = _gauss_logp(action, mean, log_std)
+        else:
+          action = torch.argmax(z + out, dim=-1)
+          logp = torch.log_softmax(out, dim=-1).gather(-1, action[:, None])[:, 0]
+        acts.append(action)
+        steps[r].append([obs_r[r], action, logp, value])
+      handle = self._send(
+        handle, torch.cat([a.to(obs.device) for a in acts]).to(act_dtype)
+      )
+      _, nxt = self._recv(handle)
+      for r, sl in enumerate(blocks):
+        steps[r][-1] += [nxt[self._rew][sl].to(devs[r, 0]),
+                         nxt[self._done][sl].to(devs[r, 0])]
+    trajs = [
+      {k: torch.stack(v) for k, v in zip(_TRAJ_KEYS, zip(*row_steps))}
+      for row_steps in steps
+    ]
+    _, states = self._recv(handle)
+    obs = states[self._obs]
+    last = [self._row_apply(row, obs[sl].to(devs[r, 0]))[1]
+            for r, (row, sl) in enumerate(zip(rows, self._blocks(obs.shape[0])))]
+    return handle, key, trajs, last
+
+  @staticmethod
+  def gather(trajs: List[Dict[str, torch.Tensor]], device) -> Dict[str, torch.Tensor]:
+    """Per-row trajectories -> one ``[T, N, ...]`` dict on ``device``."""
+    return {k: torch.cat([t[k].to(device) for t in trajs], 1) for k in trajs[0]}
+
+  def update(self, state: PPOState, rollout) -> Tuple[PPOState, Dict[str, torch.Tensor]]:
+    """GAE per row, then ``update_epochs`` x ``num_minibatches`` steps."""
+    cfg, tx, layout = self.cfg, self.tx, self.layout
+    devs = layout.devices
+    handle, key, trajs, last = rollout
+    dev0 = state.key.device
+    flats = []
+    with torch.no_grad():
+      for traj, lv in zip(trajs, last):
+        adv, returns = compute_gae(traj, lv, cfg.gamma, cfg.gae_lambda)
+        flats.append({
+          "obs": traj["obs"].flatten(0, 1), "action": traj["action"].flatten(0, 1),
+          "logp": traj["logp"].flatten(), "adv": adv.flatten(),
+          "returns": returns.flatten(),
+        })
+    t_len, b = trajs[0]["logp"].shape
+    n_envs = b * layout.rows
+    n = t_len * n_envs
+    mb = n // cfg.num_minibatches
+    params, opt_state = state.params, state.opt_state
+    aux_all = []
+    for _ in range(cfg.update_epochs):
+      key, sub = prng.split(key, 2)
+      # flat index t * N + e of the unsharded batch -> (row, t * b + e % b)
+      perm = prng.permutation(sub, n).cpu().numpy()
+      env = perm % n_envs
+      owner, local = env // b, (perm // n_envs) * b + env % b
+      for i in range(cfg.num_minibatches):
+        sl = slice(i * mb, (i + 1) * mb)
+        batches = []
+        for r in range(layout.rows):
+          idx = torch.from_numpy(local[sl][owner[sl] == r]).to(devs[r, 0])
+          batches.append({k: v[idx] for k, v in flats[r].items()})
+        with torch.no_grad():
+          adv_mean = _sum_to([bt["adv"].sum() for bt in batches], dev0) / mb
+          adv_var = _sum_to([
+            torch.square(bt["adv"] - adv_mean.to(bt["adv"].device)).sum()
+            for bt in batches
+          ], dev0) / mb
+          adv_std = torch.sqrt(adv_var)
+        leaves, rows = layout.place(params, grad=True)
+        totals, auxs = [], []
+        for r, bt in enumerate(batches):
+          if not len(bt["adv"]):
+            continue
+          d = devs[r, 0]
+          total, aux = ppo_loss(
+            self.net, cfg, None, bt, (adv_mean.to(d), adv_std.to(d), mb),
+            apply=functools.partial(self._row_apply, rows[r]),
+          )
+          totals.append(total)
+          auxs.append(aux)
+        grads = torch.autograd.grad(_sum_to(totals, dev0), list(leaves.values()))
+        with torch.no_grad():
+          full = layout.gradients(params, leaves, grads, dev0)
+          updates, opt_state = tx.update(full, opt_state)
+          params = apply_updates(params, updates)
+        aux_all.append({k: _sum_to([a[k].detach() for a in auxs], dev0) for k in auxs[0]})
+    metrics = {k: torch.stack([a[k] for a in aux_all]).mean() for k in aux_all[0]}
+    metrics["mean_reward"] = self.gather(trajs, dev0)["reward"].mean()
+    return PPOState(handle, params, opt_state, key), metrics
+
+
+_TRAJ_KEYS = ("obs", "action", "logp", "value", "reward", "done")
+
+
+def _sum_to(xs: List[torch.Tensor], device) -> torch.Tensor:
+  """The sum of ``xs``, each moved to ``device`` (an all-reduce's value)."""
+  return functools.reduce(torch.add, [x.to(device) for x in xs])
+
+
 def make_ppo_train_step(
-  pool: TorchEnvPool, net: nn.Module, cfg: PPOConfig, tx: ClipAdam
+  pool: TorchEnvPool, net: nn.Module, cfg: PPOConfig, tx: ClipAdam,
+  mesh: Any = None, axis_name: str = "env", model_axis: Optional[str] = None,
 ) -> PPOTrainStep:
-  """The one-iteration training step over ``pool`` (no sharding: see the
-  module docstring)."""
-  return PPOTrainStep(pool, net, cfg, tx)
+  """The one-iteration training step over ``pool``. With ``mesh`` (a
+  ``parallel.Mesh``), the batch is split over its ``axis_name`` axis and,
+  when ``model_axis`` names a second axis, every parameter of two or more
+  dimensions over that one (``ShardedPPOTrainStep``)."""
+  if mesh is None:
+    if model_axis is not None:
+      raise ValueError("model_axis needs a mesh")
+    return PPOTrainStep(pool, net, cfg, tx)
+  return ShardedPPOTrainStep(pool, net, cfg, tx, mesh, axis_name, model_axis)

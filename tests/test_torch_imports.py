@@ -1,6 +1,8 @@
 """The port stands alone: it imports without jax, flax and optax (and
 without optree, gymnasium, dm_env, Box2D and mujoco), lists its ids in the
-JAX package's order, every family steps and one PPO iteration runs so, no
+JAX package's order, every family steps and one PPO iteration and the
+mesh dry run run so, the mesh layer and the utilities load no module of
+jax or the JAX package even where jax is installed, no
 file of it imports jax, flax, optax, Box2D or envpool_tpu, and mujoco is
 imported only inside the model extractor's functions. Its on-device ids
 (those with ``Jax`` in the name) are the JAX package's, in its order."""
@@ -122,6 +124,10 @@ cfg = PPOConfig(num_steps=2, num_minibatches=2)
 state, tx = ppo_init(pool, net, cfg)
 state, metrics = make_ppo_train_step(pool, net, cfg, tx)(state)
 assert sorted(metrics) == ["entropy", "mean_reward", "pg_loss", "v_loss"]
+import envpool_torch.parallel
+import envpool_torch.parallel.dryrun
+import envpool_torch.utils
+envpool_torch.parallel.dryrun.dryrun_multichip(4, device="cpu")
 assert all(sys.modules[m] is None
            for m in ("jax", "flax", "optax", "envpool_tpu", "mujoco", "gymnasium"))
 print("ok")
@@ -133,6 +139,31 @@ def test_imports_without_jax():
   res = subprocess.run(
     [sys.executable, "-c", _CHILD], cwd=ROOT, env=env, capture_output=True,
     text=True, timeout=240,
+  )
+  assert res.returncode == 0, res.stderr
+  assert res.stdout.strip().endswith("ok")
+
+
+_MESH_CHILD = """
+import sys
+import envpool_torch.parallel
+import envpool_torch.parallel.dryrun
+import envpool_torch.utils
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "envpool_tpu"))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_mesh_and_utils_pull_in_no_jax():
+  """With jax installed and importable, importing the mesh layer, the
+  dry run and the utilities loads no module of jax or of the JAX
+  package."""
+  env = dict(os.environ, PYTHONPATH=str(ROOT))
+  res = subprocess.run(
+    [sys.executable, "-c", _MESH_CHILD], cwd=ROOT, env=env,
+    capture_output=True, text=True, timeout=120,
   )
   assert res.returncode == 0, res.stderr
   assert res.stdout.strip().endswith("ok")
