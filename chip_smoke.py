@@ -97,14 +97,15 @@ Phases (any failure exits non-zero before the result lines):
      lanes that ended and their auto-resets, one traced ``xla()`` step
      (Ant and the Humanoids: one traced forward evaluation, times the
      evaluations per step; not a whole step), peak memory, with nothing
-     else running on the host. Then a child process on the CPU
-     (``--cpu-reference``) computes the port's CPU side while the card
+     else running on the host. Then two child processes on the CPU
+     (``--cpu-reference``, 3 cores each: this phase's ids in one, phases
+     13 and 14's in the other) compute the port's CPU side while the card
      computes its own: per model ``step_smooth`` of one env-step (the
      warm-start chain) from seeded float64 states that mix grounded,
      penetrating and airborne ones (256 lanes, the Humanoids 64), held on
      the card to 1e-10 relative with the process asking for TF32; and each
-     id's pool at 256 envs over 20 steps (the Humanoids 10), held on the
-     card by the parted-lanes rule;
+     id's pool at 256 envs over 10 steps (the Humanoids 5; cut in depth to
+     make room for phase 16), held on the card by the parted-lanes rule;
  13. the dm_control device tier (box and tendon rows in the contact
      engine; no kernel of its own): CheetahJaxRun-v1 at 4096 envs over 40
      steps and HumanoidJaxRun-v1 at 1024 over 10 (``bench.py:362-367``'s
@@ -112,7 +113,7 @@ Phases (any failure exits non-zero before the result lines):
      through ``step`` and half in the ``xla()`` loop: env-steps/s, every
      output finite, discount 1, one traced ``xla()`` step (Humanoid: one
      traced forward evaluation times 5), peak memory. Their CPU side runs
-     in phase 12's child process, after every timed cell: per box
+     in phase 12's second child process, after every timed cell: per box
      or tendon model (cartpole three_poles, ball_in_cup, humanoid)
      ``step_smooth`` of one env-step from seeded float64 states (256 lanes,
      humanoid 64) held on the card to 1e-10 relative with TF32 requested;
@@ -125,8 +126,8 @@ Phases (any failure exits non-zero before the result lines):
      widths; cut in depth to make room for phase 15), as phase 13 drives
      its cells (Pusher one traced ``xla()``
      step; the others one traced forward evaluation times 10). Their CPU
-     side runs in phase 12's child after every timed cell: per model one
-     float64 env-step (Pusher's finger against the object, insert_peg's
+     side runs in phase 12's second child after every timed cell: per model
+     one float64 env-step (Pusher's finger against the object, insert_peg's
      peg in its slot, humanoid_CMU low over the floor) held on the card to
      1e-10 relative with TF32 requested; each of the 7 new ids at 64 envs
      (Pusher 10 steps, manipulator 5, humanoid_CMU 3) held on the card by
@@ -144,7 +145,24 @@ Phases (any failure exits non-zero before the result lines):
      agree, the differing actions within a bound, the metrics within rtol
      1e-3; a file checkpoint of the 4-shard Sokoban pool replayed bit for
      bit; a ``trace`` that lists CUDA kernels; ``dryrun_multichip(8)``;
- 16. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
+ 16. the host tier (``HostEnvPool`` and its bridge to the card; no kernel
+     of its own): the port's Atari wrapper stack at the JAX package's
+     defaults (gray, 84x84, stack 4, frame_skip 4, noop_max 30) over a
+     scripted emulator with ``tests/test_atari_stack.py``'s rules (the
+     card's machine has no ale_py and no ROM), 256 envs on as many threads
+     as the host has cores: reset + 200 steps through ``step``, an async
+     pool (batch 64) for 200 recv/send rounds, and ``xla()`` loops on
+     cuda:0 of 200 steps with the actions on the card and of 50 with the
+     actions on the host: env-steps/s, host ms per step, bytes and
+     CUDA-event time of the copy to the card per step and how much of it
+     the host waits for; every output of
+     both ``xla()`` loops, kept on the card, bit for bit against the
+     ``step`` loop's outputs at the same seed and actions; every lane lost
+     a life and ended a game, with the common fields' override rules after
+     each; the registry lists every id, and making ``Hopper-v4`` and
+     ``CheetahRun-v1`` without mujoco raises an ImportError that names it
+     (with mujoco, 8 envs x 20 ``xla()`` steps of each on the card);
+ 17. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or outside a checkout, it fails and prints no result.
 """
@@ -1580,13 +1598,14 @@ CONTACT_TRACE_STEP = ("HalfCheetahJax-v4", "HopperJax-v4", "Walker2dJax-v4")
 # the card against the CPU port: float64 step_smooth of one env-step (the
 # warm-start chain included) from seeded states, 256 lanes (the Humanoids
 # 64), to 1e-10 relative with TF32 requested; the float32 pools at 256 envs
-# over 20 steps (the Humanoids 10), lanes that part counted against the
-# id's share. HalfCheetah's Euler contacts part lanes at float32 rounding
-# (the JAX package against itself at two XLA optimisation levels parts 7
-# of 16 lanes in 20 steps); no lane of the others parted on the CPU. The
-# others' shares are set from the readings on an H100 (PERF.md section 5;
-# the same in every run): twice the lanes that parted, at least 3 of 256
-CONTACT_CMP_STEPS = {t: 10 if t.startswith("Humanoid") else 20 for t in CONTACT_RUNS}
+# over 10 steps (the Humanoids 5; 20 and 10 until phase 16 came), lanes
+# that part counted against the id's share. HalfCheetah's Euler contacts
+# part lanes at float32 rounding (the JAX package against itself at two
+# XLA optimisation levels parts 7 of 16 lanes in 20 steps); no lane of the
+# others parted on the CPU. The others' shares are set from the readings
+# on an H100 (PERF.md section 5; the same in every run): twice the lanes
+# that parted, at least 3 of 256
+CONTACT_CMP_STEPS = {t: 5 if t.startswith("Humanoid") else 10 for t in CONTACT_RUNS}
 CONTACT_F64_LANES = {t: 64 if t.startswith("Humanoid") else 256 for t in CONTACT_RUNS}
 CONTACT_PARTED = {
   "HalfCheetahJax-v4": 0.5, "HopperJax-v4": 3 / MUJOCO_CMP_ENVS,
@@ -1766,59 +1785,69 @@ def last_cmp_actions(envpool_torch, task_id):
                         LAST_CMP_ENVS)
 
 
-def cpu_reference(path: str) -> int:
-  """The CPU side of phases 12, 13 and 14, in a process of its own: per
-  contact id the float64 env-step from ``contact_states`` and the float32
-  pool's outputs, per dm_control model of ``DMC_F64`` its float64 env-step,
-  per id of ``DMC_CMP`` its pool's outputs, and phase 14's of ``LAST_F64``
-  and ``LAST_CMP``, written to ``path`` (npz)."""
+# the CPU side of phases 12-14 in two processes at once, each with 3 of the
+# host's 8 cores (one process with 6 until phase 16 came): the contact ids,
+# and the rest
+REFERENCE_PARTS = ("contact", "rest")
+
+
+def cpu_reference(part: str, path: str) -> int:
+  """The CPU side of phases 12, 13 and 14, in a process of its own: for
+  ``part`` "contact", per contact id the float64 env-step from
+  ``contact_states`` and the float32 pool's outputs; for "rest", per
+  dm_control model of ``DMC_F64`` its float64 env-step, per id of
+  ``DMC_CMP`` its pool's outputs, and phase 14's of ``LAST_F64`` and
+  ``LAST_CMP``; written to ``path`` (npz)."""
   import torch
 
   sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
   import envpool_torch
 
-  torch.set_num_threads(6)
+  torch.set_num_threads(3)
   out = {}
-  for task_id in CONTACT_RUNS:
-    t0 = time.perf_counter()
-    mdl, nstep, arrays = contact_float64_inputs(envpool_torch, task_id)
-    out[f"{task_id}/f64/q"], out[f"{task_id}/f64/v"] = mujoco_step64(
-      torch, mdl, nstep, arrays, "cpu")
-    keys, outs, _ = pool_run(envpool_torch, task_id, "cpu",
-                             contact_cmp_actions(envpool_torch, task_id), {})
-    for t, o in enumerate(outs):
-      for k, x in zip(keys, o):
-        out[f"{task_id}/pool/{t}/{k}"] = np.asarray(x)
-    print(f"cpu reference {task_id}: {time.perf_counter() - t0:.1f} s", flush=True)
-  for name in DMC_F64:
-    t0 = time.perf_counter()
-    mdl, nstep, arrays = dmc_float64_inputs(name)
-    out[f"{name}/f64/q"], out[f"{name}/f64/v"] = mujoco_step64(
-      torch, mdl, nstep, arrays, "cpu")
-    print(f"cpu reference {name} float64: {time.perf_counter() - t0:.1f} s", flush=True)
-  for task_id in DMC_CMP:
-    t0 = time.perf_counter()
-    keys, outs, _ = pool_run(envpool_torch, task_id, "cpu",
-                             dmc_cmp_actions(envpool_torch, task_id), {})
-    for t, o in enumerate(outs):
-      for k, x in zip(keys, o):
-        out[f"{task_id}/pool/{t}/{k}"] = np.asarray(x)
-    print(f"cpu reference {task_id}: {time.perf_counter() - t0:.1f} s", flush=True)
-  for task_id in LAST_F64:
-    t0 = time.perf_counter()
-    mdl, nstep, arrays, mut = last_float64_inputs(torch, envpool_torch, task_id)
-    out[f"{task_id}/f64/q"], out[f"{task_id}/f64/v"] = mujoco_step64(
-      torch, mdl, nstep, arrays, "cpu", mut)
-    print(f"cpu reference {task_id} float64: {time.perf_counter() - t0:.1f} s",
-          flush=True)
-  for task_id in LAST_CMP:
-    t0 = time.perf_counter()
-    keys, outs, _ = pool_run(envpool_torch, task_id, "cpu",
-                             last_cmp_actions(envpool_torch, task_id), {})
-    for t, o in enumerate(outs):
-      for k, x in zip(keys, o):
-        out[f"{task_id}/pool/{t}/{k}"] = np.asarray(x)
-    print(f"cpu reference {task_id}: {time.perf_counter() - t0:.1f} s", flush=True)
+  if part == "contact":
+    for task_id in CONTACT_RUNS:
+      t0 = time.perf_counter()
+      mdl, nstep, arrays = contact_float64_inputs(envpool_torch, task_id)
+      out[f"{task_id}/f64/q"], out[f"{task_id}/f64/v"] = mujoco_step64(
+        torch, mdl, nstep, arrays, "cpu")
+      keys, outs, _ = pool_run(envpool_torch, task_id, "cpu",
+                               contact_cmp_actions(envpool_torch, task_id), {})
+      for t, o in enumerate(outs):
+        for k, x in zip(keys, o):
+          out[f"{task_id}/pool/{t}/{k}"] = np.asarray(x)
+      print(f"cpu reference {task_id}: {time.perf_counter() - t0:.1f} s", flush=True)
+  else:
+    for name in DMC_F64:
+      t0 = time.perf_counter()
+      mdl, nstep, arrays = dmc_float64_inputs(name)
+      out[f"{name}/f64/q"], out[f"{name}/f64/v"] = mujoco_step64(
+        torch, mdl, nstep, arrays, "cpu")
+      print(f"cpu reference {name} float64: {time.perf_counter() - t0:.1f} s",
+            flush=True)
+    for task_id in DMC_CMP:
+      t0 = time.perf_counter()
+      keys, outs, _ = pool_run(envpool_torch, task_id, "cpu",
+                               dmc_cmp_actions(envpool_torch, task_id), {})
+      for t, o in enumerate(outs):
+        for k, x in zip(keys, o):
+          out[f"{task_id}/pool/{t}/{k}"] = np.asarray(x)
+      print(f"cpu reference {task_id}: {time.perf_counter() - t0:.1f} s", flush=True)
+    for task_id in LAST_F64:
+      t0 = time.perf_counter()
+      mdl, nstep, arrays, mut = last_float64_inputs(torch, envpool_torch, task_id)
+      out[f"{task_id}/f64/q"], out[f"{task_id}/f64/v"] = mujoco_step64(
+        torch, mdl, nstep, arrays, "cpu", mut)
+      print(f"cpu reference {task_id} float64: {time.perf_counter() - t0:.1f} s",
+            flush=True)
+    for task_id in LAST_CMP:
+      t0 = time.perf_counter()
+      keys, outs, _ = pool_run(envpool_torch, task_id, "cpu",
+                               last_cmp_actions(envpool_torch, task_id), {})
+      for t, o in enumerate(outs):
+        for k, x in zip(keys, o):
+          out[f"{task_id}/pool/{t}/{k}"] = np.asarray(x)
+      print(f"cpu reference {task_id}: {time.perf_counter() - t0:.1f} s", flush=True)
   np.savez(path, **out)
   return 0
 
@@ -1826,10 +1855,10 @@ def cpu_reference(path: str) -> int:
 def contact_phase(torch, envpool_torch, device, card, scratch: str):
   """Phases 12, 13 and 14: the six contact ids', the two dm_control cells'
   and phase 14's three cells' throughput runs first, with nothing else on
-  the host; then a child process (no card) computes the CPU reference of
-  the three phases while the card computes its side of the comparisons;
-  then each id is held to it. Returns (phase 12's results, phase 13's,
-  phase 14's)."""
+  the host; then two child processes (no card) compute the CPU reference
+  of the three phases while the card computes its side of the
+  comparisons; then each id is held to it. Returns (phase 12's results,
+  phase 13's, phase 14's)."""
   t12 = time.perf_counter()
   res = {t: mujoco_family(torch, envpool_torch, device, t, card, n, steps,
                           trace_step=t in CONTACT_TRACE_STEP)
@@ -1846,14 +1875,17 @@ def contact_phase(torch, envpool_torch, device, card, scratch: str):
           for t, (n, steps) in LAST_RUNS.items()}
   log(f"phase 14 throughput runs: {time.perf_counter() - t14:.1f} s")
   t12c = time.perf_counter()
-  ref_path = os.path.join(scratch, "contact_reference.npz")
-  log_path = os.path.join(scratch, "contact_reference.log")
   env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-  with open(log_path, "w") as log_file:
-    child = subprocess.Popen(
-      [sys.executable, os.path.abspath(__file__), "--cpu-reference", ref_path],
-      stdout=log_file, stderr=subprocess.STDOUT, env=env)
+  children = []
   try:
+    for part in REFERENCE_PARTS:
+      ref_path = os.path.join(scratch, f"reference_{part}.npz")
+      log_path = os.path.join(scratch, f"reference_{part}.log")
+      with open(log_path, "w") as log_file:
+        children.append((ref_path, log_path, subprocess.Popen(
+          [sys.executable, os.path.abspath(__file__), "--cpu-reference", part,
+           ref_path],
+          stdout=log_file, stderr=subprocess.STDOUT, env=env)))
     on_card = {}
     for task_id in CONTACT_RUNS:
       mdl, nstep, arrays = contact_float64_inputs(envpool_torch, task_id)
@@ -1879,18 +1911,21 @@ def contact_phase(torch, envpool_torch, device, card, scratch: str):
       last_pools[task_id] = keys, got
     log(f"contact, dm_control and phase 14 card side of the comparisons: "
         f"{time.perf_counter() - t12c:.1f} s")
-    rc = child.wait(timeout=900)
+    rcs = [child.wait(timeout=900) for _, _, child in children]
   finally:
-    if child.poll() is None:
-      child.kill()
-      child.wait()
-  with open(log_path) as f:
-    for line in f.read().splitlines()[-20:]:
-      log(f"  {line}")
-  if rc != 0:
-    raise AssertionError(f"the CPU reference process exited {rc}")
-  with np.load(ref_path) as ref:
-    ref = {k: ref[k] for k in ref.files}
+    for _, _, child in children:
+      if child.poll() is None:
+        child.kill()
+        child.wait()
+  ref = {}
+  for (ref_path, log_path, _), rc in zip(children, rcs):
+    with open(log_path) as f:
+      for line in f.read().splitlines()[-20:]:
+        log(f"  {line}")
+    if rc != 0:
+      raise AssertionError(f"the CPU reference process {log_path} exited {rc}")
+    with np.load(ref_path) as part:
+      ref.update({k: part[k] for k in part.files})
   for task_id, (nstep, step64, keys, got) in on_card.items():
     f64 = mujoco_float64(task_id, nstep, step64,
                          [ref[f"{task_id}/f64/q"], ref[f"{task_id}/f64/v"]])
@@ -2203,9 +2238,303 @@ def checkpoint_and_trace(torch, envpool_torch, pool, scratch, card) -> dict:
   return {"checkpoint_bytes": size, "trace_kernel_events": in_file}
 
 
+# --------------------------------------------------------------- phase 16
+
+# the host tier's cell: the Atari wrapper stack at the JAX package's
+# defaults (gray, 84x84, stack 4, frame_skip 4, noop_max 30; the registry's
+# cap of 27000) over a scripted emulator, since the card's machine has no
+# ale_py and no ROM; num_threads = the host's cores
+HOST_ENVS = 256
+HOST_STEPS = 200
+HOST_ASYNC_BATCH = 64
+HOST_OVERLAP_STEPS = 50  # the xla() loop with the actions on the host
+HOST_ACTIONS = 4  # the scripted emulator's minimal action set
+
+
+class ScriptedALE:
+  """An emulator with ``tests/test_atari_stack.py``'s ``FakeALE`` rules:
+  210x160 screens holding the frame counter, 3 lives (one lost every 37
+  acts), game over at ``end_at`` acts or with no life left, reward = the
+  action's value."""
+
+  def __init__(self, end_at=1000):
+    self.t = 0
+    self.end_at = end_at
+    self._lives = 3
+
+  def getMinimalActionSet(self):
+    return [0, 1, 3, 4]
+
+  def getLegalActionSet(self):
+    return list(range(18))
+
+  def act(self, a):
+    self.t += 1
+    if self.t % 37 == 36:
+      self._lives -= 1
+    return float(a)
+
+  def game_over(self):
+    return self.t >= self.end_at or self._lives <= 0
+
+  def lives(self):
+    return self._lives
+
+  def reset_game(self):
+    self.t = 0
+    self._lives = 3
+
+  def getScreenGrayscale(self, buf):
+    buf[:] = self.t % 256
+
+  def getScreenRGB(self, buf):
+    buf[:] = self.t % 256
+
+
+def scripted_atari_pool(atari, device, **kw):
+  """The port's Atari gymnasium pool over ``ScriptedALE`` (the caller has
+  set ``atari_env._make_ale``)."""
+  config = dict(num_envs=HOST_ENVS, seed=SEED, max_episode_steps=27000,
+                num_threads=os.cpu_count())
+  config.update(kw)
+  spec = atari.AtariEnvSpec(atari.AtariEnvSpec.gen_config(**config))
+  return atari.AtariGymnasiumEnvPool(spec, device)
+
+
+def host_sync_loop(pool, acts):
+  """Reset + a step per action row through the user's ``step`` path
+  (``send``, then ``recv``'s ``_recv`` and conversion), keeping each raw
+  output list. Returns (outputs, reset s, steps s)."""
+  t0 = time.perf_counter()
+  pool._reset(pool.all_env_ids)
+  outs = [pool._recv()]
+  pool._to(outs[0], True, True)
+  t1 = time.perf_counter()
+  for act in acts:
+    pool.send(act)
+    outs.append(pool._recv())
+    pool._to(outs[-1], False, True)
+  return outs, t1 - t0, time.perf_counter() - t1
+
+
+def host_async_rate(pool, rounds, rng) -> float:
+  """env-steps/s of ``rounds`` recv/send rounds of an async pool from its
+  ``async_reset``."""
+  t0 = time.perf_counter()
+  pool.async_reset()
+  for _ in range(rounds):
+    obs, rew, term, trunc, info = pool.recv()
+    ids = info["env_id"]
+    pool.send(rng.integers(0, HOST_ACTIONS, len(ids)).astype(np.int32), ids)
+  return rounds * pool.config["batch_size"] / (time.perf_counter() - t0)
+
+
+def host_xla_loop(torch, pool, acts, wait: bool):
+  """``pool.reset()`` through the host API, then one ``xla()`` step per
+  action (card tensors or numpy). With ``wait`` (card actions, whose read
+  waits for the previous step's copy in stream order) that wait is made
+  before each step and timed: the part of the copy the host does not hide.
+  Returns (card outputs per step, steps s, per-step host ms, the copies'
+  (start, end, bytes), the waits in ms, how many copies had landed when
+  the next step returned)."""
+  pool.reset()
+  handle, _, _, step = pool.xla()
+  outs, step_ms, events, waits, landed = [], [], [], [], 0
+  t0 = time.perf_counter()
+  for act in acts:
+    if events and wait:
+      tw = time.perf_counter()
+      events[-1][1].synchronize()
+      waits.append(1e3 * (time.perf_counter() - tw))
+    ts = time.perf_counter()
+    handle, out = step(handle, act)
+    step_ms.append(1e3 * (time.perf_counter() - ts))
+    if events and events[-1][1].query():
+      landed += 1
+    events.append(pool.last_copy)
+    outs.append(out)
+  torch.cuda.synchronize()
+  return outs, time.perf_counter() - t0, step_ms, events, waits, landed
+
+
+def same_as_host(torch, outs, want, keys, tag) -> None:
+  """Card outputs equal to the host API's, field by field, bit for bit."""
+  for t, (got, ref) in enumerate(zip(outs, want)):
+    for k, g, w in zip(keys, got, ref):
+      if g.device != torch.device("cuda", 0):
+        raise AssertionError(f"{tag} step {t} {k} on {g.device}")
+      g = g.cpu().numpy()
+      if g.dtype != w.dtype or not np.array_equal(g, w):
+        raise AssertionError(f"{tag} step {t} {k}: differs from the host API")
+
+
+def check_atari_stack(outs, keys) -> dict:
+  """The wrapper stack's rules on every lane (``tests/
+  test_atari_stack.py``, ``test_torch_atari_stack.py``): every lane lost a
+  life and ended a game; after a game over a FIRST step with reward 0 and
+  elapsed_step 0; LAST exactly at done; otherwise elapsed_step counts
+  steps; a life loss alone ends nothing (episodic_life is off)."""
+  col = {k: np.stack([o[keys.index(k)] for o in outs]) for k in (
+    "done", "step_type", "elapsed_step", "reward", "info:lives",
+    "info:terminated",
+  )}
+  after_done, game_over = col["done"][:-1], col["info:terminated"][:-1] == 1
+  nxt = slice(1, None)
+  rules = {
+    "every lane lost a life": (col["info:lives"] < 3).any(0).all(),
+    "every lane ended a game": game_over.any(0).all(),
+    "done only at game over": np.array_equal(after_done, game_over),
+    "FIRST after done": (col["step_type"][nxt][after_done] == 0).all(),
+    "reward 0 after done": (col["reward"][nxt][after_done] == 0).all(),
+    "elapsed 0 after done": (col["elapsed_step"][nxt][after_done] == 0).all(),
+    "LAST exactly at done": np.array_equal(col["step_type"] == 2, col["done"]),
+    "elapsed counts steps": np.array_equal(
+      col["elapsed_step"][nxt][~after_done],
+      col["elapsed_step"][:-1][~after_done] + 1),
+    "obs shape": outs[0][keys.index("obs")].shape == (HOST_ENVS, 4, 84, 84),
+  }
+  broken = [k for k, ok in rules.items() if not ok]
+  if broken:
+    raise AssertionError(f"Atari wrapper stack: {broken}")
+  return {"games_ended": int(game_over.sum()), "lives_lost_steps":
+          int((np.diff(col["info:lives"], axis=0) < 0).sum())}
+
+
+def host_registry(torch, envpool_torch, card) -> dict:
+  """Every id is listed without mujoco or ale_py; making a MuJoCo host id
+  needs mujoco (an ImportError that names it), and where it is installed 8
+  envs x 20 steps of each land on the card through ``xla()``."""
+  import importlib
+
+  from envpool_torch.core.host_pool import HostEnvPool
+
+  ids = envpool_torch.list_all_envs()
+  host = []
+  for task_id in ids:
+    path, cls = envpool_torch.registration.registry.envpools[task_id]["gymnasium"]
+    if issubclass(getattr(importlib.import_module(path), cls), HostEnvPool):
+      host.append(task_id)
+  try:
+    import mujoco  # noqa: F401
+    have_mujoco = True
+  except ImportError:
+    have_mujoco = False
+  if len(ids) < 135 or len(host) < 59:
+    raise AssertionError(f"registry: {len(ids)} ids, {len(host)} host ids")
+  made = {}
+  for task_id, n_act in (("Hopper-v4", 3), ("CheetahRun-v1", 6)):
+    if not have_mujoco:
+      try:
+        envpool_torch.make_gymnasium(task_id, num_envs=8, seed=SEED)
+      except ImportError as e:
+        if "mujoco" not in str(e):
+          raise AssertionError(f"{task_id}: {e!r} does not name mujoco")
+        made[task_id] = f"ImportError: {e}"
+        continue
+      raise AssertionError(f"{task_id} was built without mujoco")
+    pool = envpool_torch.make_gymnasium(task_id, num_envs=8, seed=SEED)
+    handle, _, _, step = pool.xla()
+    for _ in range(20):
+      handle, out = step(handle, torch.zeros((8, n_act), device="cuda"))
+      if any(o.device != torch.device("cuda", 0) for o in out):
+        raise AssertionError(f"{task_id}: an xla() output is not on cuda:0")
+    made[task_id] = "8 envs x 20 xla() steps on cuda:0"
+  log(f"registry: {len(ids)} ids listed ({len(host)} of the host tier), "
+      f"mujoco {'present' if have_mujoco else 'absent'}: " +
+      "; ".join(f"{t} {r}" for t, r in made.items()) + f" [{card}]")
+  return {"ids": len(ids), "host_ids": len(host), "mujoco": have_mujoco,
+          "made": made}
+
+
+def host_tier(torch, envpool_torch, card) -> dict:
+  """Phase 16: the host tier's bridge to the card over the Atari stack."""
+  from envpool_torch.envs import atari
+  from envpool_torch.envs.atari import atari_env
+
+  make_ale = atari_env._make_ale
+  atari_env._make_ale = lambda task, seed, rap: ScriptedALE()
+  try:
+    rng = np.random.default_rng(SEED + 60)
+    acts = rng.integers(0, HOST_ACTIONS, (HOST_STEPS, HOST_ENVS)).astype(np.int32)
+    # 1. sync: reset + HOST_STEPS steps through step, the twin of loop 3
+    pool = scripted_atari_pool(atari, "cuda")
+    keys = pool.spec._state_keys
+    want, reset_s, sync_s = host_sync_loop(pool, acts)
+    del pool
+    stack = check_atari_stack(want, keys)
+    # 2. async: batch HOST_ASYNC_BATCH of HOST_ENVS
+    pool = scripted_atari_pool(atari, "cuda", batch_size=HOST_ASYNC_BATCH)
+    async_sps = host_async_rate(pool, HOST_STEPS, rng)
+    del pool
+    # 3. the xla() loop on cuda:0 with the actions on the card
+    pool = scripted_atari_pool(atari, "cuda")
+    outs, xla_s, step_ms, events, waits, _ = host_xla_loop(
+      torch, pool, torch.from_numpy(acts).to("cuda"), wait=True)
+    n_bytes = events[-1][2]
+    copy_ms = [s.elapsed_time(e) for s, e, _ in events]
+    same_as_host(torch, outs, want[1:], keys, "xla() with card actions")
+    del outs
+    bridge_ms = np.mean([host_ms(torch, lambda: pool._to_device(want[-1]))
+                         for _ in range(20)])
+    del pool
+    # 4. the xla() loop with the actions on the host: the copy can overlap
+    # the next step's host work
+    pool = scripted_atari_pool(atari, "cuda")
+    outs, xla_host_s, step_ms_h, events_h, _, landed = host_xla_loop(
+      torch, pool, acts[:HOST_OVERLAP_STEPS], wait=False)
+    copy_ms_h = [s.elapsed_time(e) for s, e, _ in events_h]
+    same_as_host(torch, outs, want[1:], keys, "xla() with host actions")
+    del outs, pool
+    registry = host_registry(torch, envpool_torch, card)
+  finally:
+    atari_env._make_ale = make_ale
+    atari_env._action_set_size.cache_clear()
+  steps = HOST_STEPS * HOST_ENVS
+  res = {
+    "envs": HOST_ENVS, "steps": HOST_STEPS, "threads": os.cpu_count(),
+    "sync_sps": steps / sync_s, "sync_host_ms_per_step": 1e3 * sync_s / HOST_STEPS,
+    "reset_s": reset_s, "async_sps": async_sps,
+    "xla_sps": steps / xla_s, "xla_host_ms_per_step": float(np.mean(step_ms)),
+    "bytes_per_step": n_bytes,
+    "copy_ms_mean": float(np.mean(copy_ms)), "copy_ms_max": float(np.max(copy_ms)),
+    "copy_gbps": n_bytes / np.mean(copy_ms) / 1e6,
+    "bridge_ms": float(bridge_ms),
+    "exposed_wait_ms_mean": float(np.mean(waits)),
+    "xla_host_actions_sps": HOST_OVERLAP_STEPS * HOST_ENVS / xla_host_s,
+    "xla_host_actions_host_ms_per_step": float(np.mean(step_ms_h)),
+    "copy_ms_mean_host_actions": float(np.mean(copy_ms_h)),
+    "copies_landed_before_next_step_returned": landed,
+    **stack, "registry": registry,
+  }
+  log(f"host tier (Atari stack over a scripted emulator, {HOST_ENVS} envs, "
+      f"{os.cpu_count()} threads): step {res['sync_sps']:.1f} env-steps/s "
+      f"({res['sync_host_ms_per_step']:.2f} host ms per step, reset "
+      f"{reset_s:.2f} s); async batch {HOST_ASYNC_BATCH} {async_sps:.1f} "
+      f"env-steps/s; xla() on cuda:0 {res['xla_sps']:.1f} env-steps/s "
+      f"({res['xla_host_ms_per_step']:.2f} host ms per step) [{card}]")
+  log(f"host-to-card copy per step: {n_bytes} B (obs {HOST_ENVS * 4 * 84 * 84} B), "
+      f"{res['copy_ms_mean']:.4f} ms mean / {res['copy_ms_max']:.4f} max by CUDA "
+      f"events ({res['copy_gbps']:.2f} GB/s); the bridge (staging into "
+      f"page-locked memory, the copies, a synchronise) {bridge_ms:.3f} ms, "
+      f"{100 * bridge_ms / res['xla_host_ms_per_step']:.2f}% of an xla() step; "
+      f"with the actions on the card the "
+      f"next step's action read waits {res['exposed_wait_ms_mean']:.4f} ms for "
+      f"it; with host actions {res['xla_host_actions_sps']:.1f} env-steps/s "
+      f"({res['xla_host_actions_host_ms_per_step']:.2f} host ms per step), copy "
+      f"{res['copy_ms_mean_host_actions']:.4f} ms, {landed} of "
+      f"{HOST_OVERLAP_STEPS - 1} copies landed while the next step ran over "
+      f"{HOST_OVERLAP_STEPS} steps [{card}]")
+  log(f"host tier checks: every output of both xla() loops ({HOST_STEPS} and "
+      f"{HOST_OVERLAP_STEPS} steps) equal to the host API's, every field bit "
+      f"for bit, on cuda:0; "
+      f"{stack['games_ended']} games ended, every lane lost a life and ended "
+      f"a game, the override rules held")
+  return res
+
+
 def main(argv) -> int:
-  if argv[:1] == ["--cpu-reference"]:  # phases 12, 13 and 14's child process
-    return cpu_reference(argv[1])
+  if argv[:1] == ["--cpu-reference"]:  # phases 12, 13 and 14's children
+    return cpu_reference(argv[1], argv[2])
 
   import torch
 
@@ -2404,7 +2733,7 @@ def main(argv) -> int:
   os.makedirs(scratch, exist_ok=True)
   # 13. the dm_control device tier: CheetahJaxRun-v1 and HumanoidJaxRun-v1
   # 14. the rest of the device tier: Pusher, manipulator, humanoid_CMU; then
-  # the comparisons of phases 12, 13 and 14 together (one CPU child)
+  # the comparisons of phases 12, 13 and 14 together (two CPU children)
   contact, dmc, last = contact_phase(torch, envpool_torch, device, card, scratch)
   log(f"MuJoCo contact, dm_control and phase 14: {time.perf_counter() - t12:.1f} s")
   log(json.dumps({"mujoco_contact": contact}))
@@ -2428,8 +2757,15 @@ def main(argv) -> int:
   log(f"sharding phase: {time.perf_counter() - t15:.1f} s")
   log(json.dumps({"sharding": shard}))
 
+  # 16. the host tier: the Atari stack over a scripted emulator through
+  # step, an async pool and xla() on cuda:0; the registry without mujoco
+  t16 = time.perf_counter()
+  host = host_tier(torch, envpool_torch, card)
+  log(f"host tier phase: {time.perf_counter() - t16:.1f} s")
+  log(json.dumps({"host_tier": host}))
+
   log(f"total {time.perf_counter() - t_start:.1f} s")
-  # 16. results
+  # 17. results
   main_case = kres["cases"]["real_fine"]
   kernel = {
     "name": "car_racing_sampler",

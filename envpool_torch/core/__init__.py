@@ -1,9 +1,10 @@
-"""Core runtime of the port: specs, functional env interface, pool engine,
-dialects and the threefry PRNG."""
+"""Core runtime of the port: specs, functional env interface, the device
+pool engine and the host tier's engine, dialects and the threefry PRNG."""
 
 from envpool_torch.core.env import FuncEnv
 from envpool_torch.core.env_spec import EnvSpec
 from envpool_torch.core.envpool_api import py_env
+from envpool_torch.core.host_pool import HostEnv, HostEnvPool
 from envpool_torch.core.pool import (
   PoolState,
   TorchEnvPool,
@@ -16,6 +17,8 @@ __all__ = [
   "ArraySpec",
   "EnvSpec",
   "FuncEnv",
+  "HostEnv",
+  "HostEnvPool",
   "PoolState",
   "TorchEnvPool",
   "XlaHandle",

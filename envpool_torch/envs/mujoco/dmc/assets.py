@@ -2,9 +2,10 @@
 
 A copy of ``envpool_tpu/envs/mujoco/dmc/assets.py``: the strings and
 templates of all 15 domains, unchanged, and ``DMC_XMLS``, the model
-variants built from them. Only the model writer reads them
-(``device_model.write_models``); the port runs from the ``.npz`` files it
-extracted under ``models/dmc/``. The replicas keep the task-relevant
+variants built from them. The host tier's domains (``domains.py``) load
+them into ``mujoco``; on the device tier only the model writer reads them
+(``device_model.write_models``), and the port runs from the ``.npz`` files
+it extracted under ``models/dmc/``. The replicas keep the task-relevant
 structure of the suite models (joint topology, actuation gearing, the named
 geoms, sites and sensors the task logic reads, timesteps); purely visual
 elements (materials, skybox, cameras) are omitted.

@@ -122,3 +122,51 @@ def test_gym_dialect_async(modern_gym):
     seen.update(info["env_id"].tolist())
     env.send(np.zeros(3, np.int32), info["env_id"])
   assert seen == set(range(6))
+
+
+# the host tier: the dialect veneer over a HostEnvPool, whose _recv gives
+# numpy arrays
+
+
+def _same_tree(got, want):
+  if isinstance(want, (tuple, dict)):
+    assert len(got) == len(want)
+    for k in (want if isinstance(want, dict) else range(len(want))):
+      _same_tree(got[k], want[k])
+  else:
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_host_pool_legacy_gym_matches_jax(legacy_gym):
+  """Hopper-v4 through the legacy dialect: the bare-obs reset, the 4-tuple
+  and ``TimeLimit.truncated`` at the cap, each value equal to the JAX
+  package's gym dialect at the same seed and actions."""
+  import envpool_tpu
+
+  cap = 3
+  env = _make("Hopper-v4", num_envs=2, seed=0, max_episode_steps=cap)
+  twin = envpool_tpu.make_gym("Hopper-v4", num_envs=2, seed=0,
+                              max_episode_steps=cap)
+  out, want = env.reset(), twin.reset()
+  assert isinstance(out, np.ndarray) and out.shape == (2, 11)
+  np.testing.assert_array_equal(out, want)
+  act = np.full((2, 3), 0.1)
+  for _ in range(cap):
+    out, want = env.step(act), twin.step(act)
+    assert len(out) == 4
+    _same_tree(out, want)
+  obs, rew, done, info = out
+  assert np.all(done) and np.all(info["TimeLimit.truncated"])
+
+
+def test_host_pool_gym_dialect_async(modern_gym):
+  env = _make("CheetahRun-v1", num_envs=6, batch_size=3, seed=0)
+  env.async_reset()
+  seen = set()
+  for _ in range(8):
+    obs, rew, term, trunc, info = env.recv()
+    assert obs["position"].shape == (3, 8) and obs["velocity"].shape == (3, 9)
+    seen.update(info["env_id"].tolist())
+    env.send(np.zeros((3, 6)), info["env_id"])
+  assert seen == set(range(6))

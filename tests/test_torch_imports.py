@@ -1,13 +1,15 @@
 """The port stands alone: it imports without jax, flax and optax (and
-without optree, gymnasium, dm_env, Box2D and mujoco), lists its ids in the
-JAX package's order, every family steps and one PPO iteration and the
-mesh dry run run so, the mesh layer and the utilities load no module of
-jax or the JAX package even where jax is installed, no
-file of it imports jax, flax, optax, Box2D or envpool_tpu, and mujoco is
-imported only inside the model extractor's functions. Its on-device ids
-(those with ``Jax`` in the name) are the JAX package's, in its order."""
+without optree, gymnasium, dm_env, Box2D, mujoco and ale_py), lists all of
+the JAX package's ids in its order (the host tier's too: making a MuJoCo
+or dm_control host id then raises an ImportError that names mujoco), every
+device family steps and one PPO iteration and the mesh dry run run so, the
+mesh layer and the utilities load no module of jax or the JAX package even
+where jax is installed, no file of it imports jax, flax, optax, Box2D or
+envpool_tpu, and mujoco, gymnasium and ale_py are imported only inside
+functions. Its ids are the JAX package's, in its order."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -16,9 +18,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 _CHILD = """
+import json
+import os
 import sys
 for name in ("jax", "jaxlib", "flax", "optax", "optree", "gymnasium", "dm_env",
-             "envpool_tpu", "Box2D", "mujoco"):
+             "envpool_tpu", "Box2D", "mujoco", "ale_py"):
   sys.modules[name] = None
 import numpy as np
 import torch
@@ -27,35 +31,19 @@ import envpool_torch
 import envpool_torch.models
 import envpool_torch.ops
 import envpool_torch.train
-assert envpool_torch.list_all_envs() == [
-  "Dummy-v0", "CartPole-v0", "CartPole-v1", "Pendulum-v0", "Pendulum-v1",
-  "MountainCar-v0", "MountainCarContinuous-v0", "Acrobot-v1", "Catch-v0",
-  "FrozenLake-v1", "FrozenLake8x8-v1", "Taxi-v3", "NChain-v0",
-  "CliffWalking-v0", "Blackjack-v1", "LunarLander-v2",
-  "LunarLanderContinuous-v2", "BipedalWalker-v3", "BipedalWalkerHardcore-v3",
-  "CarRacing-v2", "PongJaxDemo-v5", "ReacherJax-v4", "InvertedPendulumJax-v4",
-  "InvertedDoublePendulumJax-v4", "SwimmerJax-v4", "HalfCheetahJax-v4",
-  "HopperJax-v4", "Walker2dJax-v4", "AntJax-v4", "HumanoidJax-v4",
-  "HumanoidStandupJax-v4", "PusherJax-v4", "AcrobotJaxSwingup-v1",
-  "BallInCupJaxCatch-v1", "HumanoidJaxStand-v1", "HumanoidJaxWalk-v1",
-  "HumanoidJaxRun-v1", "HumanoidJaxRunPureState-v1",
-  "HumanoidCMUJaxStand-v1", "HumanoidCMUJaxRun-v1",
-  "ManipulatorJaxBringBall-v1", "ManipulatorJaxBringPeg-v1",
-  "ManipulatorJaxInsertBall-v1", "ManipulatorJaxInsertPeg-v1",
-  "AcrobotJaxSwingupSparse-v1",
-  "CartpoleJaxBalance-v1", "CartpoleJaxBalanceSparse-v1",
-  "CartpoleJaxSwingup-v1", "CartpoleJaxSwingupSparse-v1",
-  "CartpoleJaxTwoPoles-v1", "CartpoleJaxThreePoles-v1", "CheetahJaxRun-v1",
-  "FingerJaxSpin-v1", "FingerJaxTurnEasy-v1", "FingerJaxTurnHard-v1",
-  "FishJaxUpright-v1", "FishJaxSwim-v1", "SwimmerJaxSwimmer6-v1",
-  "SwimmerJaxSwimmer15-v1", "HopperJaxStand-v1", "HopperJaxHop-v1",
-  "WalkerJaxStand-v1", "WalkerJaxWalk-v1", "WalkerJaxRun-v1",
-  "PendulumJaxSwingup-v1", "PointMassJaxEasy-v1", "PointMassJaxHard-v1",
-  "ReacherJaxEasy-v1", "ReacherJaxHard-v1", "MiniGrid-Empty-5x5-v0",
-  "MiniGrid-Empty-Random-5x5-v0",
-  "MiniGrid-Empty-6x6-v0", "MiniGrid-Empty-Random-6x6-v0",
-  "MiniGrid-Empty-8x8-v0", "MiniGrid-Empty-16x16-v0", "Sokoban-v0",
-], envpool_torch.list_all_envs()
+import envpool_torch.core.host_pool
+import envpool_torch.envs.atari.atari_env
+import envpool_torch.envs.mujoco.dmc.domains
+import envpool_torch.envs.mujoco.gym_tasks
+assert envpool_torch.list_all_envs() == json.loads(os.environ["JAX_IDS"]), \
+  envpool_torch.list_all_envs()
+# the host tier's ids are listed; making one needs its emulator library
+for task_id in ("Hopper-v4", "CheetahRun-v1"):
+  try:
+    envpool_torch.make_gymnasium(task_id, num_envs=2, device="cpu")
+    raise AssertionError(task_id + " built without mujoco")
+  except ImportError as e:
+    assert "mujoco" in str(e), (task_id, e)
 for task_id, kw, obs_shape, action in (
   ("CarRacing-v2", dict(n_tracks=1), (2, 96, 96, 3), np.zeros((2, 3), np.float32)),
   ("Sokoban-v0", dict(n_levels_to_load=4), (2, 3, 10, 10), np.zeros(2, np.int32)),
@@ -129,13 +117,20 @@ import envpool_torch.parallel.dryrun
 import envpool_torch.utils
 envpool_torch.parallel.dryrun.dryrun_multichip(4, device="cpu")
 assert all(sys.modules[m] is None
-           for m in ("jax", "flax", "optax", "envpool_tpu", "mujoco", "gymnasium"))
+           for m in ("jax", "flax", "optax", "envpool_tpu", "mujoco", "gymnasium",
+                     "ale_py"))
 print("ok")
 """
 
 
 def test_imports_without_jax():
-  env = dict(os.environ, PYTHONPATH=str(ROOT))
+  import envpool_tpu
+
+  # the ALE ids are registered only where ale_py is installed, and the
+  # child runs without it
+  ids = [t for t in envpool_tpu.list_all_envs()
+         if envpool_tpu.registration.registry.specs[t][1] != "AtariEnvSpec"]
+  env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_IDS=json.dumps(ids))
   res = subprocess.run(
     [sys.executable, "-c", _CHILD], cwd=ROOT, env=env, capture_output=True,
     text=True, timeout=240,
@@ -149,6 +144,8 @@ import sys
 import envpool_torch.parallel
 import envpool_torch.parallel.dryrun
 import envpool_torch.utils
+import envpool_torch.envs.atari
+import envpool_torch.envs.mujoco.dmc
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "envpool_tpu"))
 assert not bad, bad
@@ -158,8 +155,8 @@ print("ok")
 
 def test_mesh_and_utils_pull_in_no_jax():
   """With jax installed and importable, importing the mesh layer, the
-  dry run and the utilities loads no module of jax or of the JAX
-  package."""
+  dry run, the utilities and the host tier's families loads no module of
+  jax or of the JAX package."""
   env = dict(os.environ, PYTHONPATH=str(ROOT))
   res = subprocess.run(
     [sys.executable, "-c", _MESH_CHILD], cwd=ROOT, env=env,
@@ -207,12 +204,15 @@ def _module_level_imports(path: Path):
 
 
 def test_mujoco_imported_only_inside_functions():
-  """The MuJoCo family runs from its committed model data: ``mujoco`` and
-  ``gymnasium`` are imported only inside the extractor's functions, which
-  regenerate that data."""
+  """The device MuJoCo family runs from its committed model data:
+  ``mujoco`` and ``gymnasium`` are imported only inside functions (the
+  extractor's, which regenerate that data, and the host tier's, which build
+  its envs), and so is ``ale_py``."""
   files = sorted((ROOT / "envpool_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
   for path in files:
-    assert not set(_module_level_imports(path)) & {"mujoco", "gymnasium"}, path
+    assert not set(_module_level_imports(path)) & {
+      "mujoco", "gymnasium", "ale_py"
+    }, path
   extractor = ROOT / "envpool_torch" / "envs" / "mujoco" / "device_model.py"
   assert "mujoco" in set(_imported_roots(extractor))
 
@@ -220,7 +220,8 @@ def test_mujoco_imported_only_inside_functions():
 def test_device_ids_are_the_jax_packages():
   """Every on-device id of the JAX package (the ``...Jax...`` ids: the
   Pong demo, the gym MuJoCo ``-Jax-v4`` and the dm_control ``-Jax-v1``
-  tiers) is registered in the port, in the same order."""
+  tiers) is registered in the port, in the same order; and so is every
+  other id: the port lists the JAX package's ids, in its order."""
   import envpool_torch
   import envpool_tpu
 
@@ -229,3 +230,4 @@ def test_device_ids_are_the_jax_packages():
   want = device(envpool_tpu.list_all_envs())
   assert len(want) == 49
   assert device(envpool_torch.list_all_envs()) == want
+  assert envpool_torch.list_all_envs() == envpool_tpu.list_all_envs()
