@@ -29,7 +29,8 @@ Phases (any failure exits non-zero before the result lines):
      the noops), timed through ``step`` and through a 150-step ``xla()``
      loop; sequential mode on the sample levels (1024 envs, 200 steps: the
      level indices follow the stream); a 256-env pool of each mode on the
-     card against the CPU port over 200 steps, every output field bit for
+     card against the CPU port over 100 steps (200 until phase 17's run
+     outgrew the time limit), every output field bit for
      bit; one ``torch.profiler`` trace of ``xla()`` steps (device time,
      launches per step, idle share). The Sokoban path has no hand-written
      kernel (it has no Pallas counterpart; the fused step is queued);
@@ -50,7 +51,7 @@ Phases (any failure exits non-zero before the result lines):
      PongJaxDemo-v5 at 4096 envs for 128 steps (``bench.py:343-344``;
      gray, 84x84, stack 4, frame_skip 4), MiniGrid-Empty-8x8-v0 and
      MiniGrid-Empty-Random-6x6-v0 at 8192 envs (``bench.py:338-339``), 300
-     steps each, and every toy text id at 8192 envs, 100 steps each,
+     and 150 steps, and every toy text id at 8192 envs, 50 steps each,
      numpy-seeded uniform actions: env-steps/s through ``step`` (and the
      ``xla()`` loop for Pong and MiniGrid), one traced ``xla()`` step
      (device time, launches, idle share), peak memory; then every toy text
@@ -83,60 +84,61 @@ Phases (any failure exits non-zero before the result lines):
      traced ``xla()`` step, peak memory; then per model ``step_smooth``
      of one env-step from 256 seeded float64 states on the card against
      the CPU to 1e-10 relative, with the process asking for TF32; and each
-     id at 256 envs over 30 steps on the card against the CPU port, the
+     id at 256 envs over 15 steps on the card against the CPU port, the
      lanes that part counted against a bound, the others to 1e-3 relative
      with integer and bool fields equal;
  12. the contact device MuJoCo ids (plane-capsule and capsule-capsule
      contacts, the free joint; no kernel of their own): HalfCheetahJax-v4
-     at 4096 envs over 40 steps, HopperJax-v4 and Walker2dJax-v4 at 4096
-     over 20, AntJax-v4 at 2048 over 10, HumanoidJax-v4 and
-     HumanoidStandupJax-v4 at 1024 over 6 (``bench.py:353-367``'s widths;
-     all but HalfCheetah cut in depth to make room for phase 15), half
+     at 4096 envs over 20 steps, HopperJax-v4 and Walker2dJax-v4 at 4096
+     over 10, AntJax-v4 at 2048 over 4, HumanoidJax-v4 and
+     HumanoidStandupJax-v4 at 1024 over 2 (``bench.py:353-367``'s widths;
+     cut in depth to make room for phases 15 and 17), half
      through ``step``
      and half in the ``xla()`` loop: env-steps/s, every output finite, the
      lanes that ended and their auto-resets, one traced ``xla()`` step
      (Ant and the Humanoids: one traced forward evaluation, times the
      evaluations per step; not a whole step), peak memory, with nothing
-     else running on the host. Then two child processes on the CPU
-     (``--cpu-reference``, 3 cores each: this phase's ids in one, phases
-     13 and 14's in the other) compute the port's CPU side while the card
-     computes its own: per model ``step_smooth`` of one env-step (the
+     else running on the host. Then three child processes on the CPU
+     (``--cpu-reference``, 2 cores each: the contact ids but the Humanoids
+     with phase 13's; the Humanoids; phase 14's) compute the port's CPU
+     side of phases 12 to 14 while the card computes its own: per model ``step_smooth`` of one env-step (the
      warm-start chain) from seeded float64 states that mix grounded,
      penetrating and airborne ones (256 lanes, the Humanoids 64), held on
      the card to 1e-10 relative with the process asking for TF32; and each
-     id's pool at 256 envs over 10 steps (the Humanoids 5; cut in depth to
-     make room for phase 16), held on the card by the parted-lanes rule;
+     id's pool at 256 envs over 6 steps (the Humanoids 3; cut in depth to
+     make room for phases 16 and 17), held on the card by the parted-lanes
+     rule;
  13. the dm_control device tier (box and tendon rows in the contact
-     engine; no kernel of its own): CheetahJaxRun-v1 at 4096 envs over 40
-     steps and HumanoidJaxRun-v1 at 1024 over 10 (``bench.py:362-367``'s
+     engine; no kernel of its own): CheetahJaxRun-v1 at 4096 envs over 20
+     steps and HumanoidJaxRun-v1 at 1024 over 4 (``bench.py:362-367``'s
      widths), the reset timed alone (cheetah's settles 200 substeps), half
      through ``step`` and half in the ``xla()`` loop: env-steps/s, every
      output finite, discount 1, one traced ``xla()`` step (Humanoid: one
      traced forward evaluation times 5), peak memory. Their CPU side runs
-     in phase 12's second child process, after every timed cell: per box
+     in phase 12's first child process, after every timed cell: per box
      or tendon model (cartpole three_poles, ball_in_cup, humanoid)
      ``step_smooth`` of one env-step from seeded float64 states (256 lanes,
      humanoid 64) held on the card to 1e-10 relative with TF32 requested;
-     one id of each of the 13 domains at 64 envs over 10 steps (swimmer15
-     and humanoid 5), held on the card by the parted-lanes rule;
+     one id of each of the 13 domains at 64 envs over 6 steps (swimmer15
+     and humanoid 3), held on the card by the parted-lanes rule;
  14. the rest of the device tier (cylinder contacts, the per-env body-pose
      override, the widest model; no kernel of their own): PusherJax-v4 at
-     4096 envs over 20 steps, ManipulatorJaxInsertPeg-v1 at 4096 over 6
-     and HumanoidCMUJaxRun-v1 at 1024 over 6 (``bench.py:353-367``'s
-     widths; cut in depth to make room for phase 15), as phase 13 drives
-     its cells (Pusher one traced ``xla()``
-     step; the others one traced forward evaluation times 10). Their CPU
-     side runs in phase 12's second child after every timed cell: per model
+     4096 envs over 10 steps, ManipulatorJaxInsertPeg-v1 at 4096 over 2
+     and HumanoidCMUJaxRun-v1 at 1024 over 2 (``bench.py:353-367``'s
+     widths; cut in depth to make room for phases 15 and 17), as phase 13
+     drives its cells (Pusher one traced ``xla()`` step; the others one
+     traced forward evaluation times 10). Their CPU side runs in phase
+     12's third child after every timed cell: per model
      one float64 env-step (Pusher's finger against the object, insert_peg's
      peg in its slot, humanoid_CMU low over the floor) held on the card to
      1e-10 relative with TF32 requested; each of the 7 new ids at 64 envs
-     (Pusher 10 steps, manipulator 5, humanoid_CMU 3) held on the card by
+     (Pusher 6 steps, manipulator 3, humanoid_CMU 2) held on the card by
      the parted-lanes rule;
  15. sharding (``envpool_torch.parallel``; the sampler is its only kernel):
      on ``make_mesh()`` (one shard on this card) and on a mesh of 4 logical
-     shards of cuda:0, CarRacing-v2 at 1024 envs over 50 steps bit for bit
+     shards of cuda:0, CarRacing-v2 at 1024 envs over 25 steps bit for bit
      against ``TorchEnvPool`` with the sampler launched once per shard per
-     render, and Sokoban-v0 at 16384 envs over 100 steps in both level
+     render, and Sokoban-v0 at 16384 envs over 64 steps in both level
      modes bit for bit against the unsharded pool (env-steps/s, launches
      of a traced ``xla()`` step); PPO at ``examples/ppo_sokoban.py``'s
      width (``SokobanCNN()``, 1024 envs, 32 steps) for 2 iterations
@@ -150,9 +152,9 @@ Phases (any failure exits non-zero before the result lines):
      defaults (gray, 84x84, stack 4, frame_skip 4, noop_max 30) over a
      scripted emulator with ``tests/test_atari_stack.py``'s rules (the
      card's machine has no ale_py and no ROM), 256 envs on as many threads
-     as the host has cores: reset + 200 steps through ``step``, an async
-     pool (batch 64) for 200 recv/send rounds, and ``xla()`` loops on
-     cuda:0 of 200 steps with the actions on the card and of 50 with the
+     as the host has cores: reset + 48 steps through ``step``, an async
+     pool (batch 64) for 48 recv/send rounds, and ``xla()`` loops on
+     cuda:0 of 48 steps with the actions on the card and of 24 with the
      actions on the host: env-steps/s, host ms per step, bytes and
      CUDA-event time of the copy to the card per step and how much of it
      the host waits for; every output of
@@ -162,7 +164,27 @@ Phases (any failure exits non-zero before the result lines):
      each; the registry lists every id, and making ``Hopper-v4`` and
      ``CheetahRun-v1`` without mujoco raises an ImportError that names it
      (with mujoco, 8 envs x 20 ``xla()`` steps of each on the card);
- 17. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
+ 17. the last host families over scripted wheels (the card's machine has
+     neither procgen nor vizdoom), in a child process that puts them in
+     place before it imports the port, so the registry lists their ids:
+     procgen's ``BigfishHard-v0`` with ``tests/test_procgen_stack.py``'s
+     rules at 256 envs, reset + 200 steps through ``step``, an async pool
+     (batch 64) for 200 rounds and ``xla()`` on cuda:0 for 200 steps with
+     the actions on the card; ``VizdoomCustom-v1`` with
+     ``tests/test_vizdoom_stack.py``'s rules at the JAX package's defaults
+     (84x84, stack 4, frame_skip 4) at 256 envs, the same loops 32 steps
+     deep (every episode ends twice), with float64 buttons drawn on the
+     card and with ``use_combined_action=True`` and int32 ids: env-steps/s,
+     bytes and
+     CUDA-event time of the copy per step, every ``xla()`` output bit for
+     bit against the ``step`` loop's, the action in the spec's dtype and
+     shape where it reaches the workers, the common fields' rules; then
+     the port's examples in child processes on the card, all at once
+     (``python -m envpool_torch.examples.ppo_sokoban --iterations 2``,
+     ``ppo_mujoco --iterations 2``, ``xla_step``): exit 0, every number
+     they print finite, their seconds. ``async_loop`` steps ``Ant-v4``,
+     which needs mujoco, so only the CPU tests run it;
+ 18. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or outside a checkout, it fails and prints no result.
 """
@@ -186,7 +208,15 @@ SAMPLER_OPS_PER_PIXEL = 10     # 4 subtract + conditional-add pairs, 1 index mul
 
 
 def log(*args) -> None:
+  """Print a line; in the main process also append it to the timeline file
+  (``build/chip_smoke/timeline.log``), stamped with the seconds since the
+  script started, so that each phase's share of the run can be read."""
   print(*args, flush=True)
+  timeline = getattr(log, "timeline", None)
+  if timeline is not None:
+    text = " ".join(str(a) for a in args)
+    timeline.write(f"[{time.perf_counter() - log.t0:8.1f} s] {text}\n")
+    timeline.flush()
 
 
 def card_line() -> str:
@@ -526,12 +556,15 @@ def profile_call(torch, fn, per: int = 1):
   """Trace one call of ``fn`` with ``torch.profiler``; returns (device
   microseconds per ``per``, [(kernel name, us per ``per``, launches per
   ``per``)], busiest first). Only device-side events count, so nothing is
-  counted twice."""
+  counted twice, and only the CUDA activity is recorded: the CPU operator
+  events would add nothing to the counts and several times their
+  processing time (PPO's 78k-launch rollout took ~37 s to trace with
+  them)."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
 
   torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
     fn()
     torch.cuda.synchronize()
   rows = [
@@ -719,7 +752,7 @@ def sokoban_sequential(torch, envpool_torch, device, n=1024, steps=200):
   return env, int(episode.sum()), steps * n / secs
 
 
-def sokoban_card_vs_cpu(envpool_torch, device, n=256, steps=200) -> dict:
+def sokoban_card_vs_cpu(envpool_torch, device, n=256, steps=100) -> dict:
   """A pool of each level mode on the card and on the CPU, same seed and
   actions: every output field of reset + ``steps`` steps and the final
   state equal bit for bit (NaN rewards in the same places)."""
@@ -960,7 +993,9 @@ def ppo_learns_cartpole(torch, envpool_torch, device) -> list:
 # the MiniGrid width
 PONG_ENVS, PONG_STEPS = 4096, 128
 SMALL_ENVS, SMALL_STEPS = 8192, 300
-TOY_TEXT_STEPS = 100   # 300 until the Box2D phase came, 150 until MuJoCo's
+# 300 until the Box2D phase came, 150 until MuJoCo's, 100 until phase 17's
+# run outgrew the time limit
+TOY_TEXT_STEPS = 50
 # task id -> (action count, the rewards a step may give; an auto-reset
 # step gives 0)
 TOY_TEXT = {
@@ -972,7 +1007,10 @@ TOY_TEXT = {
   "CliffWalking-v0": (4, {-100.0, -1.0, 0.0}),
   "Blackjack-v1": (2, {-1.0, 0.0, 1.0}),
 }
-MINIGRID = ("MiniGrid-Empty-8x8-v0", "MiniGrid-Empty-Random-6x6-v0")
+# MiniGrid id -> steps, past its cap (256 and 144) so that every lane ends
+# an episode (the random-start id 300 until phase 17's run outgrew the
+# time limit)
+MINIGRID = {"MiniGrid-Empty-8x8-v0": SMALL_STEPS, "MiniGrid-Empty-Random-6x6-v0": 150}
 PONG_CARD_CPU_STEPS = 101   # every lane truncates once at the cap of 100
 PONG_WIN_STEPS = 30         # then from scores one point short of 21
 
@@ -1340,10 +1378,11 @@ MUJOCO_IDS = ("ReacherJax-v4", "InvertedPendulumJax-v4",
               "InvertedDoublePendulumJax-v4", "SwimmerJax-v4")
 # the card against the CPU port: float64 step_smooth of one env-step from
 # 256 seeded states to 1e-10 relative; the float32 pools at 256 envs over
-# 30 steps (50 until the contact MuJoCo phase came), a lane parting at its
+# 15 steps (50 until the contact MuJoCo phase came, 30 until phase 17's
+# run outgrew the time limit), a lane parting at its
 # first integer, bool or float field off by more than MUJOCO_TOL * (1 +
 # |x|), counted against the id's share
-MUJOCO_CMP_ENVS, MUJOCO_CMP_STEPS = 256, 30
+MUJOCO_CMP_ENVS, MUJOCO_CMP_STEPS = 256, 15
 MUJOCO_F64_TOL, MUJOCO_TOL = 1e-10, 1e-3
 MUJOCO_PARTED = {"ReacherJax-v4": 0.02, "InvertedPendulumJax-v4": 0.02,
                  "InvertedDoublePendulumJax-v4": 0.1, "SwimmerJax-v4": 0.1}
@@ -1587,25 +1626,27 @@ def mujoco_checks(torch, envpool_torch, device, task_id) -> dict:
 # 4096, :358-359 Ant at 2048 x 100 steps, :366-367 the humanoid program at
 # 1024), registry defaults: (envs, steps after the reset, half through step
 # and half in the xla() loop; 40, 40, 40, 20, 10 and 10 steps until phase
-# 15 came). Ant and the Humanoids trace one forward evaluation (their
-# steps are 37k-100k launches), the others one step
+# 15 came, 40, 20, 20, 10, 6 and 6 until phase 17's run outgrew the time
+# limit). Ant and the Humanoids trace one forward evaluation (their steps
+# are 37k-100k launches), the others one step
 CONTACT_RUNS = {
-  "HalfCheetahJax-v4": (4096, 40), "HopperJax-v4": (4096, 20),
-  "Walker2dJax-v4": (4096, 20), "AntJax-v4": (2048, 10),
-  "HumanoidJax-v4": (1024, 6), "HumanoidStandupJax-v4": (1024, 6),
+  "HalfCheetahJax-v4": (4096, 20), "HopperJax-v4": (4096, 10),
+  "Walker2dJax-v4": (4096, 10), "AntJax-v4": (2048, 4),
+  "HumanoidJax-v4": (1024, 2), "HumanoidStandupJax-v4": (1024, 2),
 }
 CONTACT_TRACE_STEP = ("HalfCheetahJax-v4", "HopperJax-v4", "Walker2dJax-v4")
 # the card against the CPU port: float64 step_smooth of one env-step (the
 # warm-start chain included) from seeded states, 256 lanes (the Humanoids
 # 64), to 1e-10 relative with TF32 requested; the float32 pools at 256 envs
-# over 10 steps (the Humanoids 5; 20 and 10 until phase 16 came), lanes
+# over 6 steps (the Humanoids 3; 20 and 10 until phase 16 came, 10 and 5
+# until phase 17's run outgrew the time limit), lanes
 # that part counted against the id's share. HalfCheetah's Euler contacts
 # part lanes at float32 rounding (the JAX package against itself at two
 # XLA optimisation levels parts 7 of 16 lanes in 20 steps); no lane of the
 # others parted on the CPU. The others' shares are set from the readings
 # on an H100 (PERF.md section 5; the same in every run): twice the lanes
 # that parted, at least 3 of 256
-CONTACT_CMP_STEPS = {t: 5 if t.startswith("Humanoid") else 10 for t in CONTACT_RUNS}
+CONTACT_CMP_STEPS = {t: 3 if t.startswith("Humanoid") else 6 for t in CONTACT_RUNS}
 CONTACT_F64_LANES = {t: 64 if t.startswith("Humanoid") else 256 for t in CONTACT_RUNS}
 CONTACT_PARTED = {
   "HalfCheetahJax-v4": 0.5, "HopperJax-v4": 3 / MUJOCO_CMP_ENVS,
@@ -1653,26 +1694,28 @@ def contact_cmp_actions(envpool_torch, task_id):
 # the dm_control device tier at bench.py's widths (bench.py:362-363
 # CheetahJaxRun-v1 at 4096, :366-367 HumanoidJaxRun-v1 at 1024), registry
 # defaults: (envs, steps after the reset, half through step and half in
-# the xla() loop). The reset is timed on its own (cheetah's settles 200
-# substeps); Humanoid traces one forward evaluation (times 5 per step)
-DMC_RUNS = {"CheetahJaxRun-v1": (4096, 40), "HumanoidJaxRun-v1": (1024, 10)}
+# the xla() loop; 40 and 10 until phase 17's run outgrew the time limit).
+# The reset is timed on its own (cheetah's settles 200 substeps); Humanoid
+# traces one forward evaluation (times 5 per step)
+DMC_RUNS = {"CheetahJaxRun-v1": (4096, 20), "HumanoidJaxRun-v1": (1024, 4)}
 DMC_TRACE_STEP = ("CheetahJaxRun-v1",)
 # the card against the CPU port: float64 step_smooth of one env-step from
 # seeded states (256 lanes, humanoid 64) to 1e-10 relative with TF32
 # requested, for the box and tendon models; the float32 pools of one task
-# per domain at 64 envs over 10 steps (swimmer15 and humanoid 5), a lane
+# per domain at 64 envs over 6 steps (swimmer15 and humanoid 3; 10 and 5
+# until phase 17's run outgrew the time limit), a lane
 # parting as in phase 11, counted against the id's share. The shares are
 # set from the first two runs of this phase on an H100 (PERF.md section 5),
 # which parted no lane but 1 of 64 of swimmer15: 3 lanes of 64 for each
 # id, 4 for swimmer15
 DMC_F64 = {"cartpole_three_poles": 256, "ball_in_cup": 256, "humanoid": 64}
 DMC_CMP = {
-  "PendulumJaxSwingup-v1": 10, "CartpoleJaxThreePoles-v1": 10,
-  "AcrobotJaxSwingup-v1": 10, "ReacherJaxHard-v1": 10,
-  "PointMassJaxHard-v1": 10, "SwimmerJaxSwimmer15-v1": 5,
-  "FishJaxSwim-v1": 10, "FingerJaxTurnHard-v1": 10, "HopperJaxHop-v1": 10,
-  "WalkerJaxRun-v1": 10, "CheetahJaxRun-v1": 10, "BallInCupJaxCatch-v1": 10,
-  "HumanoidJaxRun-v1": 5,
+  "PendulumJaxSwingup-v1": 6, "CartpoleJaxThreePoles-v1": 6,
+  "AcrobotJaxSwingup-v1": 6, "ReacherJaxHard-v1": 6,
+  "PointMassJaxHard-v1": 6, "SwimmerJaxSwimmer15-v1": 3,
+  "FishJaxSwim-v1": 6, "FingerJaxTurnHard-v1": 6, "HopperJaxHop-v1": 6,
+  "WalkerJaxRun-v1": 6, "CheetahJaxRun-v1": 6, "BallInCupJaxCatch-v1": 6,
+  "HumanoidJaxRun-v1": 3,
 }
 DMC_CMP_ENVS = 64
 DMC_PARTED = {t: 3 / DMC_CMP_ENVS for t in DMC_CMP}
@@ -1708,23 +1751,25 @@ def dmc_cmp_actions(envpool_torch, task_id):
 # contact gym ids at 4096, :362-363 the dm_control ids at 4096, :366-367
 # the humanoid programs at 1024), registry defaults: (envs, steps after the
 # reset, half through step and half in the xla() loop; 40, 10 and 10
-# steps until phase 15 came). Manipulator and humanoid_CMU trace one
-# forward evaluation (10 per step)
-LAST_RUNS = {"PusherJax-v4": (4096, 20), "ManipulatorJaxInsertPeg-v1": (4096, 6),
-             "HumanoidCMUJaxRun-v1": (1024, 6)}
+# steps until phase 15 came, 20, 6 and 6 until phase 17's run outgrew the
+# time limit). Manipulator and humanoid_CMU trace one forward evaluation
+# (10 per step)
+LAST_RUNS = {"PusherJax-v4": (4096, 10), "ManipulatorJaxInsertPeg-v1": (4096, 2),
+             "HumanoidCMUJaxRun-v1": (1024, 2)}
 LAST_TRACE_STEP = ("PusherJax-v4",)
 # the card against the CPU port: float64 step_smooth of one env-step per
 # model (64 lanes, humanoid_CMU 32) to 1e-10 relative with TF32 requested;
-# the float32 pools of the 7 new ids at 64 envs, a lane parting as in
+# the float32 pools of the 7 new ids at 64 envs (6, 3 and 2 steps; 10, 5
+# and 3 until phase 17's run outgrew the time limit), a lane parting as in
 # phase 11, counted against the id's share. The shares are set from the
 # readings on an H100 (PERF.md section 5: no lane parted but 1 of 64 of
 # insert_peg), as phase 13's are: 3 lanes of 64 per id
 LAST_F64 = {"PusherJax-v4": 64, "ManipulatorJaxInsertPeg-v1": 64,
             "HumanoidCMUJaxRun-v1": 32}
-LAST_CMP = {"PusherJax-v4": 10, "ManipulatorJaxBringBall-v1": 5,
-            "ManipulatorJaxBringPeg-v1": 5, "ManipulatorJaxInsertBall-v1": 5,
-            "ManipulatorJaxInsertPeg-v1": 5, "HumanoidCMUJaxStand-v1": 3,
-            "HumanoidCMUJaxRun-v1": 3}
+LAST_CMP = {"PusherJax-v4": 6, "ManipulatorJaxBringBall-v1": 3,
+            "ManipulatorJaxBringPeg-v1": 3, "ManipulatorJaxInsertBall-v1": 3,
+            "ManipulatorJaxInsertPeg-v1": 3, "HumanoidCMUJaxStand-v1": 2,
+            "HumanoidCMUJaxRun-v1": 2}
 LAST_CMP_ENVS = 64
 LAST_PARTED = {t: 3 / LAST_CMP_ENVS for t in LAST_CMP}
 
@@ -1785,69 +1830,55 @@ def last_cmp_actions(envpool_torch, task_id):
                         LAST_CMP_ENVS)
 
 
-# the CPU side of phases 12-14 in two processes at once, each with 3 of the
-# host's 8 cores (one process with 6 until phase 16 came): the contact ids,
-# and the rest
-REFERENCE_PARTS = ("contact", "rest")
+# the CPU side of phases 12-14 in three processes at once, each with 2 of
+# the host's 8 cores, balanced to end with the card's side of the
+# comparisons (two processes with 3 cores each until phase 17's run
+# outgrew the time limit; one with 6 until phase 16 came): per part, the
+# (kind, id or model) items it computes
+REFERENCE_PARTS = {
+  "contact": [("contact", t) for t in CONTACT_RUNS if not t.startswith("Humanoid")]
+             + [("dmc_f64", m) for m in DMC_F64] + [("dmc", t) for t in DMC_CMP],
+  "humanoids": [("contact", t) for t in CONTACT_RUNS if t.startswith("Humanoid")],
+  "last": [("last_f64", t) for t in LAST_F64] + [("last", t) for t in LAST_CMP],
+}
+REFERENCE_THREADS = 2
 
 
 def cpu_reference(part: str, path: str) -> int:
   """The CPU side of phases 12, 13 and 14, in a process of its own: for
-  ``part`` "contact", per contact id the float64 env-step from
-  ``contact_states`` and the float32 pool's outputs; for "rest", per
-  dm_control model of ``DMC_F64`` its float64 env-step, per id of
-  ``DMC_CMP`` its pool's outputs, and phase 14's of ``LAST_F64`` and
-  ``LAST_CMP``; written to ``path`` (npz)."""
+  each item of ``REFERENCE_PARTS[part]``, a contact id's float64 env-step
+  from ``contact_states`` and its float32 pool's outputs ("contact"), a
+  dm_control model's float64 env-step ("dmc_f64"), a dm_control id's pool
+  outputs ("dmc"), and phase 14's float64 env-step ("last_f64") or pool
+  outputs ("last"); written to ``path`` (npz)."""
   import torch
 
   sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
   import envpool_torch
 
-  torch.set_num_threads(3)
+  torch.set_num_threads(REFERENCE_THREADS)
+  actions = {"contact": contact_cmp_actions, "dmc": dmc_cmp_actions,
+             "last": last_cmp_actions}
   out = {}
-  if part == "contact":
-    for task_id in CONTACT_RUNS:
-      t0 = time.perf_counter()
-      mdl, nstep, arrays = contact_float64_inputs(envpool_torch, task_id)
-      out[f"{task_id}/f64/q"], out[f"{task_id}/f64/v"] = mujoco_step64(
-        torch, mdl, nstep, arrays, "cpu")
-      keys, outs, _ = pool_run(envpool_torch, task_id, "cpu",
-                               contact_cmp_actions(envpool_torch, task_id), {})
-      for t, o in enumerate(outs):
-        for k, x in zip(keys, o):
-          out[f"{task_id}/pool/{t}/{k}"] = np.asarray(x)
-      print(f"cpu reference {task_id}: {time.perf_counter() - t0:.1f} s", flush=True)
-  else:
-    for name in DMC_F64:
-      t0 = time.perf_counter()
-      mdl, nstep, arrays = dmc_float64_inputs(name)
+  for kind, name in REFERENCE_PARTS[part]:
+    t0 = time.perf_counter()
+    if kind in ("contact", "dmc_f64", "last_f64"):
+      mut = None
+      if kind == "contact":
+        mdl, nstep, arrays = contact_float64_inputs(envpool_torch, name)
+      elif kind == "dmc_f64":
+        mdl, nstep, arrays = dmc_float64_inputs(name)
+      else:
+        mdl, nstep, arrays, mut = last_float64_inputs(torch, envpool_torch, name)
       out[f"{name}/f64/q"], out[f"{name}/f64/v"] = mujoco_step64(
-        torch, mdl, nstep, arrays, "cpu")
-      print(f"cpu reference {name} float64: {time.perf_counter() - t0:.1f} s",
-            flush=True)
-    for task_id in DMC_CMP:
-      t0 = time.perf_counter()
-      keys, outs, _ = pool_run(envpool_torch, task_id, "cpu",
-                               dmc_cmp_actions(envpool_torch, task_id), {})
-      for t, o in enumerate(outs):
-        for k, x in zip(keys, o):
-          out[f"{task_id}/pool/{t}/{k}"] = np.asarray(x)
-      print(f"cpu reference {task_id}: {time.perf_counter() - t0:.1f} s", flush=True)
-    for task_id in LAST_F64:
-      t0 = time.perf_counter()
-      mdl, nstep, arrays, mut = last_float64_inputs(torch, envpool_torch, task_id)
-      out[f"{task_id}/f64/q"], out[f"{task_id}/f64/v"] = mujoco_step64(
         torch, mdl, nstep, arrays, "cpu", mut)
-      print(f"cpu reference {task_id} float64: {time.perf_counter() - t0:.1f} s",
-            flush=True)
-    for task_id in LAST_CMP:
-      t0 = time.perf_counter()
-      keys, outs, _ = pool_run(envpool_torch, task_id, "cpu",
-                               last_cmp_actions(envpool_torch, task_id), {})
+    if kind in actions:
+      keys, outs, _ = pool_run(envpool_torch, name, "cpu",
+                               actions[kind](envpool_torch, name), {})
       for t, o in enumerate(outs):
         for k, x in zip(keys, o):
-          out[f"{task_id}/pool/{t}/{k}"] = np.asarray(x)
-      print(f"cpu reference {task_id}: {time.perf_counter() - t0:.1f} s", flush=True)
+          out[f"{name}/pool/{t}/{k}"] = np.asarray(x)
+    print(f"cpu reference {kind} {name}: {time.perf_counter() - t0:.1f} s", flush=True)
   np.savez(path, **out)
   return 0
 
@@ -1855,7 +1886,7 @@ def cpu_reference(part: str, path: str) -> int:
 def contact_phase(torch, envpool_torch, device, card, scratch: str):
   """Phases 12, 13 and 14: the six contact ids', the two dm_control cells'
   and phase 14's three cells' throughput runs first, with nothing else on
-  the host; then two child processes (no card) compute the CPU reference
+  the host; then three child processes (no card) compute the CPU reference
   of the three phases while the card computes its side of the
   comparisons; then each id is held to it. Returns (phase 12's results,
   phase 13's, phase 14's)."""
@@ -1966,11 +1997,13 @@ def contact_phase(torch, envpool_torch, device, card, scratch: str):
 # --------------------------------------------------------------- phase 15
 
 # sharding on the card (envpool_torch.parallel): make_mesh(), one shard on
-# this card, and a mesh of SHARDS logical shards of cuda:0
+# this card, and a mesh of SHARDS logical shards of cuda:0. CarRacing runs
+# 25 steps and Sokoban 64, past its cap of 60 (50 and 100 until phase 17's
+# run outgrew the time limit)
 SHARDS = 4
 SHARD_DEVICE = "cuda:0"
-SHARD_CAR_STEPS = 50
-SHARD_SOKOBAN_STEPS = 100
+SHARD_CAR_STEPS = 25
+SHARD_SOKOBAN_STEPS = 64
 SHARD_PPO_ITERS = 2
 # PPO on Sokoban, sharded against unsharded from the same parameters and
 # key. A shard's convs and GEMMs run at a quarter of the batch, where cuDNN
@@ -2243,11 +2276,14 @@ def checkpoint_and_trace(torch, envpool_torch, pool, scratch, card) -> dict:
 # the host tier's cell: the Atari wrapper stack at the JAX package's
 # defaults (gray, 84x84, stack 4, frame_skip 4, noop_max 30; the registry's
 # cap of 27000) over a scripted emulator, since the card's machine has no
-# ale_py and no ROM; num_threads = the host's cores
+# ale_py and no ROM; num_threads = the host's cores. 48 steps end every
+# lane's game at least once: its third life goes at act 110, step 36 at
+# the latest after 30 noops (200 steps until phase 17's run outgrew the
+# time limit)
 HOST_ENVS = 256
-HOST_STEPS = 200
+HOST_STEPS = 48
 HOST_ASYNC_BATCH = 64
-HOST_OVERLAP_STEPS = 50  # the xla() loop with the actions on the host
+HOST_OVERLAP_STEPS = 24  # the xla() loop with the actions on the host
 HOST_ACTIONS = 4  # the scripted emulator's minimal action set
 
 
@@ -2317,15 +2353,15 @@ def host_sync_loop(pool, acts):
   return outs, t1 - t0, time.perf_counter() - t1
 
 
-def host_async_rate(pool, rounds, rng) -> float:
+def host_async_rate(pool, rounds, draw) -> float:
   """env-steps/s of ``rounds`` recv/send rounds of an async pool from its
-  ``async_reset``."""
+  ``async_reset``; ``draw(n)`` gives the actions of ``n`` envs."""
   t0 = time.perf_counter()
   pool.async_reset()
   for _ in range(rounds):
     obs, rew, term, trunc, info = pool.recv()
     ids = info["env_id"]
-    pool.send(rng.integers(0, HOST_ACTIONS, len(ids)).astype(np.int32), ids)
+    pool.send(draw(len(ids)), ids)
   return rounds * pool.config["batch_size"] / (time.perf_counter() - t0)
 
 
@@ -2464,7 +2500,9 @@ def host_tier(torch, envpool_torch, card) -> dict:
     stack = check_atari_stack(want, keys)
     # 2. async: batch HOST_ASYNC_BATCH of HOST_ENVS
     pool = scripted_atari_pool(atari, "cuda", batch_size=HOST_ASYNC_BATCH)
-    async_sps = host_async_rate(pool, HOST_STEPS, rng)
+    async_sps = host_async_rate(
+      pool, HOST_STEPS,
+      lambda n: rng.integers(0, HOST_ACTIONS, n).astype(np.int32))
     del pool
     # 3. the xla() loop on cuda:0 with the actions on the card
     pool = scripted_atari_pool(atari, "cuda")
@@ -2532,9 +2570,382 @@ def host_tier(torch, envpool_torch, card) -> dict:
   return res
 
 
+# --------------------------------------------------------------- phase 17
+
+# the last host families over scripted wheels (the card's machine has
+# neither procgen nor vizdoom, and nothing may be installed there): a child
+# process (--wheel-families) puts the scripted modules in place before it
+# imports envpool_torch, so the registry lists their ids and the pools come
+# from make_gymnasium as a user's would. 256 envs on as many threads as the
+# host has cores. procgen: BigfishHard-v0 (64x64x3, channel-first), reset +
+# 200 steps through step, an async pool (batch 64) for 200 rounds, the
+# xla() loop on cuda:0 for 200 steps. ViZDoom at the JAX package's
+# defaults (84x84, stack 4, frame_skip 4; 3-channel 160x120 screens), both
+# action modes, the same loops cut in depth to VIZDOOM_STEPS, which end
+# every episode twice (at steps 15 and 31): an env-step costs the port's
+# area resize of three 160x120 channels (the JAX package's numpy einsum),
+# about 5 times a procgen env-step on the host
+WHEEL_ENVS = 256
+WHEEL_ASYNC_BATCH = 64
+PROCGEN_ID = "BigfishHard-v0"
+PROCGEN_STEPS = 200
+VIZDOOM_ID = "VizdoomCustom-v1"
+VIZDOOM_STEPS = 32
+DOOM_BUTTONS = ("MOVE_FORWARD", "TURN_LEFT", "TURN_RIGHT", "ATTACK")
+DOOM_VARS = ("HEALTH", "KILLCOUNT", "FRAGCOUNT", "DEATHCOUNT", "HITCOUNT",
+             "DAMAGECOUNT", "ARMOR")
+# the port's examples, each in a child process on the card: the PPO scripts
+# at their defaults for 2 iterations, xla_step as it is. async_loop steps
+# Ant-v4, which needs mujoco: the card's machine has none, so only the CPU
+# test runs it (tests/test_torch_examples.py)
+EXAMPLES = (
+  ("ppo_sokoban", ("--iterations", "2"), 2),
+  ("ppo_mujoco", ("--iterations", "2"), 2),
+  ("xla_step", (), 1),
+)
+
+
+class ScriptedProcgenGame:
+  """A gym3 game with ``tests/test_procgen_stack.py``'s ``FakeProcgenGame``
+  rules: the act counter painted into the 64x64x3 screen (the level seed
+  in one pixel), an episode every 9 acts, reward = the action, the level
+  seed advancing by 100 at each episode's end."""
+
+  def __init__(self, num=1, env_name="bigfish", rand_seed=0, **kwargs):
+    assert num == 1
+    self.t = 0
+    self.level_seed = rand_seed
+    self.prev_level_seed = -1
+    self.prev_complete = 0
+    self.last_rew = 0.0
+    self.first = True
+
+  def observe(self):
+    frame = np.full((64, 64, 3), self.t % 256, np.uint8)
+    frame[0, 0, 0] = self.level_seed % 256
+    return (np.asarray([self.last_rew], np.float32), {"rgb": frame[None]},
+            np.asarray([self.first], bool))
+
+  def act(self, action):
+    self.t += 1
+    self.last_rew = float(np.asarray(action).ravel()[0])
+    self.first = self.t % 9 == 0
+    if self.first:
+      self.prev_level_seed = self.level_seed
+      self.prev_complete = 1
+      self.level_seed += 100
+
+  def get_info(self):
+    return [{"prev_level_seed": self.prev_level_seed,
+             "prev_level_complete": self.prev_complete,
+             "level_seed": self.level_seed}]
+
+
+class _DoomState:
+  def __init__(self, buf):
+    self.screen_buffer = buf
+
+
+class _DoomButton:
+  def __init__(self, name):
+    self.name = name
+
+
+class ScriptedDoomGame:
+  """A DoomGame with ``tests/test_vizdoom_stack.py``'s ``FakeDoomGame``
+  rules: 3-channel 160x120 screens holding the tic counter, four buttons,
+  HEALTH 100 - 2 per tic, KILLCOUNT one per 5 tics, dead from tic 40, the
+  episode over at tic 60."""
+
+  def __init__(self):
+    self.tic = 0
+
+  def _configure(self, *args):
+    pass
+
+  load_config = set_doom_scenario_path = set_doom_game_path = _configure
+  set_doom_map = add_game_args = set_window_visible = _configure
+  set_mode = set_seed = init = _configure
+
+  def get_screen_channels(self):
+    return 3
+
+  def get_available_buttons(self):
+    return [_DoomButton(b) for b in DOOM_BUTTONS]
+
+  def new_episode(self, path=None):
+    self.tic = 0
+
+  def get_state(self):
+    return _DoomState(np.full((3, 120, 160), self.tic % 256, np.uint8))
+
+  def make_action(self, buttons, skip):
+    self.tic += skip
+
+  def is_episode_finished(self):
+    return self.tic >= 60
+
+  def is_player_dead(self):
+    return 40 <= self.tic < 60
+
+  def get_game_variable(self, gv):
+    if gv == "HEALTH":
+      return 100.0 - 2.0 * self.tic
+    if gv == "KILLCOUNT":
+      return float(self.tic // 5)
+    return 0.0
+
+
+def install_scripted_wheels() -> None:
+  """Scripted ``procgen`` and ``vizdoom`` modules in ``sys.modules`` (no
+  bundled scenario: ViZDoom registers only ``VizdoomCustom-v1``)."""
+  import types
+
+  procgen = types.ModuleType("procgen")
+  procgen.ProcgenGym3Env = ScriptedProcgenGame
+  vizdoom = types.ModuleType("vizdoom")
+  vizdoom.DoomGame = ScriptedDoomGame
+  vizdoom.Mode = types.SimpleNamespace(PLAYER=0)
+  # a game variable is its own name, which get_game_variable reads
+  vizdoom.GameVariable = types.SimpleNamespace(**{v: v for v in DOOM_VARS})
+  vizdoom.scenarios_path = ""
+  sys.modules["procgen"], sys.modules["vizdoom"] = procgen, vizdoom
+
+
+def spy_sends(pool) -> list:
+  """Record (dtype, shape) of every action array ``_send`` hands to the
+  workers."""
+  seen, send = [], pool._send
+
+  def spy(action_list):
+    a = np.asarray(dict(zip(pool._action_keys, action_list))["action"])
+    seen.append((a.dtype, a.shape))
+    return send(action_list)
+
+  pool._send = spy
+  return seen
+
+
+def check_host_episodes(outs, keys, tag) -> int:
+  """The pool's common fields over a host family's run: every lane ended
+  an episode; after a done step a FIRST step with reward 0 and
+  elapsed_step 0; LAST exactly at done; otherwise elapsed_step counts
+  steps; every reward finite. Returns the episodes ended."""
+  col = {k: np.stack([o[keys.index(k)] for o in outs])
+         for k in ("done", "step_type", "elapsed_step", "reward")}
+  after, nxt = col["done"][:-1], slice(1, None)
+  rules = {
+    "every lane ended an episode": after.any(0).all(),
+    "FIRST after done": (col["step_type"][nxt][after] == 0).all(),
+    "reward 0 after done": (col["reward"][nxt][after] == 0).all(),
+    "elapsed 0 after done": (col["elapsed_step"][nxt][after] == 0).all(),
+    "LAST exactly at done": np.array_equal(col["step_type"] == 2, col["done"]),
+    "elapsed counts steps": np.array_equal(
+      col["elapsed_step"][nxt][~after], col["elapsed_step"][:-1][~after] + 1),
+    "rewards finite": np.isfinite(col["reward"]).all(),
+  }
+  broken = [k for k, ok in rules.items() if not ok]
+  if broken:
+    raise AssertionError(f"{tag}: {broken}")
+  return int(after.sum())
+
+
+def wheel_cell(torch, envpool_torch, task_id, card_acts, draw, tag, card, **kw):
+  """One host family over its scripted wheel at ``WHEEL_ENVS`` envs: reset
+  + a step per row of ``card_acts`` (read back to the host) through
+  ``step``; an async pool (batch ``WHEEL_ASYNC_BATCH``) for as many rounds,
+  its actions from ``draw``; the ``xla()`` loop on cuda:0 with the actions
+  on the card, every output bit for bit against the ``step`` loop's. The
+  actions reach the workers in the spec's dtype and shape on both paths."""
+
+  def make(**extra):
+    return envpool_torch.make_gymnasium(
+      task_id, num_envs=WHEEL_ENVS, seed=SEED,
+      num_threads=os.cpu_count(), **kw, **extra)
+
+  acts = card_acts.cpu().numpy()
+  steps = len(acts)
+  pool = make()
+  spec = pool.spec.action_array_spec["action"]
+  want_act = (spec.dtype, (WHEEL_ENVS, *spec.static_shape))
+  keys = pool.spec._state_keys
+  seen = spy_sends(pool)
+  want, reset_s, sync_s = host_sync_loop(pool, acts)
+  del pool
+  episodes = check_host_episodes(want, keys, tag)
+  pool = make(batch_size=WHEEL_ASYNC_BATCH)
+  async_sps = host_async_rate(pool, steps, draw)
+  del pool
+  pool = make()
+  seen_xla = spy_sends(pool)
+  outs, xla_s, step_ms, events, waits, _ = host_xla_loop(
+    torch, pool, card_acts, wait=True)
+  same_as_host(torch, outs, want[1:], keys, f"{tag} xla()")
+  if seen != [want_act] * steps or seen_xla != [want_act] * steps:
+    raise AssertionError(f"{tag}: actions reached the workers as "
+                         f"{set(seen)} / {set(seen_xla)}, not {want_act}")
+  out_dtypes = {k: str(o.dtype) for k, o in zip(keys, outs[0])}
+  del outs, pool
+  n_bytes = events[-1][2]
+  copy_ms = [s.elapsed_time(e) for s, e, _ in events]
+  obs_bytes = int(np.prod(want[0][keys.index("obs")].shape))
+  res = {
+    "task_id": task_id, **{k: str(v) for k, v in kw.items()},
+    "envs": WHEEL_ENVS, "steps": steps, "threads": os.cpu_count(),
+    "action": f"{want_act[0]} {list(want_act[1])}", "episodes": episodes,
+    "sync_sps": steps * WHEEL_ENVS / sync_s,
+    "sync_host_ms_per_step": 1e3 * sync_s / steps, "reset_s": reset_s,
+    "async_sps": async_sps, "xla_sps": steps * WHEEL_ENVS / xla_s,
+    "xla_host_ms_per_step": float(np.mean(step_ms)),
+    "bytes_per_step": n_bytes, "obs_bytes_per_step": obs_bytes,
+    "copy_ms_mean": float(np.mean(copy_ms)), "copy_ms_max": float(np.max(copy_ms)),
+    "copy_gbps": n_bytes / np.mean(copy_ms) / 1e6,
+    "exposed_wait_ms_mean": float(np.mean(waits)), "out_dtypes": out_dtypes,
+  }
+  log(f"{tag} ({WHEEL_ENVS} envs, {os.cpu_count()} threads, {steps} steps, "
+      f"actions {res['action']}): step {res['sync_sps']:.1f} env-steps/s "
+      f"({res['sync_host_ms_per_step']:.2f} host ms per step, reset "
+      f"{reset_s:.3f} s); async batch {WHEEL_ASYNC_BATCH} {async_sps:.1f} "
+      f"env-steps/s; xla() on cuda:0 {res['xla_sps']:.1f} env-steps/s "
+      f"({res['xla_host_ms_per_step']:.2f} host ms per step) [{card}]")
+  log(f"{tag} host-to-card copy per step: {n_bytes} B (obs {obs_bytes} B), "
+      f"{res['copy_ms_mean']:.4f} ms mean / {res['copy_ms_max']:.4f} max by "
+      f"CUDA events ({res['copy_gbps']:.2f} GB/s); the next step's action "
+      f"read waits {res['exposed_wait_ms_mean']:.4f} ms for it; every xla() "
+      f"output on cuda:0 equal to the host API's, bit for bit; {episodes} "
+      f"episodes ended, the override rules held [{card}]")
+  return res
+
+
+def wheel_families(path: str) -> int:
+  """Phase 17's host families, in a process of their own (the scripted
+  wheels must be in place before envpool_torch is imported); the results
+  written to ``path`` (JSON)."""
+  install_scripted_wheels()
+  import torch
+
+  if not torch.cuda.is_available():
+    raise RuntimeError("phase 17 needs a CUDA device")
+  sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+  import envpool_torch
+  from envpool_torch.envs.vizdoom import vizdoom_env
+  from envpool_torch.envs.vizdoom.action_set import build_action_set
+
+  card = card_line()
+  ids = envpool_torch.list_all_envs()
+  procgen_ids = [t for t in ids if envpool_torch.registration.registry.specs[t][0]
+                 == "envpool_torch.envs.procgen"]
+  if len(procgen_ids) != 42 or VIZDOOM_ID not in ids:
+    raise AssertionError(f"registry: {len(procgen_ids)} procgen ids, "
+                         f"{VIZDOOM_ID} {'in' if VIZDOOM_ID in ids else 'missing'}")
+  gen = torch.Generator(device="cuda")
+  gen.manual_seed(SEED + 70)
+  rng = np.random.default_rng(SEED + 71)
+  res = {"ids": len(ids), "procgen_ids": len(procgen_ids)}
+  res["procgen"] = wheel_cell(
+    torch, envpool_torch, PROCGEN_ID,
+    torch.randint(0, 15, (PROCGEN_STEPS, WHEEL_ENVS), device="cuda",
+                  generator=gen, dtype=torch.int32),
+    lambda n: rng.integers(0, 15, n).astype(np.int32), "procgen " + PROCGEN_ID, card)
+  buttons = len(DOOM_BUTTONS)
+  res["vizdoom_buttons"] = wheel_cell(
+    torch, envpool_torch, VIZDOOM_ID,
+    2 * torch.rand((VIZDOOM_STEPS, WHEEL_ENVS, buttons), device="cuda",
+                   generator=gen, dtype=torch.float64) - 1,
+    lambda n: rng.uniform(-1, 1, (n, buttons)), f"ViZDoom {VIZDOOM_ID} buttons", card)
+  n_combined = len(build_action_set(DOOM_BUTTONS))
+  res["vizdoom_combined"] = wheel_cell(
+    torch, envpool_torch, VIZDOOM_ID,
+    torch.randint(0, n_combined, (VIZDOOM_STEPS, WHEEL_ENVS), device="cuda",
+                  generator=gen, dtype=torch.int32),
+    lambda n: rng.integers(0, n_combined, n).astype(np.int32),
+    f"ViZDoom {VIZDOOM_ID} combined ({n_combined} actions)", card,
+    use_combined_action=True)
+  vizdoom_env._screen_channels.cache_clear()
+  vizdoom_env._available_buttons.cache_clear()
+  with open(path, "w") as f:
+    json.dump(res, f)
+  return 0
+
+
+def run_examples(card, scratch: str) -> dict:
+  """Every example of ``EXAMPLES`` in a child process on the card, all at
+  once (each one's seconds are its process's wall time beside the others;
+  its output goes to files under ``scratch``): exit 0, the expected lines,
+  every number in them finite."""
+  import re
+
+  root = os.path.dirname(os.path.abspath(__file__))
+  number = re.compile(r"[-+]?(?:nan|inf|\d[\d,]*\.?\d*(?:e[-+]?\d+)?)")
+  files = {name: [os.path.join(scratch, f"example_{name}.{s}") for s in ("out", "err")]
+           for name, _, _ in EXAMPLES}
+  t0 = time.perf_counter()
+  procs = {}
+  try:
+    for name, args, _ in EXAMPLES:
+      with open(files[name][0], "w") as out, open(files[name][1], "w") as err:
+        procs[name] = subprocess.Popen(
+          [sys.executable, "-m", f"envpool_torch.examples.{name}", *args],
+          cwd=root, stdout=out, stderr=err)
+    ended = {}
+    while len(ended) < len(procs):
+      if time.perf_counter() - t0 > 600:
+        raise AssertionError(f"examples still running after 600 s: "
+                             f"{sorted(set(procs) - set(ended))}")
+      for name, proc in procs.items():
+        if name not in ended and proc.poll() is not None:
+          ended[name] = time.perf_counter() - t0
+      time.sleep(0.05)
+  finally:
+    for proc in procs.values():
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+  res = {}
+  for name, args, n_lines in EXAMPLES:
+    returncode, seconds = procs[name].returncode, ended[name]
+    with open(files[name][0]) as f:
+      lines = f.read().strip().splitlines()
+    with open(files[name][1]) as f:
+      stderr = f.read()
+    for line in lines:
+      log(f"  {name}: {line}")
+    if returncode != 0:
+      raise AssertionError(f"example {name} exited {returncode}: {stderr[-4000:]}")
+    values = [float(v.replace(",", "")) for line in lines
+              for v in number.findall(line.split(":", 1)[-1])]
+    if len(lines) != n_lines or not values or not np.isfinite(values).all():
+      raise AssertionError(f"example {name}: {lines}")
+    log(f"example {name} {' '.join(args)}: {seconds:.1f} s, exit 0, "
+        f"{len(values)} numbers all finite [{card}]")
+    res[name] = {"args": list(args), "seconds": seconds, "lines": lines}
+  return res
+
+
+def last_host_families(torch, card, scratch: str) -> dict:
+  """Phase 17: procgen and ViZDoom over scripted wheels (a child process),
+  then the examples."""
+  path = os.path.join(scratch, "wheel_families.json")
+  if os.path.exists(path):
+    os.remove(path)
+  t0 = time.perf_counter()
+  proc = subprocess.run(
+    [sys.executable, os.path.abspath(__file__), "--wheel-families", path],
+    timeout=900)
+  if proc.returncode != 0:
+    raise AssertionError(f"phase 17's child exited {proc.returncode}")
+  with open(path) as f:
+    res = json.load(f)
+  res["families_s"] = time.perf_counter() - t0
+  res["examples"] = run_examples(card, scratch)
+  return res
+
+
 def main(argv) -> int:
   if argv[:1] == ["--cpu-reference"]:  # phases 12, 13 and 14's children
     return cpu_reference(argv[1], argv[2])
+  if argv[:1] == ["--wheel-families"]:  # phase 17's child
+    return wheel_families(argv[1])
 
   import torch
 
@@ -2549,6 +2960,9 @@ def main(argv) -> int:
 
   device = "cuda"
   t_start = time.perf_counter()
+  scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+  os.makedirs(scratch, exist_ok=True)
+  log.t0, log.timeline = t_start, open(os.path.join(scratch, "timeline.log"), "w")
   # 1. the card
   card = card_line()
   log(card)
@@ -2674,9 +3088,9 @@ def main(argv) -> int:
   small = {"PongJaxDemo-v5": small_family(
     torch, envpool_torch, device, "PongJaxDemo-v5", PONG_ENVS, PONG_STEPS, 6,
     pong_check, card)}
-  for task_id in MINIGRID:
+  for task_id, steps in MINIGRID.items():
     small[task_id] = small_family(torch, envpool_torch, device, task_id, SMALL_ENVS,
-                                  SMALL_STEPS, 7, minigrid_check(task_id), card)
+                                  steps, 7, minigrid_check(task_id), card)
   for task_id, (n_act, _) in TOY_TEXT.items():
     small[task_id] = small_family(torch, envpool_torch, device, task_id, SMALL_ENVS,
                                   TOY_TEXT_STEPS, n_act, toy_text_check(task_id), card,
@@ -2729,8 +3143,6 @@ def main(argv) -> int:
   # 12. the contact device MuJoCo ids: HalfCheetah, Hopper, Walker2d, Ant,
   # Humanoid, HumanoidStandup
   t12 = time.perf_counter()
-  scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
-  os.makedirs(scratch, exist_ok=True)
   # 13. the dm_control device tier: CheetahJaxRun-v1 and HumanoidJaxRun-v1
   # 14. the rest of the device tier: Pusher, manipulator, humanoid_CMU; then
   # the comparisons of phases 12, 13 and 14 together (two CPU children)
@@ -2764,8 +3176,16 @@ def main(argv) -> int:
   log(f"host tier phase: {time.perf_counter() - t16:.1f} s")
   log(json.dumps({"host_tier": host}))
 
+  # 17. the last host families: procgen and ViZDoom (both action modes)
+  # over scripted wheels through step, an async pool and xla() on cuda:0;
+  # the examples in child processes
+  t17 = time.perf_counter()
+  wheels = last_host_families(torch, card, scratch)
+  log(f"last host families and examples phase: {time.perf_counter() - t17:.1f} s")
+  log(json.dumps({"last_host_families": wheels}))
+
   log(f"total {time.perf_counter() - t_start:.1f} s")
-  # 17. results
+  # 18. results
   main_case = kres["cases"]["real_fine"]
   kernel = {
     "name": "car_racing_sampler",

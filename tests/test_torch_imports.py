@@ -3,10 +3,12 @@ without optree, gymnasium, dm_env, Box2D, mujoco and ale_py), lists all of
 the JAX package's ids in its order (the host tier's too: making a MuJoCo
 or dm_control host id then raises an ImportError that names mujoco), every
 device family steps and one PPO iteration and the mesh dry run run so, the
-mesh layer and the utilities load no module of jax or the JAX package even
-where jax is installed, no file of it imports jax, flax, optax, Box2D or
-envpool_tpu, and mujoco, gymnasium and ale_py are imported only inside
-functions. Its ids are the JAX package's, in its order."""
+mesh layer, the utilities, the host families and the examples load no
+module of jax or the JAX package even where jax is installed, no file of
+it imports jax, flax, optax, Box2D or envpool_tpu, and mujoco, gymnasium
+and ale_py are imported only inside functions. Its ids are the JAX
+package's, in its order; the procgen and vizdoom families are skipped only
+where their wheel itself is missing."""
 
 import ast
 import json
@@ -14,6 +16,8 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -116,6 +120,26 @@ import envpool_torch.parallel
 import envpool_torch.parallel.dryrun
 import envpool_torch.utils
 envpool_torch.parallel.dryrun.dryrun_multichip(4, device="cpu")
+# the last host families: vizdoom's pure action set without the wheel,
+# its env classes refused; procgen under a scripted wheel; the examples
+import envpool_torch.envs.vizdoom
+import envpool_torch.envs.vizdoom.vizdoom_env
+assert envpool_torch.envs.vizdoom.action_set.build_action_set(
+  ["ATTACK", "MOVE_RIGHT", "MOVE_LEFT"]).shape == (6, 3)
+try:
+  envpool_torch.envs.vizdoom.VizdoomEnvSpec
+  raise AssertionError("VizdoomEnvSpec without vizdoom")
+except ImportError as e:
+  assert "vizdoom" in str(e), e
+import types
+sys.modules["procgen"] = types.ModuleType("procgen")
+import envpool_torch.envs.procgen
+assert envpool_torch.envs.procgen.ProcgenEnvSpec
+import envpool_torch.examples
+import envpool_torch.examples.async_loop
+import envpool_torch.examples.ppo_mujoco
+import envpool_torch.examples.ppo_sokoban
+import envpool_torch.examples.xla_step
 assert all(sys.modules[m] is None
            for m in ("jax", "flax", "optax", "envpool_tpu", "mujoco", "gymnasium",
                      "ale_py"))
@@ -146,6 +170,15 @@ import envpool_torch.parallel.dryrun
 import envpool_torch.utils
 import envpool_torch.envs.atari
 import envpool_torch.envs.mujoco.dmc
+import envpool_torch.envs.vizdoom
+import envpool_torch.envs.vizdoom.vizdoom_env
+import types
+sys.modules["procgen"] = types.ModuleType("procgen")
+import envpool_torch.envs.procgen
+import envpool_torch.examples.async_loop
+import envpool_torch.examples.ppo_mujoco
+import envpool_torch.examples.ppo_sokoban
+import envpool_torch.examples.xla_step
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "envpool_tpu"))
 assert not bad, bad
@@ -155,8 +188,9 @@ print("ok")
 
 def test_mesh_and_utils_pull_in_no_jax():
   """With jax installed and importable, importing the mesh layer, the
-  dry run, the utilities and the host tier's families loads no module of
-  jax or of the JAX package."""
+  dry run, the utilities, the host tier's families (procgen under a
+  scripted wheel) and the examples loads no module of jax or of the JAX
+  package."""
   env = dict(os.environ, PYTHONPATH=str(ROOT))
   res = subprocess.run(
     [sys.executable, "-c", _MESH_CHILD], cwd=ROOT, env=env,
@@ -231,3 +265,52 @@ def test_device_ids_are_the_jax_packages():
   assert len(want) == 49
   assert device(envpool_torch.list_all_envs()) == want
   assert envpool_torch.list_all_envs() == envpool_tpu.list_all_envs()
+
+
+_BROKEN_CHILD = """
+import importlib.abc
+import sys
+case = sys.argv[1]
+
+
+class Broken(importlib.abc.MetaPathFinder):
+  def find_spec(self, name, path=None, target=None):
+    if case == "wheel_fails" and name == "procgen":
+      raise ImportError("procgen's native library failed to load")
+    if case == "wheel_dependency_missing" and name == "vizdoom":
+      raise ModuleNotFoundError("No module named 'vizdoom_native'",
+                                name="vizdoom_native")
+    return None
+
+
+sys.meta_path.insert(0, Broken())
+if case == "port_module_missing":
+  sys.modules["envpool_torch.envs.procgen.registration"] = None
+try:
+  import envpool_torch
+except ImportError as e:
+  print(type(e).__name__, getattr(e, "name", None), e)
+  sys.exit(0)
+print("swallowed")
+sys.exit(1)
+"""
+
+
+@pytest.mark.parametrize("case,raised", [
+  ("wheel_fails", "ImportError None"),
+  ("wheel_dependency_missing", "ModuleNotFoundError vizdoom_native"),
+  ("port_module_missing",
+   "ModuleNotFoundError envpool_torch.envs.procgen.registration"),
+])
+def test_entry_skips_only_a_missing_wheel(case, raised):
+  """``entry.py`` skips the procgen and vizdoom families only when the
+  wheel itself is missing: a wheel that fails to load, a missing module
+  the wheel needs, or a missing module of the port stops the import of
+  ``envpool_torch`` with that error."""
+  env = dict(os.environ, PYTHONPATH=str(ROOT))
+  res = subprocess.run(
+    [sys.executable, "-c", _BROKEN_CHILD, case], cwd=ROOT, env=env,
+    capture_output=True, text=True, timeout=120,
+  )
+  assert res.returncode == 0, res.stdout + res.stderr
+  assert res.stdout.startswith(raised), res.stdout
