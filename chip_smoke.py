@@ -184,7 +184,21 @@ Phases (any failure exits non-zero before the result lines):
      ``ppo_mujoco --iterations 2``, ``xla_step``): exit 0, every number
      they print finite, their seconds. ``async_loop`` steps ``Ant-v4``,
      which needs mujoco, so only the CPU tests run it;
- 18. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
+ 18. captured rollouts (``envpool_torch.core.graph``): the set-handle
+     kernel of ``csrc/graph_cond.cu`` against ``pred.any()`` through IF and
+     WHILE nodes at 1 and 16384 lanes, and its time per node; then for each
+     id of ``CAPTURED`` the same seed and actions through the eager
+     ``xla()`` loop and through ``graph.CapturedScan``, every output field
+     and the final pool state bit for bit, the capture and its replays
+     under ``torch.cuda.set_sync_debug_mode("error")``: eager and captured
+     env-steps/s, capture and instantiate seconds, graph nodes, peak
+     memory, launches per captured step and the device's idle share (the
+     second step's replay alone, by CUDA events and by a CUDA-only trace);
+     the masked entry points with a device env_id; CheetahJaxRun-v1
+     and PusherJax-v4 with lanes that reset through the IF node (Pusher's
+     reset through its WHILE node); then the PPO rollout on Sokoban-v0 at
+     ``examples/ppo_sokoban.py``'s width captured against its eager steps;
+ 19. one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or outside a checkout, it fails and prints no result.
 """
@@ -456,9 +470,10 @@ def background_shard(torch, args, card) -> dict:
 
 
 def renders_for(done_before: np.ndarray) -> int:
-  """Background launches of one advance: one for the step when a lane
-  steps, one for the reset when a lane resets."""
-  return int((~done_before).any()) + int(done_before.any())
+  """Background launches of one advance: one for the step, which always
+  runs (as the JAX package's does; a forced reset runs the reset alone),
+  and one for the reset when a lane resets."""
+  return 1 + int(done_before.any())
 
 
 def run_sync(torch, envpool_torch, sampler, device, steps, seed, **kw):
@@ -2057,7 +2072,9 @@ def lockstep(torch, envpool_torch, task_id, kw, acts, pools_for, counter=None):
       r = res[name]
       shards = len(getattr(env, "_shards", [None]))
       b = n // shards
-      r["renders"] += sum(renders_for(done[name][s * b:(s + 1) * b]) for s in range(shards))
+      # the reset is forced: one render per shard
+      r["renders"] += shards if t == 0 else sum(
+        renders_for(done[name][s * b:(s + 1) * b]) for s in range(shards))
       if counter is not None:
         counter.launches = 0
       sync(torch, SHARD_DEVICE)
@@ -2940,6 +2957,371 @@ def last_host_families(torch, card, scratch: str) -> dict:
   res["examples"] = run_examples(card, scratch)
   return res
 
+# --------------------------------------------------------------- phase 18
+
+# id -> (envs, steps, make kwargs): the compiled rollout of each device
+# family at its chip_smoke width. CheetahJaxRun-v1 and PusherJax-v4 get a cap
+# of 4 steps so that every lane resets twice inside the captured rollout,
+# through the IF node (Pusher's reset through its WHILE node)
+CAPTURED = {
+  "CartPole-v1": (8192, 200, {}),
+  "Sokoban-v0": (SOKOBAN_ENVS, 100, SOKOBAN_KW),
+  "CarRacing-v2": (N_ENVS, 50, {}),
+  "Blackjack-v1": (SMALL_ENVS, 50, {}),
+  "PongJaxDemo-v5": (PONG_ENVS, 50, {}),
+  "LunarLander-v2": (BOX2D_ENVS, 50, {}),
+  "BipedalWalkerHardcore-v3": (BOX2D_ENVS, 50, {}),
+  "HalfCheetahJax-v4": (4096, 10, {}),
+  "PusherJax-v4": (4096, 10, dict(max_episode_steps=4)),
+  "CheetahJaxRun-v1": (4096, 10, dict(max_episode_steps=4)),
+  "HumanoidCMUJaxRun-v1": (1024, 3, {}),
+}
+COND_NODES_PER_TIMING = 1024  # set-handle kernels (and skipped IF nodes) timed per replay
+
+
+def captured_actions(envpool_torch, task_id: str, steps: int, n: int) -> np.ndarray:
+  """The id's actions of phases 4-14: uniform in its action space."""
+  seed = SEED + 50
+  if task_id == "CarRacing-v2":
+    rng = np.random.default_rng(seed)
+    return np.stack([random_actions(rng, n) for _ in range(steps)])
+  if task_id == "Sokoban-v0":
+    return sokoban_actions(seed, steps, n)
+  if task_id in BOX2D_IDS:
+    return box2d_actions(task_id, seed, steps, n)
+  spec = envpool_torch.make_spec(task_id).action_array_spec["action"]
+  if np.issubdtype(spec.dtype, np.integer):
+    return small_actions(seed, steps, n, int(spec.maximum) + 1)
+  return mujoco_actions(envpool_torch, task_id, seed, steps, n)
+
+
+def bit_equal(torch, got, want, tag: str) -> None:
+  """Equal leaf by leaf through dicts and tuples, NaN equal to NaN."""
+  from envpool_torch.core.graph import tree_map
+
+  def eq(g, w):
+    if g.shape != w.shape or g.dtype != w.dtype or not (
+        torch.equal(g, w) or (g.is_floating_point() and bool(
+          ((g == w) | (torch.isnan(g) & torch.isnan(w))).all()))):
+      raise AssertionError(f"{tag}: captured differs from eager")
+
+  tree_map(eq, got, want)
+
+
+def check_set_conditional(torch, card) -> dict:
+  """The set-handle kernel against its plain version: for each predicate,
+  an IF node whose body adds 1 and a WHILE node that counts to 3 only where
+  the predicate holds, captured and replayed; then its time per node, a
+  replay of COND_NODES_PER_TIMING kernels whose IF bodies are skipped, on
+  the pool's widest predicate, against ``pred.any()``."""
+  from envpool_torch.core import graph
+
+  gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+  preds = {}
+  for n in (1, SOKOBAN_ENVS):
+    preds[f"none of {n}"] = torch.zeros(n, dtype=torch.bool, device="cuda")
+    preds[f"all of {n}"] = torch.ones(n, dtype=torch.bool, device="cuda")
+    last = torch.zeros(n, dtype=torch.bool, device="cuda")
+    last[-1] = True
+    preds[f"the last of {n}"] = last
+    preds[f"1% of {n}"] = torch.rand(n, generator=gen, device="cuda") < 0.01
+  err = 0
+  for name, pred in preds.items():
+    def body(x, pred=pred):
+      y = graph.cond(pred, lambda v: v + 1, lambda v: v, x)
+      z = graph.while_loop(lambda c: pred & (c < 3), lambda c: c + 1,
+                           torch.zeros_like(x))
+      return x, (y, z)
+    sc = graph.CapturedScan(body, 1)
+    _, (y, z) = sc(torch.zeros(1, dtype=torch.int32, device="cuda"))
+    want = graph.set_conditional_plain(pred).to(torch.int32)
+    err = max(err, int((y[0, 0] - want).abs()), int((z[0, 0] - 3 * want).abs()))
+  if err:
+    raise AssertionError(f"set_conditional disagrees with pred.any() by {err}")
+  pred = preds[f"none of {SOKOBAN_ENVS}"]
+
+  def many(x):
+    for _ in range(COND_NODES_PER_TIMING):
+      x = graph.cond(pred, lambda v: v + 1, lambda v: v, x)
+    return x, x
+
+  sc = graph.CapturedScan(many, 1)
+  x0 = torch.zeros(1, dtype=torch.int32, device="cuda")
+  # a replay of 1024 nodes outlasts the call's host overhead: no queue
+  ms = time_cuda(torch, lambda: sc(x0), reps=20, queue=False) / COND_NODES_PER_TIMING
+  plain_ms = time_cuda(torch, lambda: graph.set_conditional_plain(pred), reps=200)
+  bound_ms = 1e3 * SOKOBAN_ENVS / HBM_BYTES_PER_S
+  res = {"cases": len(preds), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": bound_ms, "bound_by": "bytes", "n": SOKOBAN_ENVS}
+  log(f"set_conditional (csrc/graph_cond.cu) vs pred.any(): {len(preds)} "
+      f"predicates at 1 and {SOKOBAN_ENVS} lanes through IF and WHILE nodes, "
+      f"max abs err {err}; {1e3 * ms:.2f} us per kernel and skipped IF node "
+      f"at {SOKOBAN_ENVS} lanes ({COND_NODES_PER_TIMING} in one replay), "
+      f"pred.any() {1e3 * plain_ms:.2f} us, bound {1e3 * bound_ms:.4f} us "
+      f"(bytes) [{card}]")
+  return res
+
+
+def trace_replay(torch, sc):
+  """One replay of a captured step, traced with CUDA activity only, from
+  the state its buffers hold: (launches, device-busy us as the union of
+  the launches' intervals, the span us from the first launch's start to the
+  last one's end, launches by name). The fill that resets the step counter
+  before the replay is left out."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    sc.replay(1)
+    torch.cuda.synchronize()
+  events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)[1:]
+  busy, start, end = 0.0, None, None
+  for e in events:
+    if end is None or e.time_range.start > end:
+      busy += 0.0 if end is None else end - start
+      start, end = e.time_range.start, e.time_range.end
+    else:
+      end = max(end, e.time_range.end)
+  busy += end - start
+  span = max(e.time_range.end for e in events) - events[0].time_range.start
+  names = {}
+  for e in events:
+    names[e.name] = names.get(e.name, 0) + 1
+  return len(events), busy, span, names
+
+
+def captured_cell(torch, envpool_torch, task_id: str, card) -> dict:
+  """One id's rollout eagerly and captured; see phase 18 in the docstring."""
+  from envpool_torch.core import graph
+  from envpool_torch.envs.box2d import sampler
+
+  n, steps, kw = CAPTURED[task_id]
+  env = envpool_torch.make_gymnasium(task_id, num_envs=n, seed=SEED, device="cuda", **kw)
+  env.reset()
+  handle, _, send, _ = env.xla()
+  acts = torch.from_numpy(captured_actions(envpool_torch, task_id, steps, n)).cuda()
+
+  def body(carry):
+    h, t = carry
+    h = send(h, acts.index_select(0, t)[0])
+    return (h, t + 1), h.out
+
+  t0 = torch.zeros(1, dtype=torch.int64, device="cuda")
+  torch.cuda.synchronize()
+  t_e = time.perf_counter()
+  carry, outs = (handle, t0), []
+  for _ in range(steps):
+    carry, y = body(carry)
+    outs.append(y)
+  torch.cuda.synchronize()
+  eager_s = time.perf_counter() - t_e
+  want = tuple(torch.stack(col) for col in zip(*outs))
+  del outs
+  torch.cuda.reset_peak_memory_stats()
+  base = torch.cuda.memory_allocated()
+  renders = sampler.fused_background.launches
+  sc = graph.CapturedScan(body, steps)
+  torch.cuda.set_sync_debug_mode("error")
+  try:
+    t_c = time.perf_counter()
+    (got_h, _), got = sc((handle, t0))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t_c
+    t_r = time.perf_counter()
+    (got_h2, _), got2 = sc((handle, t0))
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t_r
+  finally:
+    torch.cuda.set_sync_debug_mode(0)
+  peak_gb = (torch.cuda.max_memory_allocated() - base) / 2**30
+  bit_equal(torch, got, want, f"{task_id} outputs")
+  bit_equal(torch, got_h.pool, carry[0].pool, f"{task_id} final pool state")
+  bit_equal(torch, got2, got, f"{task_id} second replay")
+  keys = env._state_keys
+  first = got[keys.index("step_type")] == 0
+  resets = int(first[1:].sum())
+  if task_id in ("CheetahJaxRun-v1", "PusherJax-v4") and resets < 2 * n:
+    raise AssertionError(f"{task_id}: {resets} lanes reset inside the captured rollout")
+  del got2
+  # the second step's replay, from the same state twice: timed alone by
+  # CUDA events, then traced (the profiler takes ~0.1 ms per kernel it
+  # records, and stretches the replay's span: its kernels' sum is kept)
+  ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+  sc((handle, t0), 1)
+  ev[0].record()
+  sc.replay(1)
+  ev[1].record()
+  torch.cuda.synchronize()
+  step_us = 1e3 * ev[0].elapsed_time(ev[1])
+  sc((handle, t0), 1)
+  t_t = time.perf_counter()
+  launches, busy_us, _, rows = trace_replay(torch, sc)
+  trace_s = time.perf_counter() - t_t
+  res = {
+    "envs": n, "steps": steps, "eager_sps": n * steps / eager_s,
+    "captured_sps": n * steps / replay_s, "first_call_s": first_s,
+    "capture_s": sc.capture_s, "instantiate_s": sc.instantiate_s,
+    "nodes": sc.nodes, "conditional_nodes": sc.conditional_nodes,
+    "peak_gb": peak_gb, "launches_per_step": launches,
+    "busy_us_per_step": busy_us, "idle": 1 - busy_us / step_us,
+    "lanes_reset": resets,
+    "sampler_launches": sampler.fused_background.launches - renders,
+    "trace_s": trace_s,
+  }
+  bg = [c for name, c in rows.items() if "car_racing_background" in name]
+  if bg:
+    res["sampler_per_step"] = bg[0]
+  log(f"{task_id} captured: {n} envs x {steps} steps, every output field and "
+      f"the final state bit for bit against the eager xla() loop; eager "
+      f"{res['eager_sps']:.1f} env-steps/s, captured {res['captured_sps']:.1f} "
+      f"(x{res['captured_sps'] / res['eager_sps']:.2f}); capture "
+      f"{sc.capture_s:.3f} s, instantiate {sc.instantiate_s:.3f} s, first call "
+      f"{first_s:.3f} s; {sc.nodes} nodes ({sc.conditional_nodes} conditional); "
+      f"peak {peak_gb:.3f} GiB over the eager outputs; the second step's "
+      f"replay alone: {launches} launches, device busy {busy_us:.1f} us "
+      f"(traced in {trace_s:.1f} s) of {step_us:.1f} us untraced (idle "
+      f"{100 * res['idle']:.1f}%); {resets} lane resets after step 1 [{card}]")
+  return res
+
+
+def captured_masked(torch, envpool_torch, card) -> dict:
+  """The masked entry points with a device ``env_id``, captured:
+  CartPole-v1 at 8192 envs, 20 steps, each a ``send`` to every other lane
+  and a forced reset of every fourth lane (``_advance_ids(..., reset=True)``,
+  the host API's partial reset), bit for bit against the same calls run
+  eagerly."""
+  from envpool_torch.core import graph
+
+  n, steps = 8192, 20
+  env = envpool_torch.make_gymnasium("CartPole-v1", num_envs=n, seed=SEED, device="cuda")
+  env.reset()
+  handle, _, send, _ = env.xla()
+  half = torch.arange(0, n, 2, device="cuda")
+  quarter = torch.arange(0, n, 4, device="cuda")
+  acts = torch.from_numpy(small_actions(SEED + 52, steps, n // 2, 2)).cuda()
+  # the carry keeps its shapes: its out holds the masked batch from here on
+  handle = send(handle, acts[0], env_id=half)
+
+  def body(carry):
+    h, t = carry
+    h = send(h, acts.index_select(0, t)[0], env_id=half)
+    pool, outs = env._advance_ids(h.pool, None, quarter, True)
+    return (h._replace(pool=pool), t + 1), (h.out, tuple(outs))
+
+  def run(steps_done):
+    carry, rows = (handle, torch.zeros(1, dtype=torch.int64, device="cuda")), []
+    for _ in range(steps_done):
+      carry, y = body(carry)
+      rows.append(y)
+    return carry, rows
+
+  from envpool_torch.core.graph import tree_map
+  carry, rows = run(steps)
+  want = tree_map(lambda *r: torch.stack(r), *rows)
+  sc = graph.CapturedScan(body, steps)
+  torch.cuda.set_sync_debug_mode("error")
+  try:
+    (got_h, _), got = sc((handle, torch.zeros(1, dtype=torch.int64, device="cuda")))
+  finally:
+    torch.cuda.set_sync_debug_mode(0)
+  bit_equal(torch, got, want, "masked send and reset outputs")
+  bit_equal(torch, got_h.pool, carry[0].pool, "masked send and reset final state")
+  log(f"CartPole-v1 masked entry points captured: {n} envs x {steps} steps of "
+      f"send(env_id=every other lane) and a forced reset of every fourth lane, "
+      f"device env_id, bit for bit against the eager calls; {sc.nodes} nodes "
+      f"[{card}]")
+  return {"envs": n, "steps": steps, "nodes": sc.nodes}
+
+
+def captured_ppo(torch, envpool_torch, card) -> dict:
+  """PPO's rollout on Sokoban-v0 at examples/ppo_sokoban.py's width
+  (``SokobanCNN()``, 1024 envs, 32 steps): ``rollout`` (captured) against
+  the same steps run eagerly, bit for bit in the trajectory, the handle, the
+  key and the bootstrap value."""
+  from envpool_torch.core.graph import tree_map
+  from envpool_torch.models import SokobanCNN
+  from envpool_torch.train import PPOConfig, make_ppo_train_step, ppo_init
+
+  n = N_ENVS
+  pool = envpool_torch.make_gymnasium(
+    "Sokoban-v0", num_envs=n, seed=SEED, device="cuda", **SOKOBAN_KW
+  )
+  net = SokobanCNN()
+  cfg = PPOConfig(num_steps=PPO_STEPS, lr=PPO_LR)
+  state, tx = ppo_init(pool, net, cfg, seed=SEED)
+  step = make_ppo_train_step(pool, net, cfg, tx)
+  # the eager steps first: they also make the family's constants, which a
+  # first step makes on the device once, outside the sync check
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  with torch.no_grad():
+    step._params = {k: v.clone() for k, v in state.params.items()}
+    carry, rows = (state.handle, state.key), []
+    for _ in range(cfg.num_steps):
+      carry, row = step._rollout_step(carry)
+      rows.append(row)
+    _, states = step._recv(carry[0])
+    _, want_value = step._apply(state.params, states[step._obs])
+  torch.cuda.synchronize()
+  eager_s = time.perf_counter() - t0
+  torch.cuda.reset_peak_memory_stats()
+  base = torch.cuda.memory_allocated()
+  torch.cuda.set_sync_debug_mode("error")
+  try:
+    t0 = time.perf_counter()
+    handle, key, traj, last_value = step.rollout(state)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step.rollout(state)
+    torch.cuda.synchronize()
+    captured_s = time.perf_counter() - t0
+  finally:
+    torch.cuda.set_sync_debug_mode(0)
+  peak_gb = (torch.cuda.max_memory_allocated() - base) / 2**30
+  want = tree_map(lambda *r: torch.stack(r), *rows)
+  bit_equal(torch, traj, want, "PPO rollout trajectory")
+  bit_equal(torch, (handle.pool, key, last_value), (carry[0].pool, carry[1], want_value),
+            "PPO rollout handle, key and value")
+  sc = step._scan
+  res = {"envs": n, "steps": cfg.num_steps, "eager_sps": n * cfg.num_steps / eager_s,
+         "captured_sps": n * cfg.num_steps / captured_s, "first_call_s": first_s,
+         "capture_s": sc.capture_s, "instantiate_s": sc.instantiate_s,
+         "nodes": sc.nodes, "peak_gb": peak_gb}
+  log(f"PPO Sokoban-v0 rollout captured: {n} envs x {cfg.num_steps} steps "
+      f"(SokobanCNN full width, bf16), trajectory, handle, key and value bit "
+      f"for bit against the eager steps; eager {res['eager_sps']:.1f} "
+      f"env-steps/s, captured {res['captured_sps']:.1f} "
+      f"(x{res['captured_sps'] / res['eager_sps']:.2f}); capture "
+      f"{sc.capture_s:.3f} s, instantiate {sc.instantiate_s:.3f} s; "
+      f"{sc.nodes} nodes; peak {peak_gb:.3f} GiB [{card}]")
+  return res
+
+
+def captured_rollouts(torch, envpool_torch, card) -> dict:
+  from envpool_torch.core import graph
+  from envpool_torch.envs.box2d import sampler
+
+  res = {"set_conditional": check_set_conditional(torch, card)}
+  # the phase's main path: every count from 0
+  graph.set_conditional.launches = 0
+  sampler.fused_background.launches = 0
+  for task_id in CAPTURED:
+    t0 = time.perf_counter()
+    res[task_id] = captured_cell(torch, envpool_torch, task_id, card)
+    res[task_id]["seconds"] = time.perf_counter() - t0
+    log(f"  {task_id}: {res[task_id]['seconds']:.1f} s")
+    torch.cuda.empty_cache()
+  res["masked"] = captured_masked(torch, envpool_torch, card)
+  res["ppo_sokoban"] = captured_ppo(torch, envpool_torch, card)
+  res["launches"] = {"set_conditional": graph.set_conditional.launches,
+                     "car_racing_sampler": sampler.fused_background.launches}
+  if not all(res["launches"].values()):
+    raise AssertionError(f"phase 18 launched a kernel no time: {res['launches']}")
+  return res
+
 
 def main(argv) -> int:
   if argv[:1] == ["--cpu-reference"]:  # phases 12, 13 and 14's children
@@ -3184,8 +3566,14 @@ def main(argv) -> int:
   log(f"last host families and examples phase: {time.perf_counter() - t17:.1f} s")
   log(json.dumps({"last_host_families": wheels}))
 
+  # 18. captured rollouts: xla() and the PPO rollout as CUDA graphs
+  t18 = time.perf_counter()
+  captured = captured_rollouts(torch, envpool_torch, card)
+  log(f"captured rollouts phase: {time.perf_counter() - t18:.1f} s")
+  log(json.dumps({"captured": captured}))
+
   log(f"total {time.perf_counter() - t_start:.1f} s")
-  # 18. results
+  # 19. results
   main_case = kres["cases"]["real_fine"]
   kernel = {
     "name": "car_racing_sampler",
@@ -3206,7 +3594,25 @@ def main(argv) -> int:
     "sharded": {name: r["per_render"] for name, r in shard["car_racing"].items()},
     "shard_case": kres["shard"],
   }
-  log(json.dumps({"kernels": [kernel]}))
+  cond = captured["set_conditional"]
+  cond_kernel = {
+    "name": "set_conditional",
+    "route": "cuda",
+    "source": "envpool_torch/csrc/graph_cond.cu",
+    "replaces": "none: the device side of jax.lax.cond at "
+                "envpool_tpu/core/pool.py:210 and of jax.lax.while_loop at "
+                "envpool_tpu/envs/mujoco/device_tasks.py:982",
+    "launches": captured["launches"]["set_conditional"],
+    "max_abs_err": cond["max_abs_err"],
+    "ms": cond["ms"],
+    "plain_ms": cond["plain_ms"],
+    "bound_ms": cond["bound_ms"],
+    "bound_by": cond["bound_by"],
+    "library_ms": None,
+    "unit": f"one launch and its skipped IF node, {cond['n']} lanes; launches: "
+            f"those recorded into phase 18's graphs",
+  }
+  log(json.dumps({"kernels": [kernel, cond_kernel]}))
   log(json.dumps({
     "ok": True,
     "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},

@@ -1,0 +1,425 @@
+"""The compiled rollout: ``jax.jit``, ``lax.scan``, ``lax.cond`` and
+``lax.while_loop`` for the port, as CUDA graphs.
+
+The JAX package compiles a whole rollout into one XLA program
+(``envpool_tpu/core/pool.py:494-505``: ``xla()`` "usable inside ``jit``").
+Here a step is captured once into a ``torch.cuda.CUDAGraph`` and replayed:
+
+- ``cond(pred, true_fn, false_fn, operands)``, for ``jax.lax.cond``. Eager
+  (the CPU, or the card outside a capture), it reads ``pred`` once. Under
+  capture it is an IF conditional node: a kernel sets the node's handle from
+  ``pred`` on the device (``csrc/graph_cond.cu``), ``true_fn`` is captured
+  into the node's body, and its results are copied into buffers allocated
+  before the node. ``false_fn`` must then be the identity on the operands,
+  which it is at every use in the port.
+- ``while_loop(cond_fn, body_fn, init)``, for ``jax.lax.while_loop``: a
+  WHILE node whose body re-sets the handle from ``cond_fn`` of the new carry.
+  ``fori_loop(n, body_fn, init)`` is its counted form: eagerly a plain loop.
+- ``scan(body, carry, length)``, for
+  ``jax.jit(lambda c: lax.scan(body, c, None, length))``; ``CapturedScan``
+  keeps its graph for reuse. On the card the first call warms ``body`` up on
+  a side stream, captures one call into a graph that reads static carry
+  buffers, copies the new carry into them and writes ``y`` into row ``t`` of
+  ``[length, ...]`` outputs through a device step counter it advances
+  itself; then it replays the graph ``length`` times. On the CPU the same
+  body runs eagerly ``length`` times.
+
+A predicate is a bool tensor and the branch runs where any of its elements
+is set (a one-element tensor is the plain ``lax.cond``): the set-handle
+kernel fuses the ``any``. PyTorch's own ``CUDAGraph.begin_capture_to_if_node``
+has no WHILE counterpart, so both node kinds go through the one kernel and
+one memory rule: every body is captured on a stream of its own (one per
+nesting depth), whose allocations come from a private pool of the graph,
+never from the normal pool; the pools live as long as the graph.
+
+A capture that fails raises; nothing falls back to the eager loop.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+_IF, _WHILE = 0, 1
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+  """Map ``fn`` over the leaves of dict/tuple/namedtuple trees of equal
+  shape (a container field is a plain ``(data, shape)`` tuple)."""
+  if isinstance(tree, dict):
+    return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+  if isinstance(tree, tuple):
+    mapped = (tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return type(tree)(*mapped) if hasattr(tree, "_fields") else tuple(mapped)
+  return fn(tree, *rest)
+
+
+def _leaves(tree: Any) -> List[torch.Tensor]:
+  out: List[torch.Tensor] = []
+  tree_map(out.append, tree)
+  return out
+
+
+def _capturing(t: torch.Tensor) -> bool:
+  return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
+def _host_pred(pred: torch.Tensor) -> bool:
+  """The one host read of an eager ``cond`` or ``while_loop`` round."""
+  return bool(pred.any())
+
+
+# ---------------------------------------------------------------- the kernel
+
+def _lib():
+  from envpool_torch import _build
+
+  lib = _build.load("graph_cond")
+  if lib.graph_cond_begin.argtypes is None:
+    vp, ull = ctypes.c_void_p, ctypes.c_ulonglong
+    lib.graph_cond_begin.argtypes = [
+      vp, vp, ctypes.c_int, vp, ctypes.c_int, ctypes.POINTER(ull),
+      ctypes.POINTER(vp),
+    ]
+    lib.graph_cond_set.argtypes = [vp, ull, vp, ctypes.c_int]
+    lib.graph_cond_end.argtypes = [vp, vp]
+    lib.graph_cond_nodes.argtypes = [vp, ctypes.POINTER(ull)]
+    for fn in (lib.graph_cond_begin, lib.graph_cond_set, lib.graph_cond_end,
+               lib.graph_cond_nodes):
+      fn.restype = ctypes.c_int
+  return lib
+
+
+def _check(err: int, what: str) -> None:
+  if err != 0:
+    raise RuntimeError(f"{what} failed: CUDA error {err}")
+
+
+def _pred_bytes(pred: torch.Tensor) -> torch.Tensor:
+  if pred.dtype != torch.bool:
+    raise ValueError(f"a predicate must be a bool tensor, got {pred.dtype}")
+  if pred.numel() == 0 or pred.numel() >= 2**31:
+    raise ValueError("a predicate must have 1 to 2**31 - 1 elements")
+  return pred.reshape(-1).contiguous()
+
+
+def set_conditional(handle: int, pred: torch.Tensor) -> None:
+  """Capture the kernel that sets ``handle`` to ``any(pred)``, on the
+  current stream, which must be capturing. ``set_conditional.launches``
+  counts the kernel's launches, the ones made by a node's begin too."""
+  p = _pred_bytes(pred)
+  stream = torch.cuda.current_stream(p.device).cuda_stream
+  _check(_lib().graph_cond_set(stream, handle, p.data_ptr(), p.numel()),
+         "graph_cond_set")
+  set_conditional.launches += 1
+
+
+set_conditional.launches = 0
+
+
+def set_conditional_plain(pred: torch.Tensor) -> torch.Tensor:
+  """The kernel's function in plain PyTorch: the handle's value."""
+  return pred.any()
+
+
+# ------------------------------------------------------- conditional bodies
+
+class _Capture:
+  """What one ``CapturedScan`` capture adds beside the graph: the private
+  pools of its bodies and their node counts."""
+
+  def __init__(self, device: torch.device) -> None:
+    self.device = device
+    self.pools: List[Tuple[int, int]] = []
+    self.body_nodes: List[int] = []
+
+
+_active: Optional[_Capture] = None
+_warming = False
+_depth = 0  # conditional bodies entered and not yet left
+_body_streams: Dict[Tuple[int, int], torch.cuda.Stream] = {}
+
+
+def _body_stream(device: torch.device, depth: int) -> "torch.cuda.Stream":
+  key = (device.index or 0, depth)
+  if key not in _body_streams:
+    _body_streams[key] = torch.cuda.Stream(device)
+  return _body_streams[key]
+
+
+@contextlib.contextmanager
+def _conditional_body(kind: int, pred: torch.Tensor):
+  """Add an IF or WHILE node at the capturing stream's frontier and capture
+  what runs inside the block into its body; yields the node's handle."""
+  global _depth
+  cap = _active
+  if cap is None:
+    raise RuntimeError(
+      "a conditional node needs a capture begun by envpool_torch.core.graph "
+      "(CapturedScan or scan)"
+    )
+  lib = _lib()
+  p = _pred_bytes(pred)
+  dev = p.device
+  outer = torch.cuda.current_stream(dev)
+  body = _body_stream(dev, _depth)
+  handle, graph_ptr = ctypes.c_ulonglong(), ctypes.c_void_p()
+  _check(lib.graph_cond_begin(
+    outer.cuda_stream, body.cuda_stream, kind, p.data_ptr(), p.numel(),
+    ctypes.byref(handle), ctypes.byref(graph_ptr),
+  ), "graph_cond_begin")
+  set_conditional.launches += 1
+  pool = torch._C._graph_pool_handle()
+  cap.pools.append(pool)
+  _depth += 1
+  try:
+    with torch.cuda.stream(body):
+      torch._C._cuda_beginAllocateCurrentStreamToPool(dev.index, pool)
+      try:
+        yield handle.value
+      finally:
+        torch._C._cuda_endAllocateToPool(dev.index, pool)
+  finally:
+    _depth -= 1
+    _check(lib.graph_cond_end(body.cuda_stream, graph_ptr), "graph_cond_end")
+  count = ctypes.c_ulonglong()
+  _check(lib.graph_cond_nodes(graph_ptr, ctypes.byref(count)), "graph_cond_nodes")
+  cap.body_nodes.append(int(count.value))
+
+
+@contextlib.contextmanager
+def _on_body_stream(device: torch.device):
+  """During warm-up: run a branch on the stream its body will be captured
+  on, so that per-stream state (library workspaces) exists before capture."""
+  global _depth
+  outer = torch.cuda.current_stream(device)
+  body = _body_stream(device, _depth)
+  body.wait_stream(outer)
+  _depth += 1
+  try:
+    with torch.cuda.stream(body):
+      yield
+  finally:
+    _depth -= 1
+    outer.wait_stream(body)
+
+
+def _copy_into(dst: Any, src: Any) -> None:
+  """``dst <- src`` leaf by leaf, safe where a source leaf shares memory with
+  a destination leaf (a carry field passed through, or moved to another
+  field): such sources are cloned before any copy."""
+  pairs: List[Tuple[torch.Tensor, torch.Tensor]] = []
+  tree_map(lambda d, s: pairs.append((d, s)), dst, src)  # paired by key
+  dst_l = [d for d, _ in pairs]
+  src_l = [s for _, s in pairs]
+  ptrs = {d.untyped_storage().data_ptr() for d in dst_l}
+  fresh = [
+    s if s is d or s.untyped_storage().data_ptr() not in ptrs else s.clone()
+    for d, s in zip(dst_l, src_l)
+  ]
+  for d, s in zip(dst_l, fresh):
+    if s is not d:
+      if s.shape != d.shape or s.dtype != d.dtype:
+        raise ValueError(
+          f"a branch or body changed a carry leaf: {tuple(d.shape)} {d.dtype} "
+          f"-> {tuple(s.shape)} {s.dtype}"
+        )
+      d.copy_(s)
+
+
+# ------------------------------------------------------------- control flow
+
+def cond(pred: torch.Tensor, true_fn: Callable, false_fn: Callable,
+         operands: Any) -> Any:
+  """``jax.lax.cond(any(pred), true_fn, false_fn, operands)``.
+
+  Eager, one host read of ``pred``. Under capture an IF node, with
+  ``false_fn`` taken to be the identity: the result is a copy of
+  ``operands`` allocated before the node, overwritten by ``true_fn``'s
+  result in the body."""
+  if _warming and pred.is_cuda:
+    with _on_body_stream(pred.device):
+      return true_fn(operands)
+  if not _capturing(pred):
+    return true_fn(operands) if _host_pred(pred) else false_fn(operands)
+  out = tree_map(torch.clone, operands)
+  with _conditional_body(_IF, pred):
+    _copy_into(out, true_fn(operands))
+  return out
+
+
+def while_loop(cond_fn: Callable, body_fn: Callable, init: Any) -> Any:
+  """``jax.lax.while_loop(lambda c: any(cond_fn(c)), body_fn, init)``.
+
+  Eager, one host read per round. Under capture a WHILE node over a copy of
+  ``init``: the body updates the copy in place and re-sets the handle."""
+  if _warming and _leaves(init)[0].is_cuda:
+    # one round, whatever the predicate: warm-up reads nothing back
+    with _on_body_stream(_leaves(init)[0].device):
+      carry = body_fn(init)
+      cond_fn(carry)
+    return carry
+  first = cond_fn(init)
+  if not _capturing(first):
+    carry = init
+    while _host_pred(first):
+      carry = body_fn(carry)
+      first = cond_fn(carry)
+    return carry
+  carry = tree_map(torch.clone, init)
+  with _conditional_body(_WHILE, first) as handle:
+    _copy_into(carry, body_fn(carry))
+    set_conditional(handle, cond_fn(carry))
+  return carry
+
+
+def fori_loop(n: int, body_fn: Callable, init: Any) -> Any:
+  """``jax.lax.fori_loop(0, n, lambda i, c: body_fn(c), init)`` for a static
+  ``n``: a Python loop eagerly (nothing read back), a WHILE node over a
+  device counter under capture, so that the graph holds one round's nodes
+  and not ``n`` copies of them."""
+  leaf = _leaves(init)[0]
+  if n < 1:
+    return init
+  if not ((_warming and leaf.is_cuda) or _capturing(leaf)):
+    for _ in range(n):
+      init = body_fn(init)
+    return init
+  count = torch.zeros(1, dtype=torch.int32, device=leaf.device)
+  carry, _ = while_loop(
+    lambda c: c[1] < n, lambda c: (body_fn(c[0]), c[1] + 1), (init, count)
+  )
+  return carry
+
+
+# --------------------------------------------------------------------- scan
+
+class CapturedScan:
+  """``jax.jit(lambda c: lax.scan(body, c, None, length))`` with the graph
+  kept: ``body(carry) -> (carry, y)``; calling the object with a carry
+  returns ``(final carry, ys)``, each ``ys`` leaf ``[length, ...]``.
+
+  On the card the first call captures, later calls copy their carry into the
+  static buffers and replay (the carry's leaves must keep their shapes and
+  types). Tensors that ``body`` closes over are read at replay: update them
+  in place, as ``PPOTrainStep`` does with its parameters. Attributes after a
+  capture: ``capture_s``, ``instantiate_s``, ``nodes`` (the step graph's,
+  conditional bodies included) and ``conditional_nodes``."""
+
+  def __init__(self, body: Callable, length: int) -> None:
+    if length < 1:
+      raise ValueError("scan length must be at least 1")
+    self.body, self.length = body, int(length)
+    self._graph: Optional[torch.cuda.CUDAGraph] = None
+    self._capture: Optional[_Capture] = None
+    self.capture_s = self.instantiate_s = 0.0
+    self.nodes = self.conditional_nodes = 0
+
+  def __call__(self, carry: Any, steps: Optional[int] = None) -> Tuple[Any, Any]:
+    """``steps`` (at most ``length``) runs only the first steps of the scan,
+    with ``ys`` of that length: a rollout timed at two lengths shares one
+    capture."""
+    steps = self.length if steps is None else int(steps)
+    if not 1 <= steps <= self.length:
+      raise ValueError(f"steps must lie in [1, {self.length}], got {steps}")
+    leaves = _leaves(carry)
+    if not leaves[0].is_cuda:
+      return self._eager(carry, steps)
+    if self._graph is None:
+      self._build(carry)
+    elif [(t.shape, t.dtype) for t in leaves] != self._signature:
+      raise ValueError("the carry's leaves changed shape or type since the capture")
+    _copy_into(self._carry, carry)
+    self.replay(steps)
+    return (tree_map(torch.clone, self._carry),
+            tree_map(lambda y: y[:steps].clone(), self._ys))
+
+  def replay(self, steps: Optional[int] = None) -> None:
+    """The graph alone, ``steps`` times (default ``length``) from step 0, on
+    the carry its buffers hold: a call without its copies in and out, for
+    timing the rollout itself."""
+    self._t.zero_()
+    for _ in range(self.length if steps is None else steps):
+      self._graph.replay()
+
+  def _eager(self, carry: Any, steps: int) -> Tuple[Any, Any]:
+    signature = [(t.shape, t.dtype) for t in _leaves(carry)]
+    ys = []
+    for _ in range(steps):
+      carry, y = self.body(carry)
+      if [(t.shape, t.dtype) for t in _leaves(carry)] != signature:
+        # the graph's static buffers could not hold it: refused here too
+        raise ValueError("the body changed a carry leaf's shape or type")
+      ys.append(y)
+    return carry, tree_map(lambda *r: torch.stack(r), *ys)
+
+  def _step(self) -> None:
+    """What the graph holds: one body call on the static buffers."""
+    new, y = self.body(self._carry)
+    # y may read the static carry: store it before the carry is overwritten
+    for buf, leaf in zip(_leaves(self._ys), _leaves(y)):
+      buf.index_copy_(0, self._t, leaf.unsqueeze(0))
+    _copy_into(self._carry, new)
+    self._t.add_(1)
+
+  def _build(self, carry: Any) -> None:
+    global _active, _warming
+    device = _leaves(carry)[0].device
+    _lib()  # the set-handle kernel is built before any capture
+    self._signature = [(t.shape, t.dtype) for t in _leaves(carry)]
+    self._carry = tree_map(torch.clone, carry)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    _warming = True
+    try:
+      with torch.cuda.stream(side):
+        _, y = self.body(self._carry)
+    finally:
+      _warming = False
+    torch.cuda.current_stream(device).wait_stream(side)
+    self._ys = tree_map(
+      lambda v: torch.empty((self.length, *v.shape), dtype=v.dtype, device=device), y
+    )
+    del y
+    self._t = torch.zeros(1, dtype=torch.int64, device=device)
+    cap = _Capture(device)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    t0 = time.perf_counter()
+    _active = cap
+    try:
+      with torch.cuda.graph(graph, stream=side):
+        self._step()
+    finally:
+      _active = None
+    t1 = time.perf_counter()
+    graph.instantiate()
+    self.instantiate_s = time.perf_counter() - t1
+    self.capture_s = t1 - t0
+    count = ctypes.c_ulonglong()
+    _check(_lib().graph_cond_nodes(graph.raw_cuda_graph(), ctypes.byref(count)),
+           "graph_cond_nodes")
+    self.nodes = int(count.value) + sum(cap.body_nodes)
+    self.conditional_nodes = len(cap.body_nodes)
+    self._graph, self._capture = graph, cap
+
+  def __del__(self) -> None:
+    graph, cap = getattr(self, "_graph", None), getattr(self, "_capture", None)
+    if graph is None:
+      return
+    try:
+      graph.reset()
+      for pool in cap.pools:
+        torch._C._cuda_releasePool(cap.device.index or 0, pool)
+    except Exception:
+      pass  # interpreter shutdown
+
+
+def scan(body: Callable, carry: Any, length: int) -> Tuple[Any, Any]:
+  """``jax.jit(lambda c: lax.scan(body, c, None, length))(carry)``: one
+  capture and ``length`` replays on the card, ``length`` eager calls on the
+  CPU. Returns ``(final carry, ys)``."""
+  return CapturedScan(body, length)(carry)

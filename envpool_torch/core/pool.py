@@ -3,9 +3,10 @@
 Counterpart of ``envpool_tpu/core/pool.py::TpuEnvPool``. Env state is a dict
 of ``[num_envs, ...]`` tensors on one device; one ``advance`` steps every
 lane with the family's batched functions, auto-reset is a per-lane select
-on the done flags, and partial batches are env-id masks. PyTorch runs
-eagerly, so the three entry points of the JAX package (full advance,
-masked advance, forced reset) are plain methods over the same ``advance``.
+on the done flags, and partial batches are env-id masks. The three
+entry points of the JAX package (full advance, masked advance, forced
+reset) are plain methods over the same ``advance``; ``graph.scan`` captures
+them as one CUDA graph where the JAX package jits them.
 
 Semantics reproduced exactly (see tests/test_torch_*.py):
 - auto-reset: a done env's next scheduled step becomes Reset
@@ -33,14 +34,16 @@ Semantics reproduced exactly (see tests/test_torch_*.py):
 - container fields: a padded ``(data, shape)`` pair on the device, a ragged
   object column at ``recv``.
 
-Auto-reset form. ``TpuEnvPool`` wraps the reset in
-``jax.lax.cond(jnp.any(need_reset), ...)``. Here the test is made on the
-host: one device-to-host read of two flags per advance decides whether the
-batch needs the step, the reset, or both. The alternative, computing the
-reset every step and selecting it, would render every CarRacing frame
-twice. Either way the RNG consumption is identical: step and reset share
-the same ``sub`` keys, as in the JAX package. For env-side auto-reset
-families the flags are set only on the first step and on forced resets.
+Auto-reset form. As ``TpuEnvPool`` (``_merge_resets``), the step always
+runs and the reset runs under ``graph.cond(any(need_reset), ...)`` with its
+selects: eagerly one device-to-host read of that flag per advance; inside
+``graph.scan`` on the card an IF node of the captured graph. Computing the
+reset every step and selecting it would render every CarRacing frame twice
+and run dm_control cheetah's 200 settle substeps every step. The RNG
+consumption is identical either way: step and reset share the same ``sub``
+keys, as in the JAX package. A forced reset (the host API's ``reset``)
+runs the reset alone. For env-side auto-reset families the flag is set
+only on the first step and on forced resets.
 """
 
 from __future__ import annotations
@@ -51,7 +54,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from . import prng
+from . import graph, prng
+from .graph import tree_map
 from .env import FuncEnv
 from .env_spec import EnvSpec
 from .spec import ContainerSpec
@@ -64,17 +68,6 @@ PoolState = namedtuple("PoolState", ["env", "rng", "elapsed", "done"])
 # The functional interface returned by ``xla()``: the handle carries the
 # pool state plus the most recent batch of outputs, so ``recv`` is pure.
 XlaHandle = namedtuple("XlaHandle", ["pool", "out"])
-
-
-def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
-  """Map ``fn`` over the leaves of dict/tuple/namedtuple trees of equal
-  shape (a container field is a plain ``(data, shape)`` tuple)."""
-  if isinstance(tree, dict):
-    return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-  if isinstance(tree, tuple):
-    mapped = (tree_map(fn, *xs) for xs in zip(tree, *rest))
-    return type(tree)(*mapped) if hasattr(tree, "_fields") else tuple(mapped)
-  return fn(tree, *rest)
 
 
 def _select(mask: torch.Tensor, a: Any, b: Any) -> Any:
@@ -240,42 +233,38 @@ class TorchEnvPool:
   ) -> Tuple[PoolState, List[torch.Tensor]]:
     env_cls, cfg, n = self._env_cls, self._cfg, self._num_envs
     rng, sub = _split_keys(ps.rng)
+    st_trunc = None
     if force_reset:
+      # every lane that matters resets: the step's values would all be
+      # discarded by the selects below, so it is not computed
       need_reset = torch.ones(n, dtype=torch.bool, device=self.device)
-      run_step, run_reset = False, True
+      env2, obs, info = env_cls.reset(cfg, ps.env, sub)
+      rew_shape = (n, self._max_players) if self._multi_player else (n,)
+      st_rew = torch.zeros(rew_shape, dtype=torch.float32, device=self.device)
+      st_term = torch.zeros(n, dtype=torch.bool, device=self.device)
+      st_trunc = st_term
     else:
       need_reset = ps.done
-      live = need_reset if mask is None else need_reset & mask
-      stepping = ~need_reset if mask is None else ~need_reset & mask
-      # the host-side counterpart of the JAX package's lax.cond: one read
-      run_step, run_reset = (
-        bool(v) for v in torch.stack([stepping.any(), live.any()]).tolist()
-      )
-      run_step = run_step or not run_reset
-
-    st_trunc = None
-    if run_step:
       res = env_cls.step(cfg, ps.env, self._unpack_action(action_full), sub)
       if self._env_resets:
         st_env, st_obs, st_rew, st_term, st_trunc, st_info = res
       else:
         st_env, st_obs, st_rew, st_term, st_info = res
-    if run_reset:
-      rs_env, rs_obs, rs_info = env_cls.reset(cfg, ps.env, sub)
-      if run_step:
-        env2 = _select(need_reset, rs_env, st_env)
-        obs = _select(need_reset, rs_obs, st_obs)
-        info = _select(need_reset, rs_info, st_info)
-      else:
-        # every lane that matters resets: the step's values are all
-        # discarded by the selects below, so it is not computed
-        env2, obs, info = rs_env, rs_obs, rs_info
-        rew_shape = (n, self._max_players) if self._multi_player else (n,)
-        st_rew = torch.zeros(rew_shape, dtype=torch.float32, device=self.device)
-        st_term = torch.zeros(n, dtype=torch.bool, device=self.device)
-        st_trunc = st_term
-    else:
-      env2, obs, info = st_env, st_obs, st_info
+
+      def do_reset(st3):
+        rs_env, rs_obs, rs_info = env_cls.reset(cfg, ps.env, sub)
+        return (
+          _select(need_reset, rs_env, st3[0]),
+          _select(need_reset, rs_obs, st3[1]),
+          _select(need_reset, rs_info, st3[2]),
+        )
+
+      # the JAX package's lax.cond(jnp.any(need_reset), ...): one host read
+      # eagerly, an IF node of the graph under capture
+      live = need_reset if mask is None else need_reset & mask
+      env2, obs, info = graph.cond(
+        live, do_reset, lambda st3: st3, (st_env, st_obs, st_info)
+      )
     info = dict(info)
 
     # st_rew is [n] single-player or [n, P] multiplayer
@@ -360,8 +349,8 @@ class TorchEnvPool:
 
   def _mask(self, env_id: torch.Tensor) -> torch.Tensor:
     mask = torch.zeros(self._num_envs, dtype=torch.bool, device=self.device)
-    mask[env_id] = True
-    return mask
+    # a fill, not an indexed store of a host scalar (a copy to the device)
+    return mask.index_fill_(0, env_id, True)
 
   def _advance_masked(
     self,
@@ -379,10 +368,8 @@ class TorchEnvPool:
   def _reset_masked(
     self, ps: PoolState, env_id: torch.Tensor
   ) -> Tuple[PoolState, List[torch.Tensor]]:
-    mask = self._mask(env_id)
-    # force-reset only masked lanes: merge into pool done flag first
-    forced = ps._replace(done=ps.done | mask)
-    new_ps, outs = self._advance(forced, self._zero_action, mask, False)
+    # a forced reset of every lane, of which the mask keeps env_id's
+    new_ps, outs = self._advance(ps, self._zero_action, self._mask(env_id), True)
     return new_ps, _gather(outs, env_id)
 
   def _advance_ids(

@@ -63,7 +63,11 @@ def prng_key(seed: int, device: Union[str, torch.device] = "cpu") -> torch.Tenso
 
 def fold_in(keys: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
   """``jax.random.fold_in`` batched: keys ``[..., 2]``, data ``[...]``."""
-  data = torch.as_tensor(data, device=keys.device).to(torch.int64) & _M32
+  if isinstance(data, torch.Tensor):
+    data = data.to(device=keys.device, dtype=torch.int64) & _M32
+  else:
+    # a fill on the device, not a host-to-device copy (it may be captured)
+    data = torch.full_like(keys[..., 0], int(data) & _M32)
   b1, b2 = threefry2x32(
     keys[..., 0], keys[..., 1], torch.zeros_like(data), data
   )

@@ -155,6 +155,10 @@ def _constants(device: torch.device) -> Dict[str, torch.Tensor]:
     "rot_inertia": np.diag(rot_inertia),
     "eye": np.broadcast_to(np.eye(2, dtype=np.float32), (14, 2, 2)).copy(),
     "ref": np.asarray(_JOINT_REF, np.float32),
+    # the joints' body indices as device tensors: indexing with a host list
+    # would copy it to the device at every step
+    "child": np.asarray(_CHILD, np.int64),
+    "parent": np.asarray(_PARENT, np.int64),
     "lo": np.asarray(_JOINT_LO, np.float32),
     "hi": np.asarray(_JOINT_HI, np.float32),
     "motor_speed": np.asarray(_MOTOR_SPEED, np.float32),
@@ -341,7 +345,7 @@ class BipedalWalkerEnv(FuncEnv):
       # Coriolis: Mdot qd - dT/dq = sum_b m_b J_b^T (Jdot_b qd)
       coriolis = (mj * jdot_qd[:, :5].reshape(n, 10, 1)).sum(1)
       # motor generalized torques with speed control
-      jvel = qd[:, _CHILD] - qd[:, _PARENT]
+      jvel = qd[:, c["child"]] - qd[:, c["parent"]]
       tau = torch.clamp(30.0 * (target - jvel), -max_tau, max_tau)
       gen = grav - coriolis
       t0, t1, t2, t3 = tau.unbind(1)
@@ -373,10 +377,10 @@ class BipedalWalkerEnv(FuncEnv):
       q = q + qd * sub_dt
 
       # joint limits: project angles, zero relative velocity at the stop
-      jang = q[:, _CHILD] - q[:, _PARENT] - c["ref"]
+      jang = q[:, c["child"]] - q[:, c["parent"]] - c["ref"]
       corr = torch.clamp(jang, c["lo"], c["hi"]) - jang
       q = torch.cat([q[:, :3], q[:, 3:] + corr], 1)
-      jvel2 = qd[:, _CHILD] - qd[:, _PARENT]
+      jvel2 = qd[:, c["child"]] - qd[:, c["parent"]]
       qd = torch.cat([qd[:, :3], qd[:, 3:] + torch.where(corr.abs() > 0.0, -jvel2, 0.0)], 1)
 
       leg_contact = leg_contact | touching[:, :4].reshape(n, 2, 2).any(2)
@@ -389,8 +393,8 @@ class BipedalWalkerEnv(FuncEnv):
     first_hit = torch.argmax(below.to(torch.uint8), dim=2)
     lidar = torch.where(below.any(2), c["fractions"][first_hit], 1.0)
 
-    jang = q[:, _CHILD] - q[:, _PARENT] - c["ref"]
-    jvel = qd[:, _CHILD] - qd[:, _PARENT]
+    jang = q[:, c["child"]] - q[:, c["parent"]] - c["ref"]
+    jvel = qd[:, c["child"]] - qd[:, c["parent"]]
     ground = leg_contact.repeat_interleave(2, 1).to(torch.float32)
     obs = torch.cat([
       torch.stack([

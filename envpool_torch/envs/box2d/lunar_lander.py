@@ -23,6 +23,7 @@ float fields to a tolerance (``tests/test_torch_box2d.py``).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Tuple
 
@@ -115,6 +116,17 @@ _SUBSTEPS = 4
 _FRICTION = 0.1
 
 
+@functools.lru_cache(maxsize=4)
+def _step_constants(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+  """The legs' contact points and one substep's gravity on ``device``, made
+  once: a host-to-device copy inside a step could not be captured."""
+  gravity = torch.tensor(
+    [0.0, np.float32(GRAVITY) * np.float32(DT / _SUBSTEPS)],
+    dtype=torch.float32, device=device,
+  )
+  return torch.from_numpy(_CONTACT_PTS).to(device), gravity
+
+
 def _terrain(keys: torch.Tensor) -> torch.Tensor:
   """Terrain knots of ``[N, 2]`` keys -> smooth_y ``[N, 11]``: 12 uniform
   heights, the flat helipad across the middle 5 knots, 3-point smoothing
@@ -169,9 +181,10 @@ class LunarLanderEnv(FuncEnv):
     zeros = torch.zeros(n, dtype=torch.float32, device=dev)
     st = {
       "smooth_y": _terrain(kt),
-      "pos": torch.tensor(
-        [VIEWPORT_W / 2, VIEWPORT_H], dtype=torch.float32, device=dev
-      ).expand(n, 2),
+      "pos": torch.stack([
+        torch.full((n,), VIEWPORT_W / 2, dtype=torch.float32, device=dev),
+        torch.full((n,), VIEWPORT_H, dtype=torch.float32, device=dev),
+      ], 1),
       "vel": force * (DT / TOTAL_MASS),  # ApplyForceToCenter for one step
       "angle": zeros,
       "omega": zeros,
@@ -262,11 +275,7 @@ class LunarLanderEnv(FuncEnv):
     crashed = st["crashed"]
     n = pos.shape[0]
     leg_contact = torch.zeros(n, 2, dtype=torch.bool, device=pos.device)
-    pts = torch.from_numpy(_CONTACT_PTS).to(pos.device)
-    gravity = torch.tensor(
-      [0.0, np.float32(GRAVITY) * np.float32(DT / _SUBSTEPS)],
-      dtype=torch.float32, device=pos.device,
-    )
+    pts, gravity = _step_constants(pos.device)
     sub_dt = DT / _SUBSTEPS
     for _ in range(_SUBSTEPS):
       vel = vel + gravity

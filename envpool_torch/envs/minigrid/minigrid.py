@@ -159,7 +159,11 @@ class EmptyEnv(FuncEnv):
       else:
         direction = torch.full((n,), sdir, dtype=torch.int32, device=device)
     else:
-      pos = torch.tensor([[sx, sy]], dtype=torch.int32, device=device).expand(n, 2)
+      # two fills on the device, not a host-to-device copy (it may be captured)
+      pos = torch.stack([
+        torch.full((n,), sx, dtype=torch.int32, device=device),
+        torch.full((n,), sy, dtype=torch.int32, device=device),
+      ], 1)
       direction = torch.full((n,), sdir, dtype=torch.int32, device=device)
     st = {
       "pos": pos.to(torch.int32).contiguous(), "dir": direction,

@@ -51,6 +51,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from envpool_torch.core import graph
 from envpool_torch.ops.image import no_tf32
 
 from .device_model import DeviceModel, _JNT_FREE, _JNT_HINGE
@@ -950,10 +951,20 @@ def step_smooth(mdl: DeviceModel, q: Tensor, v: Tensor, ctrl: Optional[Tensor],
     return _guard(mdl, q, v, last, aux)
 
   # the warm-start chain: cold (None) on the first substep, then each
-  # substep from the last solve; only the last substep's aux is kept
-  warm, aux = None, None
-  for i in range(nstep):
-    q, v, warm, aux = one_step(q, v, warm, want_aux and i == nstep - 1)
+  # substep from the last solve; only the last substep's aux is kept. The
+  # substeps between the first and the last run as one loop: a WHILE node of
+  # the graph under capture (dmc cheetah settles 200 substeps in its reset)
+  q, v, warm, aux = one_step(q, v, None, want_aux and nstep == 1)
+
+  def middle(c):
+    q, v, warm, _ = one_step(c[0], c[1], c[2] if contacts else None, False)
+    return (q, v, warm) if contacts else (q, v)
+
+  if nstep > 2:
+    c = graph.fori_loop(nstep - 2, middle, (q, v, warm) if contacts else (q, v))
+    q, v, warm = c[0], c[1], c[2] if contacts else None
+  if nstep > 1:
+    q, v, warm, aux = one_step(q, v, warm, want_aux)
   if want_aux:
     return q, v, aux
   return q, v

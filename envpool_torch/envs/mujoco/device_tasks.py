@@ -34,7 +34,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from envpool_torch.core import prng
+from envpool_torch.core import graph, prng
 from envpool_torch.core.env import FuncEnv
 from envpool_torch.core.spec import ArraySpec
 
@@ -857,8 +857,9 @@ class PusherJaxEnv(DeviceMujocoEnv):
   The reset draws the object's place as gym does, uniform on the box and
   redrawn until it is more than ``cylinder_dist_min`` from the goal: per
   lane, on its own key chain, as the JAX package's ``lax.while_loop``
-  under ``vmap`` does. Each round of the loop reads one flag back to the
-  host (are all lanes placed?), in the reset only.
+  under ``vmap`` does, through ``graph.while_loop``: eagerly one flag
+  read back per round (are all lanes placed?), in the reset only; inside a
+  captured rollout a WHILE node.
   """
 
   name = "PusherJax"
@@ -914,17 +915,23 @@ class PusherJaxEnv(DeviceMujocoEnv):
     x = torch.zeros(keys.shape[0], dtype=torch.float32, device=keys.device)
     y = torch.zeros_like(x)
     placed = torch.zeros_like(x, dtype=torch.bool)
-    while True:
+
+    def draw_round(carry):
+      x, y, kc, placed = carry
       kc_next, k1, k2 = prng.split(kc, 3).unbind(-2)
       xd = prng.uniform(k1, (), xlo, xhi)
       yd = prng.uniform(k2, (), ylo, yhi)
       draw = ~placed
-      x = torch.where(draw, xd, x)
-      y = torch.where(draw, yd, y)
-      kc = torch.where(draw[:, None], kc_next, kc)
-      placed = placed | (_hypot32(xd, yd) > dmin)
-      if bool(placed.all()):
-        break
+      return (
+        torch.where(draw, xd, x), torch.where(draw, yd, y),
+        torch.where(draw[:, None], kc_next, kc),
+        placed | (_hypot32(xd, yd) > dmin),
+      )
+
+    # the JAX reset's lax.while_loop: a WHILE node of the graph under capture
+    x, y, _, _ = graph.while_loop(
+      lambda carry: ~carry[3], draw_round, (x, y, kc, placed)
+    )
     q = _qpos0(mdl, keys).expand(keys.shape[0], mdl.nq)
     zero = torch.zeros_like(q[:, :2])
     q = torch.cat([q[:, :-4], x[:, None], y[:, None], zero], 1)

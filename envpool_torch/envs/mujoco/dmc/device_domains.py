@@ -586,6 +586,16 @@ class DmcPointMassJaxEnv(DmcDeviceEnv):
     return cls._done(cfg, state, cls._obs(state), reward)
 
 
+@functools.lru_cache(maxsize=32)
+def _site_bodies(key: de._ByIdentity, sites: tuple, device: torch.device):
+  """The named sites' bodies and their ids as a device tensor, made once:
+  indexing with a host list would copy it to the device at every step."""
+  mdl = key.mdl
+  sid = [mdl.site_name2id[s] for s in sites]
+  return ([mdl.site_body[s] for s in sid],
+          torch.as_tensor(sid, dtype=torch.int64, device=device))
+
+
 def _site_vel_gyro(mdl: DeviceModel, q: Tensor, v: Tensor,
                    sites: Sequence[str]):
   """Velocimeter and gyro sensor values ``[N, k, 3]`` at named sites (site
@@ -595,8 +605,7 @@ def _site_vel_gyro(mdl: DeviceModel, q: Tensor, v: Tensor,
   xpos, xmat, S, _ = de._kin_ctx(mdl, q)
   vel = de.body_velocities(mdl, v, S)                       # [N, nbody-1, 6]
   c = de.consts_on(mdl, q.dtype, q.device)
-  sid = [mdl.site_name2id[s] for s in sites]
-  bodies = [mdl.site_body[s] for s in sid]
+  bodies, sid = _site_bodies(de._ByIdentity(mdl), tuple(sites), q.device)
   vb = torch.stack([vel[:, b - 1] for b in bodies], 1)      # [N, k, 6]
   rot = torch.stack([xmat[b] for b in bodies], 1)           # [N, k, 3, 3]
   x = torch.stack([xpos[b] for b in bodies], 1) + de._mv(rot, c["site_pos"][sid])
@@ -815,17 +824,21 @@ def _point_normal_forces(cd, f_rows: Tensor, c: Dict[str, Tensor]) -> Tensor:
 
 
 @functools.lru_cache(maxsize=32)
-def _touch_table(key: de._ByIdentity, sites: tuple, device: torch.device):
-  """The touch sensors' constants: the sites' ids, bodies and radii, and
-  per site and candidate point whether the point is on the site's body as
-  body1 or as either body (``[k, P]`` masks)."""
+def _touch_table(key: de._ByIdentity, sites: tuple, dtype: torch.dtype,
+                 device: torch.device):
+  """The touch sensors' constants: the sites' ids (a device tensor), bodies
+  and squared radii
+  (``[k]`` of ``dtype``), and per site and candidate point whether the point
+  is on the site's body as body1 or as either body (``[k, P]`` masks)."""
   mdl = key.mdl
   cd = mdl.contacts
   sid = [mdl.site_name2id[s] for s in sites]
   bodies = np.asarray([mdl.site_body[s] for s in sid])
   on_b1 = cd.point_b1[None] == bodies[:, None]
   on_body = on_b1 | (cd.point_b2[None] == bodies[:, None])
-  return (sid, bodies.tolist(), mdl.site_size[sid, 0],
+  radius = mdl.site_size[sid, 0]
+  return (torch.as_tensor(sid, dtype=torch.int64, device=device), bodies.tolist(),
+          torch.as_tensor(radius * radius, dtype=dtype, device=device),
           torch.as_tensor(on_b1, device=device)[..., None],
           torch.as_tensor(on_body, device=device))
 
@@ -843,8 +856,8 @@ def site_touch_forces(mdl: DeviceModel, q: Tensor, f_rows: Tensor,
   was computed at; ``mut`` the body-pose overrides of that step. All sites
   in one pass."""
   cd = mdl.contacts
-  sid, bodies, radius, on_b1, on_body = _touch_table(
-    de._ByIdentity(mdl), tuple(site_names), q.device)
+  sid, bodies, radius2, on_b1, on_body = _touch_table(
+    de._ByIdentity(mdl), tuple(site_names), q.dtype, q.device)
   xpos, xmat, _, _ = de.fk(mdl, q, mut)
   pos, _, n, _, _, _ = dc.contact_points(mdl, xpos, xmat)
   normal = _point_normal_forces(cd, f_rows, dc._cconsts(mdl, q))
@@ -856,8 +869,7 @@ def site_touch_forces(mdl: DeviceModel, q: Tensor, f_rows: Tensor,
   ray = torch.where(on_b1, n[:, None], -n[:, None])         # [N, k, P, 3]
   pc = pos[:, None] - center[:, :, None]
   bq = (ray * pc).sum(-1)
-  cc = (pc * pc).sum(-1) - torch.as_tensor(
-    radius * radius, dtype=q.dtype, device=q.device)[:, None]
+  cc = (pc * pc).sum(-1) - radius2[:, None]
   hit = (cc <= 0) | ((bq <= 0) & (bq * bq >= cc))
   return torch.where(on_body & hit, normal[:, None], 0.0).sum(-1)
 
@@ -932,8 +944,8 @@ class DmcFingerJaxEnv(DmcDeviceEnv):
     mdl = cls.mdl(cfg)
     q, v = state["q"], state["v"]
     xpos, xmat, _, _ = de.fk(mdl, q)
-    spinner = _site(mdl, xpos, xmat, "spinner_site")[:, [0, 2]]
-    tip = _site(mdl, xpos, xmat, "tip")[:, [0, 2]] - spinner
+    spinner = _site(mdl, xpos, xmat, "spinner_site")[:, 0::2]
+    tip = _site(mdl, xpos, xmat, "tip")[:, 0::2] - spinner
     target = state["target"] - spinner
     if cls._is_spin(cfg):
       # the reference writes target_position/dist_to_target for turn
@@ -968,10 +980,13 @@ class DmcFingerJaxEnv(DmcDeviceEnv):
     if cls._is_spin(cfg):
       # spin never moves the target site: the world position of the
       # (worldbody) "target" site, constant
+      # (two fills on the device, not a host-to-device copy: a reset may be
+      # captured)
       s = mdl.site_name2id["target"]
-      state["target"] = torch.tensor(
-        mdl.site_pos[s][[0, 2]], dtype=q.dtype, device=q.device
-      ).expand(n, 2).clone()
+      state["target"] = torch.stack([
+        torch.full((n,), float(mdl.site_pos[s][i]), dtype=q.dtype, device=q.device)
+        for i in (0, 2)
+      ], 1)
     else:
       # finger.h:127-139: target on the circle of radius
       # sum(geom_size[cap1]) about the (static) hinge anchor
@@ -1276,7 +1291,7 @@ class DmcBallInCupJaxEnv(DmcDeviceEnv):
     xpos, xmat, _, _ = de.fk(mdl, state["q"])
     tpos = _site(mdl, xpos, xmat, "target")
     ball = xpos[mdl.body_name2id["ball"]]
-    d = torch.abs((tpos - ball)[:, [0, 2]])
+    d = torch.abs((tpos - ball)[:, 0::2])
     s = mdl.site_name2id["target"]
     size = np.asarray(mdl.site_size[s])[[0, 2]]
     ball_size = float(mdl.geom_size[mdl.geom_name2id["ball"], 0])

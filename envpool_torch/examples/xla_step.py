@@ -1,9 +1,11 @@
 """Functional env stepping over the port (the port's ``examples/xla_step.py``).
 
 ``env.xla()`` returns pure ``(handle, recv, send, step)`` functions whose
-state and outputs stay on the pool's device; where the JAX script runs the
-loop as one ``lax.scan`` inside a compiled program, this one is a Python
-loop over them, with nothing copied to the host until the end.
+state and outputs stay on the pool's device. As the JAX script runs the loop
+as one ``lax.scan`` inside a compiled program, this one runs it through
+``graph.scan``: on the card one step is captured as a CUDA graph and
+replayed ``--num-steps`` times; on the CPU the same step runs in a loop.
+Nothing is copied to the host until the end.
 
 Run:  python -m envpool_torch.examples.xla_step
 """
@@ -14,6 +16,7 @@ from typing import Optional, Sequence
 import torch
 
 import envpool_torch
+from envpool_torch.core import graph
 
 
 def main(argv: Optional[Sequence[str]] = None) -> float:
@@ -35,12 +38,13 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
     # a trivial "policy": push right when the pole leans right
     return (states[obs_idx][:, 2] > 0).to(torch.int32)
 
-  rewards = []
-  for _ in range(args.num_steps):
+  def body(handle):
     handle, states = recv(handle)
     handle = send(handle, policy(states))
-    rewards.append(states[reward_idx])
-  mean = float(torch.stack(rewards).mean())
+    return handle, states[reward_idx]
+
+  handle, rewards = graph.scan(body, handle, args.num_steps)
+  mean = float(rewards.mean())
   print("mean reward per step:", mean)
   return mean
 

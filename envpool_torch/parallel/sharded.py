@@ -11,7 +11,7 @@ the JAX pool gets when it asks for a different sharding; actions are split
 by shard. The results equal the unsharded pool's bit for bit: keys,
 ``info:env_id`` and the families' streams follow the global env ids, and
 every select of the advance is per lane, so each shard may decide alone
-(one host read of its own flags) whether to run the step and the reset.
+(one host read of its own flag) whether to run the reset.
 
 One deliberate difference from the JAX mesh: a ``Mesh`` may list the same
 device more than once. Each position is then a logical shard on that

@@ -5,9 +5,11 @@ The port of ``envpool_tpu/train/ppo.py``, with its semantics: the same
 config, the same key stream (``core/prng.py`` reproduces jax's threefry
 draws: ``split``, ``categorical``, ``normal``, ``permutation``), the same
 loss and metrics, and ``optax.chain(clip_by_global_norm, adam)`` as
-``ClipAdam``. Where the JAX package jits one program per iteration, this
-runs eagerly: ``lax.scan`` becomes a Python loop over the pool's functional
-``send``/``recv``, and the gradient comes from ``torch.autograd``.
+``ClipAdam``. The JAX rollout is one ``lax.scan`` inside its ``jit``; here
+the rollout step (policy forward, key split, draw, pool ``send``) runs
+through ``graph.CapturedScan``: captured once as a CUDA graph and replayed
+``num_steps`` times on the card, a loop of the same step on the CPU. The
+update stays eager, its gradient from ``torch.autograd``.
 
 With ``mesh`` (``envpool_torch.parallel.Mesh``), ``make_ppo_train_step``
 splits the batch over the mesh's ``axis_name`` axis (data parallelism:
@@ -37,7 +39,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from envpool_torch.core import prng
+from envpool_torch.core import graph, prng
 from envpool_torch.core.pool import TorchEnvPool, _torch_dtype
 from envpool_torch.models.nets import forward_split
 
@@ -215,6 +217,10 @@ class PPOTrainStep:
     self._obs, self._rew, self._done = (
       keys.index("obs"), keys.index("reward"), keys.index("done")
     )
+    # the rollout step's graph reads the parameters from these buffers,
+    # refilled before each rollout
+    self._params: Optional[Params] = None
+    self._scan = graph.CapturedScan(self._rollout_step, cfg.num_steps)
 
   def _apply(self, params: Params, obs: torch.Tensor):
     return functional_call(self.net, params, (obs,))
@@ -231,28 +237,34 @@ class PPOTrainStep:
       logp = torch.log_softmax(out, dim=-1).gather(-1, action[:, None])[:, 0]
     return action, logp, value
 
+  def _rollout_step(self, carry):
+    """One step of the rollout's scan: ``(handle, key) -> (carry, the
+    step's row of the trajectory)``."""
+    handle, key = carry
+    act_dtype = torch.float32 if self.cfg.continuous else torch.int32
+    _, states = self._recv(handle)
+    obs = states[self._obs]
+    key, sub = prng.split(key, 2)
+    action, logp, value = self._sample(self._params, obs, sub)
+    handle = self._send(handle, action.to(act_dtype))
+    _, nxt = self._recv(handle)
+    traj = {"obs": obs, "action": action, "logp": logp, "value": value,
+            "reward": nxt[self._rew], "done": nxt[self._done]}
+    return (handle, key), traj
+
   @torch.no_grad()
   def rollout(self, state: PPOState):
     """``num_steps`` pool steps -> (handle, key, traj of [T, N, ...]
     tensors, the value of the last obs)."""
-    handle, key, params = state.handle, state.key, state.params
-    act_dtype = torch.float32 if self.cfg.continuous else torch.int32
-    steps = []
-    for _ in range(self.cfg.num_steps):
-      _, states = self._recv(handle)
-      obs = states[self._obs]
-      key, sub = prng.split(key, 2)
-      action, logp, value = self._sample(params, obs, sub)
-      handle = self._send(handle, action.to(act_dtype))
-      _, nxt = self._recv(handle)
-      steps.append((obs, action, logp, value, nxt[self._rew], nxt[self._done]))
-    traj = {
-      k: torch.stack(v)
-      for k, v in zip(("obs", "action", "logp", "value", "reward", "done"), zip(*steps))
-    }
+    if self._params is None:
+      self._params = {k: v.detach().clone() for k, v in state.params.items()}
+    else:
+      for k, v in state.params.items():
+        self._params[k].copy_(v)
+    (handle, key), traj = self._scan((state.handle, state.key))
     # bootstrap value for the final observation
     _, states = self._recv(handle)
-    _, last_value = self._apply(params, states[self._obs])
+    _, last_value = self._apply(state.params, states[self._obs])
     return handle, key, traj, last_value
 
   def update(self, state: PPOState, rollout) -> Tuple[PPOState, Dict[str, torch.Tensor]]:

@@ -128,7 +128,9 @@ def test_interleaved_env_id_sets() -> None:
 def test_xla_jit_loop() -> None:
   """A rollout through the functional ``xla()`` interface equals the same
   rollout through the host API, bit for bit (the JAX twin jits the loop;
-  the port's functional steps run eagerly on the device)."""
+  here the steps run one by one, as ``graph.scan`` runs them on the CPU; on
+  the card it captures them as a CUDA graph, tests/test_torch_graph.py and
+  chip_smoke.py phase 18)."""
   num_envs = 5
   env = _gymnasium("CartPole-v1", num_envs=num_envs, seed=7)
   env.reset()
