@@ -184,16 +184,38 @@ Phases (any failure exits non-zero before the result lines):
      ``ppo_mujoco --iterations 2``, ``xla_step``): exit 0, every number
      they print finite, their seconds. ``async_loop`` steps ``Ant-v4``,
      which needs mujoco, so only the CPU tests run it;
- 18. captured rollouts (``envpool_torch.core.graph``): the set-handle
-     kernel of ``csrc/graph_cond.cu`` against ``pred.any()`` through IF and
-     WHILE nodes at 1 and 16384 lanes, and its time per node; then for each
+ 18. captured rollouts (``envpool_torch.core.graph``): in a child process
+     (its traces in a fresh profiler), both forms of the set-handle kernel
+     of ``csrc/graph_cond.cu`` against their plain versions through IF
+     and WHILE nodes: the `any` form against
+     ``pred.any()`` on 24 predicates (none, all, the last and 1% of 1 and
+     of 16384 lanes; none, the first and the last of 15, 16, 17 and 16383;
+     ``pred[1:]`` of 16385, a view off 16-byte alignment), the counted form
+     against ``set_counted_plain`` in ``fori_loop``s of 1, 2, 3 and 198
+     rounds at the top of a step (behind memory the step wrote and freed),
+     in a WHILE body and in taken and skipped IF bodies, two replays of two
+     calls; 33 captures, one on each of PyTorch's pooled streams in turn,
+     with a nested body; then, in four turns at 1 and 16384 lanes, a replay of
+     1024 skipped IF nodes each: (a) the kernel and its node (and the
+     kernel alone, from a CUDA-only trace), (b) PyTorch's own IF node over
+     ``pred.any()`` where the card's PyTorch has one (else library_ms is
+     null, with the reason printed), (c) an empty kernel and the node (the
+     floor of any one-launch design), and ``graph.cond``'s node (the
+     operands' clone in front: the kernels line's ``ms``; (a) is its
+     ``node_ms``); and (d) an empty-bodied ``fori_loop`` of
+     198 rounds with its counter carried through ``while_loop`` and in the
+     counted form, per round, each replay traced for its launches; then for each
      id of ``CAPTURED`` the same seed and actions through the eager
      ``xla()`` loop and through ``graph.CapturedScan``, every output field
      and the final pool state bit for bit, the capture and its replays
      under ``torch.cuda.set_sync_debug_mode("error")``: eager and captured
      env-steps/s, capture and instantiate seconds, graph nodes, peak
      memory, launches per captured step and the device's idle share (the
-     second step's replay alone, by CUDA events and by a CUDA-only trace);
+     second step's replay alone, by CUDA events and by a CUDA-only trace;
+     null where the trace came back empty), the set kernels of both forms
+     that replay launches and the bytes that ``cond``'s operand clones copy
+     in it, both counted from the structure recorded during the capture
+     (the nodes and the loops they sit in, whether the reset branch ran);
      the masked entry points with a device env_id; CheetahJaxRun-v1
      and PusherJax-v4 with lanes that reset through the IF node (Pusher's
      reset through its WHILE node); then the PPO rollout on Sokoban-v0 at
@@ -205,6 +227,7 @@ Without a CUDA device, or outside a checkout, it fails and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -2977,6 +3000,13 @@ CAPTURED = {
   "HumanoidCMUJaxRun-v1": (1024, 3, {}),
 }
 COND_NODES_PER_TIMING = 1024  # set-handle kernels (and skipped IF nodes) timed per replay
+COND_WIDTHS = (1, SOKOBAN_ENVS)
+COND_TURNS = 4  # timed runs of each node kind, in turns (replays vary by up to 2x)
+COUNTED_ROUNDS = 198  # dmc cheetah's settle loop: 200 substeps, 2 outside the loop
+# the most nodes that conditional bodies may run in a traced replay: the
+# card's tracer faulted on a graph whose bodies ran 405k kernels in one
+# launch, and not on 203k (tools/graph_cond_fault.py)
+TRACE_BODY_NODES = 200_000
 
 
 def captured_actions(envpool_torch, task_id: str, steps: int, n: int) -> np.ndarray:
@@ -3008,23 +3038,165 @@ def bit_equal(torch, got, want, tag: str) -> None:
   tree_map(eq, got, want)
 
 
-def check_set_conditional(torch, card) -> dict:
-  """The set-handle kernel against its plain version: for each predicate,
-  an IF node whose body adds 1 and a WHILE node that counts to 3 only where
-  the predicate holds, captured and replayed; then its time per node, a
-  replay of COND_NODES_PER_TIMING kernels whose IF bodies are skipped, on
-  the pool's widest predicate, against ``pred.any()``."""
-  from envpool_torch.core import graph
+def one_hot(torch, n: int, i: int):
+  pred = torch.zeros(n, dtype=torch.bool, device="cuda")
+  pred[i] = True
+  return pred
 
+
+def cond_predicates(torch) -> dict:
+  """The `any` form's cases: none, all, the last and 1% of 1 and of 16384
+  lanes (the pool's widths); none, the first and the last of 15, 16, 17
+  and 16383 lanes (the vector loads' head and tail); and ``pred[1:]`` of
+  16385, a view one byte past a 16-byte boundary, with none, its first, a
+  middle and its last lane set."""
   gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
   preds = {}
-  for n in (1, SOKOBAN_ENVS):
+  for n in COND_WIDTHS:
     preds[f"none of {n}"] = torch.zeros(n, dtype=torch.bool, device="cuda")
     preds[f"all of {n}"] = torch.ones(n, dtype=torch.bool, device="cuda")
-    last = torch.zeros(n, dtype=torch.bool, device="cuda")
-    last[-1] = True
-    preds[f"the last of {n}"] = last
+    preds[f"the last of {n}"] = one_hot(torch, n, n - 1)
     preds[f"1% of {n}"] = torch.rand(n, generator=gen, device="cuda") < 0.01
+  for n in (15, 16, 17, 16383):
+    preds[f"none of {n}"] = torch.zeros(n, dtype=torch.bool, device="cuda")
+    preds[f"the first of {n}"] = one_hot(torch, n, 0)
+    preds[f"the last of {n}"] = one_hot(torch, n, n - 1)
+  base = torch.zeros(16385, dtype=torch.bool, device="cuda")
+  preds["none of pred[1:] of 16385"] = base[1:]
+  for name, i in (("the first", 1), ("lane 8000", 8001), ("the last", 16384)):
+    preds[f"{name} of pred[1:] of 16385"] = one_hot(torch, 16385, i)[1:]
+  for name, pred in preds.items():
+    if "pred[1:]" in name and pred.data_ptr() % 16 != 1:
+      raise AssertionError(f"{name}: the view is aligned, {pred.data_ptr() % 16}")
+  return preds
+
+
+def counted_rounds(torch, graph, n: int) -> int:
+  """The rounds a WHILE node runs under the counted form's plain version,
+  from a counter at 0; the counter must end at 0 again."""
+  counter = torch.zeros(1, dtype=torch.int32, device="cuda")
+  more, rounds = bool(counter < n), 0
+  while more:
+    rounds += 1
+    counter, more = graph.set_counted_plain(counter, n)
+    more = bool(more)
+  if int(counter) != 0:
+    raise AssertionError(f"the plain counted form left its counter at {int(counter)}")
+  return rounds
+
+
+def check_counted(torch, graph) -> int:
+  """``fori_loop``'s counted form against its plain version: for n in 1, 2,
+  3 and 198, a loop at the top of the step (behind memory the step wrote
+  and freed), one in each of 3 rounds of a WHILE body, one in a taken IF
+  body and one in a skipped one, each adding 1 per round; two replays per
+  call, two calls. Returns the largest error against the counts that the
+  plain version gives."""
+  on = torch.ones(1, dtype=torch.bool, device="cuda")
+  off = torch.zeros(1, dtype=torch.bool, device="cuda")
+  err = 0
+  for n in (1, 2, 3, COUNTED_ROUNDS):
+    def add_n(v, n=n):
+      return graph.fori_loop(n, lambda d: d + 1, v)
+
+    def body(x, add_n=add_n):
+      # freed blocks written by the step: the graph may place its own
+      # allocations there, so a loop's counter must not come from it
+      a, b = torch.full_like(x, 1 << 20), torch.full_like(x, 1 << 20)
+      del a, b
+      top = add_n(x)
+      nested, _ = graph.while_loop(lambda c: c[1] < 3,
+                                   lambda c: (add_n(c[0]), c[1] + 1), (x, x))
+      taken = graph.cond(on, add_n, lambda v: v, x)
+      skipped = graph.cond(off, add_n, lambda v: v, x)
+      return x, torch.cat([top, nested, taken, skipped])
+
+    rounds = counted_rounds(torch, graph, n)
+    want = torch.tensor([[rounds, 3 * rounds, rounds, 0]] * 2, dtype=torch.int32,
+                        device="cuda")
+    sc = graph.CapturedScan(body, 2)
+    for _ in range(2):
+      _, ys = sc(torch.zeros(1, dtype=torch.int32, device="cuda"))
+      err = max(err, int((ys - want).abs().max()))
+  return err
+
+
+def us_or_not(ms) -> str:
+  return "not measured (no trace record)" if ms is None else f"{1e3 * ms:.3f} us"
+
+
+def check_pooled_streams(torch, graph) -> int:
+  """A scan whose step holds an IF node with a counted loop in its body,
+  captured 33 times: each ``CapturedScan`` captures on a side stream from
+  ``torch.cuda.Stream()``, which hands out PyTorch's 32 pooled streams in
+  turn. Body streams taken from that pool became a later capture's side
+  stream, and beginning a body on them failed. Returns the captures."""
+  pred = torch.ones(1, dtype=torch.bool, device="cuda")
+
+  def body(x):
+    y = graph.cond(pred, lambda v: graph.fori_loop(2, lambda u: u + 1, v + 1),
+                   lambda v: v, x)
+    return y, y
+
+  x = torch.zeros(1, dtype=torch.int32, device="cuda")
+  captures = 33
+  for _ in range(captures):
+    x, _ = graph.CapturedScan(body, 1)(x)
+  if int(x) != 3 * captures:
+    raise AssertionError(f"pooled streams: {int(x)} != {3 * captures}")
+  return captures
+
+
+def node_graph(torch, graph, per_node, count: int):
+  """A CUDA graph of ``count`` calls of ``per_node(g)``, captured with the
+  port's conditional nodes enabled; returns (graph, its capture record)."""
+  g = torch.cuda.CUDAGraph()
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with graph._capture_into(g, side) as cap:
+    for _ in range(count):
+      per_node(g)
+  torch.cuda.synchronize()
+  return g, cap
+
+
+def time_nodes(torch, graph, per_node, count: int, kernels=()) -> dict:
+  """One replay of ``count`` nodes: ms per node by CUDA events over 20
+  replays (a replay outlasts its host overhead, so no queue); with
+  ``kernels``, then one replay traced with CUDA activity only: device us
+  per node, the replay's launches and, for each name in ``kernels``, its
+  launches and device us per launch."""
+  g, cap = node_graph(torch, graph, per_node, count)
+  res = {"ms": time_cuda(torch, g.replay, reps=20, queue=False) / count}
+  if kernels:
+    busy_us, rows = profile_call(torch, g.replay)
+    res.update(device_us=busy_us / count, launches=int(sum(r[2] for r in rows)),
+               launches_by_name={r[0][:60]: int(r[2]) for r in rows})
+    for name in kernels:
+      hits = [r for r in rows if name in r[0]]
+      launches = sum(r[2] for r in hits)
+      res[name] = {"launches": launches,
+                   "us": sum(r[1] for r in hits) / launches if launches else None}
+  g.reset()
+  cap.release()
+  return res
+
+
+def check_set_conditional(torch, card) -> dict:
+  """Both forms of the set kernel against their plain versions, through IF
+  and WHILE nodes (``cond_predicates``, ``check_counted``); then, in turns
+  at 1 and 16384 lanes, COND_TURNS replays of COND_NODES_PER_TIMING nodes
+  each:
+  (a) the `any` kernel and its skipped IF node, and ``graph.cond``'s node
+  (the operands' clone in front of both); (b) PyTorch's own IF node
+  over ``pred.any()``, the library yardstick, where the card's PyTorch has
+  ``CUDAGraph.begin_capture_to_if_node``; (c) an empty kernel in front of
+  the same skipped node, the floor of any one-launch design; and (d) an
+  empty-bodied loop of 198 rounds with its counter carried through
+  ``while_loop`` (four launches a round) and in the counted form (one)."""
+  from envpool_torch.core import graph
+
+  preds = cond_predicates(torch)
   err = 0
   for name, pred in preds.items():
     def body(x, pred=pred):
@@ -3038,28 +3210,126 @@ def check_set_conditional(torch, card) -> dict:
     err = max(err, int((y[0, 0] - want).abs()), int((z[0, 0] - 3 * want).abs()))
   if err:
     raise AssertionError(f"set_conditional disagrees with pred.any() by {err}")
-  pred = preds[f"none of {SOKOBAN_ENVS}"]
+  counted_err = check_counted(torch, graph)
+  if counted_err:
+    raise AssertionError(f"the counted form disagrees with its plain version by "
+                         f"{counted_err}")
+  pooled = check_pooled_streams(torch, graph)
+  log(f"set_conditional (csrc/graph_cond.cu): the `any` form equals pred.any() "
+      f"on {len(preds)} predicates ({', '.join(preds)}) through IF and WHILE "
+      f"nodes; the counted form equals its plain version in fori_loops of 1, 2, "
+      f"3 and {COUNTED_ROUNDS} rounds at the top, in 3 rounds of a WHILE body "
+      f"and in taken and skipped IF bodies, two replays of two calls; nested "
+      f"bodies captured on each of {pooled} pooled streams in turn")
 
-  def many(x):
-    for _ in range(COND_NODES_PER_TIMING):
-      x = graph.cond(pred, lambda v: v + 1, lambda v: v, x)
-    return x, x
+  has_lib = hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node")
+  if not has_lib:
+    log(f"library yardstick: torch {torch.__version__}'s CUDAGraph has no "
+        f"begin_capture_to_if_node: library_ms null")
+  x = torch.zeros(1, dtype=torch.int32, device="cuda")
+  names = ("set_any_kernel", "set_counted_kernel", "empty_kernel")
+  widths = {}
+  for n in COND_WIDTHS:
+    pred = torch.zeros(n, dtype=torch.bool, device="cuda")
 
-  sc = graph.CapturedScan(many, 1)
-  x0 = torch.zeros(1, dtype=torch.int32, device="cuda")
-  # a replay of 1024 nodes outlasts the call's host overhead: no queue
-  ms = time_cuda(torch, lambda: sc(x0), reps=20, queue=False) / COND_NODES_PER_TIMING
-  plain_ms = time_cuda(torch, lambda: graph.set_conditional_plain(pred), reps=200)
-  bound_ms = 1e3 * SOKOBAN_ENVS / HBM_BYTES_PER_S
-  res = {"cases": len(preds), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-         "bound_ms": bound_ms, "bound_by": "bytes", "n": SOKOBAN_ENVS}
-  log(f"set_conditional (csrc/graph_cond.cu) vs pred.any(): {len(preds)} "
-      f"predicates at 1 and {SOKOBAN_ENVS} lanes through IF and WHILE nodes, "
-      f"max abs err {err}; {1e3 * ms:.2f} us per kernel and skipped IF node "
-      f"at {SOKOBAN_ENVS} lanes ({COND_NODES_PER_TIMING} in one replay), "
-      f"pred.any() {1e3 * plain_ms:.2f} us, bound {1e3 * bound_ms:.4f} us "
-      f"(bytes) [{card}]")
-  return res
+    def port_node(_g, pred=pred):
+      with graph._conditional_body(graph._IF, graph._ANY, pred, pred.numel()):
+        x.add_(1)
+
+    def floor_node(_g, pred=pred):
+      with graph._conditional_body(graph._IF, graph._EMPTY, pred, pred.numel()):
+        x.add_(1)
+
+    def cond_node(_g, pred=pred):
+      graph.cond(pred, lambda v: v + 1, lambda v: v, x)
+
+    def lib_node(g, pred=pred):
+      g.begin_capture_to_if_node(pred.any())
+      x.add_(1)
+      g.end_capture_to_conditional_node()
+
+    r = {}
+    for turn in ("a", "b", "c", "cond") * COND_TURNS:
+      if turn == "b" and not has_lib:
+        continue
+      per_node = {"a": port_node, "b": lib_node, "c": floor_node,
+                  "cond": cond_node}[turn]
+      # the first run of (a) and of (b) is also traced
+      traced = names if turn not in r and turn in ("a", "b") else ()
+      r.setdefault(turn, []).append(
+        time_nodes(torch, graph, per_node, COND_NODES_PER_TIMING, traced))
+    traced_a = r["a"][0]
+    pick = {k: min(v, key=lambda t: t["ms"]) for k, v in r.items()}
+    plain_ms = time_cuda(torch, lambda: graph.set_conditional_plain(pred), reps=200)
+    res = {
+      "node_ms": pick["a"]["ms"], "node_runs": [t["ms"] for t in r["a"]],
+      "kernel_ms": (None if traced_a["set_any_kernel"]["us"] is None
+                    else 1e-3 * traced_a["set_any_kernel"]["us"]),
+      "trace": {k: v for k, v in traced_a.items() if k != "ms"},
+      "floor_ms": pick["c"]["ms"], "floor_runs": [t["ms"] for t in r["c"]],
+      "library_ms": pick["b"]["ms"] if has_lib else None,
+      "library_runs": [t["ms"] for t in r.get("b", [])],
+      "library_device_us": r["b"][0]["device_us"] if has_lib else None,
+      "ms": pick["cond"]["ms"], "ms_runs": [t["ms"] for t in r["cond"]],
+      "plain_ms": plain_ms,
+      "bound_ms": 1e3 * n / HBM_BYTES_PER_S, "bound_by": "bytes",
+    }
+    widths[n] = res
+    lib = (f"{1e3 * res['library_ms']:.3f} us (runs "
+           f"{', '.join(f'{1e3 * t:.3f}' for t in res['library_runs'])}; device "
+           f"{res['library_device_us']:.3f} us per node)") if has_lib else "null"
+    log(f"set_conditional at {n} lanes, {COND_NODES_PER_TIMING} skipped IF nodes "
+        f"per replay: (a) kernel + node {1e3 * res['node_ms']:.3f} us (runs "
+        f"{', '.join(f'{1e3 * t:.3f}' for t in res['node_runs'])}), the kernel "
+        f"alone {us_or_not(res['kernel_ms'])} (traced); graph.cond's node "
+        f"(clone + kernel + node) {1e3 * res['ms']:.3f} us (runs "
+        f"{', '.join(f'{1e3 * t:.3f}' for t in res['ms_runs'])}); (b) PyTorch's IF "
+        f"node over pred.any() {lib}; (c) empty kernel + node "
+        f"{1e3 * res['floor_ms']:.3f} us (runs "
+        f"{', '.join(f'{1e3 * t:.3f}' for t in res['floor_runs'])}); pred.any() "
+        f"{1e3 * plain_ms:.3f} us; bound {1e3 * res['bound_ms']:.6f} us (bytes) "
+        f"[{card}]")
+
+  # (d) fori_loop: an empty body, 198 rounds
+  def carried(_g):
+    count = torch.zeros(1, dtype=torch.int32, device="cuda")
+    graph.while_loop(lambda c: c[1] < COUNTED_ROUNDS, lambda c: (c[0], c[1] + 1),
+                     (x, count))
+
+  def counted(_g):
+    graph.fori_loop(COUNTED_ROUNDS, lambda c: c, x)
+
+  loops = {}
+  for turn in ("carried", "counted") * COND_TURNS:
+    t = time_nodes(torch, graph, {"carried": carried, "counted": counted}[turn],
+                   1, () if turn in loops else names)
+    t["round_ms"] = t["ms"] / COUNTED_ROUNDS
+    loops.setdefault(turn, []).append(t)
+  # the traced first run, with the best time and every run's time per round
+  loops = {k: v[0] | {"round_ms": min(t["round_ms"] for t in v),
+                      "round_runs": [t["round_ms"] for t in v]}
+           for k, v in loops.items()}
+  counter = torch.zeros(1, dtype=torch.int32, device="cuda")
+  counted_plain_ms = time_cuda(
+    torch, lambda: graph.set_counted_plain(counter, COUNTED_ROUNDS), reps=200)
+  c = loops["counted"]
+  log(f"fori_loop of {COUNTED_ROUNDS} empty rounds: the counter carried "
+      f"through while_loop {1e3 * loops['carried']['round_ms']:.3f} us per round "
+      f"(runs {', '.join(f'{1e3 * v:.3f}' for v in loops['carried']['round_runs'])}; "
+      f"{loops['carried']['launches']} launches per replay), the counted "
+      f"form {1e3 * c['round_ms']:.3f} us (runs "
+      f"{', '.join(f'{1e3 * v:.3f}' for v in c['round_runs'])}; "
+      f"{c['launches']} launches per replay, {c['set_counted_kernel']['launches']:.0f} "
+      f"of them the counted kernel at "
+      f"{us_or_not(c['set_counted_kernel']['us'] and 1e-3 * c['set_counted_kernel']['us'])} "
+      f"each); its plain version {1e3 * counted_plain_ms:.3f} us [{card}]")
+  return {
+    "cases": len(preds), "max_abs_err": err, "counted_max_abs_err": counted_err,
+    "pooled_stream_captures": pooled,
+    "widths": widths, "n": SOKOBAN_ENVS, "library": has_lib,
+    "loops": loops, "counted_plain_ms": counted_plain_ms,
+    "counted_bound_ms": 1e3 * 8 / HBM_BYTES_PER_S,
+  }
 
 
 def trace_replay(torch, sc):
@@ -3077,6 +3347,8 @@ def trace_replay(torch, sc):
     torch.cuda.synchronize()
   events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                   key=lambda e: e.time_range.start)[1:]
+  if not events:  # the profiler recorded nothing: not measured
+    return None, None, None, None
   busy, start, end = 0.0, None, None
   for e in events:
     if end is None or e.time_range.start > end:
@@ -3090,6 +3362,99 @@ def trace_replay(torch, sc):
   for e in events:
     names[e.name] = names.get(e.name, 0) + 1
   return len(events), busy, span, names
+
+
+def trace_text(launches, busy_us, step_us, trace_s) -> str:
+  if busy_us is None:
+    return (f"{step_us:.1f} us untraced; the trace recorded no launch (not "
+            f"measured)")
+  return (f"{launches} launches, device busy {busy_us:.1f} us (traced in "
+          f"{trace_s:.1f} s) of {step_us:.1f} us untraced (idle "
+          f"{100 * (1 - busy_us / step_us):.1f}%)")
+
+
+@contextlib.contextmanager
+def captured_structure(graph):
+  """While a step is captured: each conditional node with the nodes it sits
+  in and its body's node count, ``[path, kind, form, n, body_nodes]``, and
+  the bytes of each captured ``graph.cond``'s operands, which it clones in
+  front of its node, ``(path, bytes)``. A path lists the enclosing nodes'
+  ``(kind, form, n)``."""
+  nodes, clones, stack = [], [], []
+  begin, cond = graph._conditional_body, graph.cond
+
+  @contextlib.contextmanager
+  def recorded_body(kind, form, arg, n):
+    node = [tuple(stack), kind, form, n, None]
+    nodes.append(node)
+    stack.append((kind, form, n))
+    try:
+      with begin(kind, form, arg, n) as handle:
+        yield handle
+    finally:
+      stack.pop()
+    node[4] = graph._active.body_nodes[-1]
+
+  def recorded_cond(pred, true_fn, false_fn, operands):
+    if graph._capturing(pred):
+      clones.append((tuple(stack), sum(t.nbytes for t in graph._leaves(operands))))
+    return cond(pred, true_fn, false_fn, operands)
+
+  graph._conditional_body, graph.cond = recorded_body, recorded_cond
+  try:
+    yield nodes, clones
+  finally:
+    graph._conditional_body, graph.cond = begin, cond
+
+
+def runs_per_replay(graph, path, if_taken: bool):
+  """How often a replay runs what sits at ``path``: 0 under a skipped IF
+  node, ``n`` per counted loop around it; None where a WHILE node with a
+  data-dependent predicate, or an IF node below the top, decides it (the
+  step's one top-level IF node is the pool's reset, taken or not)."""
+  if path and path[0][0] == graph._IF and not if_taken:
+    return 0
+  runs = 1
+  for depth, (kind, form, n) in enumerate(path):
+    if kind == graph._IF and depth == 0:
+      continue
+    if kind == graph._WHILE and form == graph._COUNTED:
+      runs *= n
+    else:
+      return None
+  return runs
+
+
+def set_launches_per_replay(graph, nodes, if_taken: bool) -> dict:
+  """The set kernel's launches in one replay, by form, from the captured
+  structure: one in front of every node that runs, and one at the end of
+  every round of a WHILE body (a counted loop's ``n`` rounds, the `any`
+  form's rounds unknown: None). Where a count is unknown, ``why`` says so."""
+  out = {graph._ANY: 0, graph._COUNTED: 0}
+  why = None
+  for path, kind, form, n, _ in nodes:
+    runs = runs_per_replay(graph, path, if_taken)
+    if kind == graph._WHILE and runs != 0:
+      rounds = n if form == graph._COUNTED else None
+      runs = None if runs is None or rounds is None else runs * (1 + rounds)
+    if runs is None:
+      out[form] = None
+      why = "a data-dependent while_loop runs in this replay"
+    elif out[form] is not None:
+      out[form] += runs
+  return {"any": out[graph._ANY], "counted": out[graph._COUNTED], "unknown": why}
+
+
+def body_nodes_per_replay(graph, nodes, if_taken: bool):
+  """The nodes that conditional bodies run in one replay, each body's
+  count times its runs (None where a data-dependent loop decides)."""
+  total = 0
+  for path, kind, form, n, count in nodes:
+    runs = runs_per_replay(graph, path + ((kind, form, n),), if_taken)
+    if runs is None:
+      return None
+    total += runs * count
+  return total
 
 
 def captured_cell(torch, envpool_torch, task_id: str, card) -> dict:
@@ -3126,7 +3491,8 @@ def captured_cell(torch, envpool_torch, task_id: str, card) -> dict:
   torch.cuda.set_sync_debug_mode("error")
   try:
     t_c = time.perf_counter()
-    (got_h, _), got = sc((handle, t0))
+    with captured_structure(graph) as (nodes, clones):
+      (got_h, _), got = sc((handle, t0))
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t_c
     t_r = time.perf_counter()
@@ -3142,6 +3508,14 @@ def captured_cell(torch, envpool_torch, task_id: str, card) -> dict:
   keys = env._state_keys
   first = got[keys.index("step_type")] == 0
   resets = int(first[1:].sum())
+  # the replay timed and traced below is the second step's: its IF node
+  # (the pool's reset) runs its body where a lane starts anew there
+  if_taken = bool(first[1].any())
+  sets = set_launches_per_replay(graph, nodes, if_taken)
+  in_bodies = body_nodes_per_replay(graph, nodes, if_taken)
+  clone_runs = [(runs_per_replay(graph, path, if_taken), b) for path, b in clones]
+  clone_bytes = (None if any(r is None for r, _ in clone_runs)
+                 else sum(r * b for r, b in clone_runs))
   if task_id in ("CheetahJaxRun-v1", "PusherJax-v4") and resets < 2 * n:
     raise AssertionError(f"{task_id}: {resets} lanes reset inside the captured rollout")
   del got2
@@ -3157,20 +3531,40 @@ def captured_cell(torch, envpool_torch, task_id: str, card) -> dict:
   step_us = 1e3 * ev[0].elapsed_time(ev[1])
   sc((handle, t0), 1)
   t_t = time.perf_counter()
-  launches, busy_us, _, rows = trace_replay(torch, sc)
+  traced = in_bodies is not None and in_bodies <= TRACE_BODY_NODES
+  if traced:
+    launches, busy_us, _, rows = trace_replay(torch, sc)
+  else:  # the tracer faults on such a replay: not traced
+    launches = busy_us = rows = None
   trace_s = time.perf_counter() - t_t
+  replay_text = (trace_text(launches, busy_us, step_us, trace_s) if traced else
+                 f"{step_us:.1f} us untraced, not traced: its conditional "
+                 f"bodies run {in_bodies} nodes")
   res = {
     "envs": n, "steps": steps, "eager_sps": n * steps / eager_s,
     "captured_sps": n * steps / replay_s, "first_call_s": first_s,
     "capture_s": sc.capture_s, "instantiate_s": sc.instantiate_s,
     "nodes": sc.nodes, "conditional_nodes": sc.conditional_nodes,
     "peak_gb": peak_gb, "launches_per_step": launches,
-    "busy_us_per_step": busy_us, "idle": 1 - busy_us / step_us,
+    "busy_us_per_step": busy_us,
+    "idle": None if busy_us is None else 1 - busy_us / step_us,
     "lanes_reset": resets,
     "sampler_launches": sampler.fused_background.launches - renders,
-    "trace_s": trace_s,
+    "trace_s": trace_s, "cond_clone_bytes": clone_bytes,
+    "reset_in_step_2": if_taken,
+    "set_any_per_step": sets["any"], "set_counted_per_step": sets["counted"],
+    "set_per_step_unknown": sets["unknown"],
+    # as the trace recorded them, which may miss kernels of WHILE bodies
+    "traced_set_any": None if rows is None else sum(
+      c for name, c in rows.items() if "set_any_kernel" in name),
+    "traced_set_counted": None if rows is None else sum(
+      c for name, c in rows.items() if "set_counted_kernel" in name),
+    "while_rounds_in_step": any(kind == graph._WHILE
+                                and runs_per_replay(graph, path, if_taken) != 0
+                                for path, kind, _, _, _ in nodes),
+    "body_nodes_in_step": in_bodies,
   }
-  bg = [c for name, c in rows.items() if "car_racing_background" in name]
+  bg = [c for name, c in (rows or {}).items() if "car_racing_background" in name]
   if bg:
     res["sampler_per_step"] = bg[0]
   log(f"{task_id} captured: {n} envs x {steps} steps, every output field and "
@@ -3180,9 +3574,16 @@ def captured_cell(torch, envpool_torch, task_id: str, card) -> dict:
       f"{sc.capture_s:.3f} s, instantiate {sc.instantiate_s:.3f} s, first call "
       f"{first_s:.3f} s; {sc.nodes} nodes ({sc.conditional_nodes} conditional); "
       f"peak {peak_gb:.3f} GiB over the eager outputs; the second step's "
-      f"replay alone: {launches} launches, device busy {busy_us:.1f} us "
-      f"(traced in {trace_s:.1f} s) of {step_us:.1f} us untraced (idle "
-      f"{100 * res['idle']:.1f}%); {resets} lane resets after step 1 [{card}]")
+      f"replay alone: {replay_text}"
+      f"{' (the trace may miss kernels of WHILE bodies)' if res['while_rounds_in_step'] else ''}; "
+      f"set kernels in it, by the captured structure (reset branch "
+      f"{'taken' if if_taken else 'skipped'}): {res['set_any_per_step']} `any`, "
+      f"{res['set_counted_per_step']} counted"
+      f"{'' if sets['unknown'] is None else ' (None: ' + sets['unknown'] + ')'}"
+      f" (the trace recorded {res['traced_set_any']} and "
+      f"{res['traced_set_counted']}); "
+      f"cond's operand clones copy {clone_bytes} B per step; {resets} lane "
+      f"resets after step 1 [{card}]")
   return res
 
 
@@ -3300,13 +3701,44 @@ def captured_ppo(torch, envpool_torch, card) -> dict:
   return res
 
 
+def graph_cond_child(path: str) -> int:
+  """Phase 18's kernel checks and timings (``check_set_conditional``), in a
+  process of its own: its traces then run in a fresh profiler, which the
+  card's CUPTI needs to record a replay of conditional nodes in full after
+  the script's earlier traces; the results written to ``path`` (JSON)."""
+  import torch
+
+  if not torch.cuda.is_available():
+    raise RuntimeError("phase 18's child needs a CUDA device")
+  sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+  res = check_set_conditional(torch, card_line())
+  res["widths"] = {str(n): r for n, r in res["widths"].items()}
+  with open(path, "w") as f:
+    json.dump(res, f)
+  return 0
+
+
 def captured_rollouts(torch, envpool_torch, card) -> dict:
   from envpool_torch.core import graph
   from envpool_torch.envs.box2d import sampler
 
-  res = {"set_conditional": check_set_conditional(torch, card)}
+  scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke")
+  os.makedirs(scratch, exist_ok=True)
+  path = os.path.join(scratch, "graph_cond.json")
+  if os.path.exists(path):
+    os.remove(path)
+  t0 = time.perf_counter()
+  proc = subprocess.run(
+    [sys.executable, os.path.abspath(__file__), "--graph-cond", path], timeout=600)
+  if proc.returncode != 0:
+    raise AssertionError(f"phase 18's kernel child exited {proc.returncode}")
+  with open(path) as f:
+    res = {"set_conditional": json.load(f)}
+  log(f"set_conditional checks and timings (a child process): "
+      f"{time.perf_counter() - t0:.1f} s")
   # the phase's main path: every count from 0
-  graph.set_conditional.launches = 0
+  graph.set_conditional.launches = graph.set_counted.launches = 0
   sampler.fused_background.launches = 0
   for task_id in CAPTURED:
     t0 = time.perf_counter()
@@ -3317,6 +3749,7 @@ def captured_rollouts(torch, envpool_torch, card) -> dict:
   res["masked"] = captured_masked(torch, envpool_torch, card)
   res["ppo_sokoban"] = captured_ppo(torch, envpool_torch, card)
   res["launches"] = {"set_conditional": graph.set_conditional.launches,
+                     "set_conditional_counted": graph.set_counted.launches,
                      "car_racing_sampler": sampler.fused_background.launches}
   if not all(res["launches"].values()):
     raise AssertionError(f"phase 18 launched a kernel no time: {res['launches']}")
@@ -3328,6 +3761,8 @@ def main(argv) -> int:
     return cpu_reference(argv[1], argv[2])
   if argv[:1] == ["--wheel-families"]:  # phase 17's child
     return wheel_families(argv[1])
+  if argv[:1] == ["--graph-cond"]:  # phase 18's kernel child
+    return graph_cond_child(argv[1])
 
   import torch
 
@@ -3595,24 +4030,66 @@ def main(argv) -> int:
     "shard_case": kres["shard"],
   }
   cond = captured["set_conditional"]
+  wide, lane = cond["widths"][str(cond["n"])], cond["widths"]["1"]
+  replaces = ("none: the device side of jax.lax.cond at "
+              "envpool_tpu/core/pool.py:210 and of jax.lax.while_loop at "
+              "envpool_tpu/envs/mujoco/device_tasks.py:982")
+  # set kernels per replayed step (the second), from the captured structure
+  per_step = {t: (r["set_any_per_step"], r["set_counted_per_step"])
+              for t, r in captured.items() if isinstance(r, dict) and "set_any_per_step" in r}
   cond_kernel = {
     "name": "set_conditional",
     "route": "cuda",
     "source": "envpool_torch/csrc/graph_cond.cu",
-    "replaces": "none: the device side of jax.lax.cond at "
-                "envpool_tpu/core/pool.py:210 and of jax.lax.while_loop at "
-                "envpool_tpu/envs/mujoco/device_tasks.py:982",
+    "replaces": replaces,
     "launches": captured["launches"]["set_conditional"],
     "max_abs_err": cond["max_abs_err"],
-    "ms": cond["ms"],
-    "plain_ms": cond["plain_ms"],
-    "bound_ms": cond["bound_ms"],
-    "bound_by": cond["bound_by"],
-    "library_ms": None,
-    "unit": f"one launch and its skipped IF node, {cond['n']} lanes; launches: "
-            f"those recorded into phase 18's graphs",
+    "ms": wide["ms"],
+    "plain_ms": wide["plain_ms"],
+    "bound_ms": wide["bound_ms"],
+    "bound_by": wide["bound_by"],
+    "library_ms": wide["library_ms"],
+    "library": ("PyTorch's CUDAGraph.begin_capture_to_if_node over pred.any(), "
+                "per skipped IF node" if cond["library"] else
+                f"null: torch {torch.__version__}'s CUDAGraph has no "
+                f"begin_capture_to_if_node"),
+    "node_ms": wide["node_ms"], "kernel_ms": wide["kernel_ms"],
+    "floor_ms": wide["floor_ms"],
+    "at_1_lane": {k: v for k, v in lane.items() if k != "trace"},
+    "per_replayed_step": {t: v[0] for t, v in per_step.items()},
+    "unit": f"the `any` form: graph.cond's node, {cond['n']} lanes (the "
+            f"operands' clone, one launch and its skipped IF node; node_ms: "
+            f"the launch and the node alone; kernel_ms: the kernel alone, "
+            f"traced; floor_ms: an empty kernel and the node); launches: those "
+            f"recorded into phase 18's graphs; per_replayed_step: the second "
+            f"step's replay of each id, from the captured structure (null: a "
+            f"data-dependent while_loop ran)",
   }
-  log(json.dumps({"kernels": [kernel, cond_kernel]}))
+  loops = cond["loops"]
+  counted_kernel = {
+    "name": "set_conditional_counted",
+    "route": "cuda",
+    "source": "envpool_torch/csrc/graph_cond.cu",
+    "replaces": replaces + "; the counter of fori_loop(0, n, ...) with a static n",
+    "launches": captured["launches"]["set_conditional_counted"],
+    "max_abs_err": cond["counted_max_abs_err"],
+    "ms": loops["counted"]["round_ms"],
+    "plain_ms": cond["counted_plain_ms"],
+    "bound_ms": cond["counted_bound_ms"],
+    "bound_by": "bytes",
+    "library_ms": None,
+    "library": "null: PyTorch has no WHILE node and no one call that advances "
+               "a counter and sets a handle",
+    "kernel_ms": (None if loops["counted"]["set_counted_kernel"]["us"] is None
+                  else 1e-3 * loops["counted"]["set_counted_kernel"]["us"]),
+    "carried_round_ms": loops["carried"]["round_ms"],
+    "per_replayed_step": {t: v[1] for t, v in per_step.items()},
+    "unit": f"one round of an empty-bodied fori_loop of {COUNTED_ROUNDS} rounds "
+            f"(one launch and the WHILE node's next round); launches: those "
+            f"recorded into phase 18's graphs; per_replayed_step: as for "
+            f"set_conditional",
+  }
+  log(json.dumps({"kernels": [kernel, cond_kernel, counted_kernel]}))
   log(json.dumps({
     "ok": True,
     "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},

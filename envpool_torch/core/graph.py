@@ -14,7 +14,10 @@ Here a step is captured once into a ``torch.cuda.CUDAGraph`` and replayed:
   which it is at every use in the port.
 - ``while_loop(cond_fn, body_fn, init)``, for ``jax.lax.while_loop``: a
   WHILE node whose body re-sets the handle from ``cond_fn`` of the new carry.
-  ``fori_loop(n, body_fn, init)`` is its counted form: eagerly a plain loop.
+- ``fori_loop(n, body_fn, init)``, for ``jax.lax.fori_loop(0, n, ...)`` with
+  a static ``n`` whose body never reads the index: eagerly a plain loop,
+  under capture a WHILE node over a device round counter that the set
+  kernel's counted form advances, one launch per round.
 - ``scan(body, carry, length)``, for
   ``jax.jit(lambda c: lax.scan(body, c, None, length))``; ``CapturedScan``
   keeps its graph for reuse. On the card the first call warms ``body`` up on
@@ -27,10 +30,12 @@ Here a step is captured once into a ``torch.cuda.CUDAGraph`` and replayed:
 A predicate is a bool tensor and the branch runs where any of its elements
 is set (a one-element tensor is the plain ``lax.cond``): the set-handle
 kernel fuses the ``any``. PyTorch's own ``CUDAGraph.begin_capture_to_if_node``
-has no WHILE counterpart, so both node kinds go through the one kernel and
-one memory rule: every body is captured on a stream of its own (one per
-nesting depth), whose allocations come from a private pool of the graph,
-never from the normal pool; the pools live as long as the graph.
+takes a one-element predicate (an ``any`` launch before it) and has no WHILE
+counterpart, so both node kinds go through the one kernel and one memory
+rule: every body is captured on a stream of its own (one per nesting
+depth, made by ``cudaStreamCreate`` and never one of PyTorch's pooled
+streams), whose allocations come from a private pool of the graph, never
+from the normal pool; the pools live as long as the graph.
 
 A capture that fails raises; nothing falls back to the eager loop.
 """
@@ -45,6 +50,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 _IF, _WHILE = 0, 1
+# the set kernel's forms (csrc/graph_cond.cu); _EMPTY launches an empty
+# kernel and leaves the handle at 0, the floor of a one-launch design
+_ANY, _COUNTED, _EMPTY = 0, 1, 2
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -81,22 +89,26 @@ def _lib():
   lib = _build.load("graph_cond")
   if lib.graph_cond_begin.argtypes is None:
     vp, ull = ctypes.c_void_p, ctypes.c_ulonglong
+    i32 = ctypes.c_int
     lib.graph_cond_begin.argtypes = [
-      vp, vp, ctypes.c_int, vp, ctypes.c_int, ctypes.POINTER(ull),
-      ctypes.POINTER(vp),
+      vp, vp, i32, i32, vp, i32, ctypes.POINTER(ull), ctypes.POINTER(vp),
     ]
-    lib.graph_cond_set.argtypes = [vp, ull, vp, ctypes.c_int]
+    lib.graph_cond_set.argtypes = [vp, ull, i32, vp, i32]
     lib.graph_cond_end.argtypes = [vp, vp]
     lib.graph_cond_nodes.argtypes = [vp, ctypes.POINTER(ull)]
+    lib.graph_cond_stream.argtypes = [ctypes.POINTER(vp)]
     for fn in (lib.graph_cond_begin, lib.graph_cond_set, lib.graph_cond_end,
-               lib.graph_cond_nodes):
+               lib.graph_cond_nodes, lib.graph_cond_stream):
       fn.restype = ctypes.c_int
+    lib.graph_cond_failed.argtypes = []
+    lib.graph_cond_failed.restype = ctypes.c_char_p
   return lib
 
 
 def _check(err: int, what: str) -> None:
   if err != 0:
-    raise RuntimeError(f"{what} failed: CUDA error {err}")
+    where = _lib().graph_cond_failed().decode()
+    raise RuntimeError(f"{what} failed: CUDA error {err} at {where}")
 
 
 def _pred_bytes(pred: torch.Tensor) -> torch.Tensor:
@@ -113,7 +125,7 @@ def set_conditional(handle: int, pred: torch.Tensor) -> None:
   counts the kernel's launches, the ones made by a node's begin too."""
   p = _pred_bytes(pred)
   stream = torch.cuda.current_stream(p.device).cuda_stream
-  _check(_lib().graph_cond_set(stream, handle, p.data_ptr(), p.numel()),
+  _check(_lib().graph_cond_set(stream, handle, _ANY, p.data_ptr(), p.numel()),
          "graph_cond_set")
   set_conditional.launches += 1
 
@@ -126,53 +138,131 @@ def set_conditional_plain(pred: torch.Tensor) -> torch.Tensor:
   return pred.any()
 
 
+def set_counted(handle: int, counter: torch.Tensor, n: int) -> None:
+  """Capture the counted form at the end of a loop round, on the current
+  stream, which must be capturing: the int32 ``counter`` advances, the
+  handle is set to ``counter < n``, and the counter goes back to 0 when
+  it reaches ``n``. ``set_counted.launches`` counts the form's launches,
+  the ones made by a node's begin too."""
+  stream = torch.cuda.current_stream(counter.device).cuda_stream
+  _check(_lib().graph_cond_set(stream, handle, _COUNTED, counter.data_ptr(), n),
+         "graph_cond_set")
+  set_counted.launches += 1
+
+
+set_counted.launches = 0
+
+
+def set_counted_plain(counter: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+  """The counted form in plain PyTorch, at a round's end: the new counter
+  and the handle's value."""
+  c = counter + 1
+  more = c < n
+  return torch.where(more, c, 0), more
+
+
 # ------------------------------------------------------- conditional bodies
 
+_MAX_COUNTED_LOOPS = 64  # fori_loops captured into one graph
+
+
 class _Capture:
-  """What one ``CapturedScan`` capture adds beside the graph: the private
-  pools of its bodies and their node counts."""
+  """What one capture adds beside the graph: the private pools of its
+  bodies, their node counts and the round counters of its counted loops.
+
+  The counters are made, zero, before the capture begins: memory that the
+  graph allocates could have been written earlier in the same replay by
+  a tensor freed before the counter took its place, and nothing may touch
+  a counter but its loop's kernel, which leaves it at 0 when the loop
+  ends."""
 
   def __init__(self, device: torch.device) -> None:
     self.device = device
     self.pools: List[Tuple[int, int]] = []
     self.body_nodes: List[int] = []
+    self.counters = torch.zeros(_MAX_COUNTED_LOOPS, dtype=torch.int32, device=device)
+    self.counted_loops = 0
+
+  def counter(self) -> torch.Tensor:
+    """The next loop's round counter, one int32."""
+    if self.counted_loops == _MAX_COUNTED_LOOPS:
+      raise RuntimeError(f"a capture holds at most {_MAX_COUNTED_LOOPS} fori_loops")
+    self.counted_loops += 1
+    return self.counters[self.counted_loops - 1:self.counted_loops]
+
+  def release(self) -> None:
+    """Return the bodies' pools; after the graph that used them is reset."""
+    for pool in self.pools:
+      torch._C._cuda_releasePool(self.device.index or 0, pool)
+    self.pools = []
 
 
 _active: Optional[_Capture] = None
 _warming = False
 _depth = 0  # conditional bodies entered and not yet left
-_body_streams: Dict[Tuple[int, int], torch.cuda.Stream] = {}
+_body_streams: Dict[Tuple[int, int], "torch.cuda.ExternalStream"] = {}
 
 
-def _body_stream(device: torch.device, depth: int) -> "torch.cuda.Stream":
+def _body_stream(device: torch.device, depth: int) -> "torch.cuda.ExternalStream":
+  """The stream that bodies at ``depth`` are captured on: one made for it
+  and kept for the process. ``torch.cuda.Stream()`` hands out the 32
+  streams of PyTorch's pool in turn, so a body stream taken from it becomes
+  the capturing stream of a later capture (its ``CapturedScan``'s side
+  stream) and beginning a body on it then fails."""
   key = (device.index or 0, depth)
   if key not in _body_streams:
-    _body_streams[key] = torch.cuda.Stream(device)
+    ptr = ctypes.c_void_p()
+    with torch.cuda.device(device):
+      _check(_lib().graph_cond_stream(ctypes.byref(ptr)), "graph_cond_stream")
+    _body_streams[key] = torch.cuda.ExternalStream(ptr.value, device=device)
   return _body_streams[key]
 
 
 @contextlib.contextmanager
-def _conditional_body(kind: int, pred: torch.Tensor):
-  """Add an IF or WHILE node at the capturing stream's frontier and capture
-  what runs inside the block into its body; yields the node's handle."""
-  global _depth
-  cap = _active
-  if cap is None:
+def _capture_into(cuda_graph: "torch.cuda.CUDAGraph", stream: "torch.cuda.Stream"):
+  """Capture the block into ``cuda_graph`` on ``stream`` with conditional
+  nodes enabled; yields the ``_Capture``, whose pools are released after
+  the graph is reset."""
+  global _active
+  cap = _Capture(stream.device)
+  _active = cap
+  try:
+    with torch.cuda.graph(cuda_graph, stream=stream):
+      yield cap
+  finally:
+    _active = None
+
+
+def _current() -> _Capture:
+  if _active is None:
     raise RuntimeError(
       "a conditional node needs a capture begun by envpool_torch.core.graph "
       "(CapturedScan or scan)"
     )
+  return _active
+
+
+@contextlib.contextmanager
+def _conditional_body(kind: int, form: int, arg: torch.Tensor, n: int):
+  """Add an IF or WHILE node at the capturing stream's frontier, behind the
+  set kernel's ``form`` over ``arg`` (``_ANY``: the predicate's ``n``
+  bytes; ``_COUNTED``: the round counter, ``n`` rounds), and capture what
+  runs inside the block into its body; yields the node's handle."""
+  global _depth
+  cap = _current()
   lib = _lib()
-  p = _pred_bytes(pred)
-  dev = p.device
+  dev = arg.device
   outer = torch.cuda.current_stream(dev)
   body = _body_stream(dev, _depth)
   handle, graph_ptr = ctypes.c_ulonglong(), ctypes.c_void_p()
   _check(lib.graph_cond_begin(
-    outer.cuda_stream, body.cuda_stream, kind, p.data_ptr(), p.numel(),
+    outer.cuda_stream, body.cuda_stream, kind, form, arg.data_ptr(), n,
     ctypes.byref(handle), ctypes.byref(graph_ptr),
   ), "graph_cond_begin")
-  set_conditional.launches += 1
+  if form == _ANY:
+    set_conditional.launches += 1
+  elif form == _COUNTED:
+    set_counted.launches += 1
   pool = torch._C._graph_pool_handle()
   cap.pools.append(pool)
   _depth += 1
@@ -247,7 +337,8 @@ def cond(pred: torch.Tensor, true_fn: Callable, false_fn: Callable,
   if not _capturing(pred):
     return true_fn(operands) if _host_pred(pred) else false_fn(operands)
   out = tree_map(torch.clone, operands)
-  with _conditional_body(_IF, pred):
+  p = _pred_bytes(pred)
+  with _conditional_body(_IF, _ANY, p, p.numel()):
     _copy_into(out, true_fn(operands))
   return out
 
@@ -271,7 +362,8 @@ def while_loop(cond_fn: Callable, body_fn: Callable, init: Any) -> Any:
       first = cond_fn(carry)
     return carry
   carry = tree_map(torch.clone, init)
-  with _conditional_body(_WHILE, first) as handle:
+  p = _pred_bytes(first)
+  with _conditional_body(_WHILE, _ANY, p, p.numel()) as handle:
     _copy_into(carry, body_fn(carry))
     set_conditional(handle, cond_fn(carry))
   return carry
@@ -279,20 +371,29 @@ def while_loop(cond_fn: Callable, body_fn: Callable, init: Any) -> Any:
 
 def fori_loop(n: int, body_fn: Callable, init: Any) -> Any:
   """``jax.lax.fori_loop(0, n, lambda i, c: body_fn(c), init)`` for a static
-  ``n``: a Python loop eagerly (nothing read back), a WHILE node over a
-  device counter under capture, so that the graph holds one round's nodes
-  and not ``n`` copies of them."""
+  ``n``: a Python loop eagerly (nothing read back), under capture a WHILE
+  node over a copy of ``init``, so that the graph holds one round's nodes
+  and not ``n`` copies of them. The round counter is an int32 of the
+  capture's, zero before the capture began; the counted set kernel
+  advances it at the end of each round, its one launch per round, and
+  leaves it at 0 when the loop ends, for the next replay."""
   leaf = _leaves(init)[0]
   if n < 1:
     return init
-  if not ((_warming and leaf.is_cuda) or _capturing(leaf)):
+  if _warming and leaf.is_cuda:
+    with _on_body_stream(leaf.device):
+      return body_fn(init)
+  if not _capturing(leaf):
     for _ in range(n):
       init = body_fn(init)
     return init
-  count = torch.zeros(1, dtype=torch.int32, device=leaf.device)
-  carry, _ = while_loop(
-    lambda c: c[1] < n, lambda c: (body_fn(c[0]), c[1] + 1), (init, count)
-  )
+  if n >= 2**31:
+    raise ValueError("a counted loop runs at most 2**31 - 1 rounds")
+  counter = _current().counter()
+  carry = tree_map(torch.clone, init)
+  with _conditional_body(_WHILE, _COUNTED, counter, n) as handle:
+    _copy_into(carry, body_fn(carry))
+    set_counted(handle, counter, n)
   return carry
 
 
@@ -367,7 +468,7 @@ class CapturedScan:
     self._t.add_(1)
 
   def _build(self, carry: Any) -> None:
-    global _active, _warming
+    global _warming
     device = _leaves(carry)[0].device
     _lib()  # the set-handle kernel is built before any capture
     self._signature = [(t.shape, t.dtype) for t in _leaves(carry)]
@@ -386,15 +487,10 @@ class CapturedScan:
     )
     del y
     self._t = torch.zeros(1, dtype=torch.int64, device=device)
-    cap = _Capture(device)
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     t0 = time.perf_counter()
-    _active = cap
-    try:
-      with torch.cuda.graph(graph, stream=side):
-        self._step()
-    finally:
-      _active = None
+    with _capture_into(graph, side) as cap:
+      self._step()
     t1 = time.perf_counter()
     graph.instantiate()
     self.instantiate_s = time.perf_counter() - t1
@@ -412,8 +508,7 @@ class CapturedScan:
       return
     try:
       graph.reset()
-      for pool in cap.pools:
-        torch._C._cuda_releasePool(cap.device.index or 0, pool)
+      cap.release()
     except Exception:
       pass  # interpreter shutdown
 

@@ -254,6 +254,37 @@ def test_predicates_must_be_bool():
   assert bool(graph.set_conditional_plain(torch.tensor([False, True])))
 
 
+@pytest.mark.parametrize("n", [15, 16, 17])
+def test_pred_bytes_and_any_at_the_vector_edges(n):
+  """Widths around one 16-byte load: the bytes go to the kernel as they
+  are, and the plain version sees the first and the last lane."""
+  for lane in (None, 0, n - 1):
+    pred = torch.zeros(n, dtype=torch.bool)
+    if lane is not None:
+      pred[lane] = True
+    got = graph._pred_bytes(pred)
+    assert got.data_ptr() == pred.data_ptr() and got.numel() == n
+    assert bool(graph.set_conditional_plain(got)) == (lane is not None)
+
+
+def test_pred_bytes_keeps_an_unaligned_view():
+  """``pred[1:]`` of 16385 stays a view one byte past its base (the kernel
+  reads the unaligned head bytewise), and a 2-D predicate is flattened."""
+  base = torch.zeros(16385, dtype=torch.bool)
+  view = base[1:]
+  got = graph._pred_bytes(view)
+  assert got.data_ptr() == base.data_ptr() + 1 and got.numel() == 16384
+  assert not bool(graph.set_conditional_plain(got))
+  for lane in (1, 8001, 16384):
+    base.zero_()
+    base[lane] = True
+    assert bool(graph.set_conditional_plain(graph._pred_bytes(view)))
+  base[0], base[1:] = True, False
+  assert not bool(graph.set_conditional_plain(graph._pred_bytes(view)))
+  square = graph._pred_bytes(base[1:].reshape(128, 128))
+  assert square.shape == (16384,)
+
+
 # ------------------------------------------------------- against JAX, once
 
 CP_ENVS, CP_STEPS = 32, 240
@@ -280,6 +311,13 @@ def _cond_true(pred, x, lib):
 
 def _while_body(x, lib):
   return lib.where(x < 1000, x * 3 + 1, x)
+
+
+COUNTED = (1, 2, 3, 198)
+
+
+def _counted_body(x, lib):
+  return lib.where(x % 2 == 0, x // 2, 3 * x + 1)
 
 
 @pytest.fixture(scope="module")
@@ -315,14 +353,16 @@ def jax_side():
     loop = jax.lax.while_loop(lambda v: jnp.any(v < 1000),
                               lambda v: _while_body(v, jnp), start)
     fori = jax.lax.fori_loop(0, 5, lambda i, v: v * 2 - i, start)
-    return cp_rewards, sk_outs, sk_final.pool, conds, loop, fori
+    counted = [jax.lax.fori_loop(0, n, lambda i, v: _counted_body(v, jnp), start)
+               for n in COUNTED]
+    return cp_rewards, sk_outs, sk_final.pool, conds, loop, fori, counted
 
   out = jax.jit(program)(cp_handle, sk_handle, sk_acts, x, preds, start)
   return jax.tree_util.tree_map(np.asarray, out), sk_acts, list(sk._state_keys)
 
 
 def test_cond_while_loop_and_fori_loop_match_jax(jax_side):
-  (_, _, _, conds, loop, fori), _, _ = jax_side
+  (_, _, _, conds, loop, fori, _), _, _ = jax_side
   x, preds, start = (torch.from_numpy(a) for a in _flow_inputs())
   for p, want in zip(preds, conds):
     got = graph.cond(p, lambda v, p=p: _cond_true(p, v, torch), lambda v: v, x)
@@ -334,9 +374,40 @@ def test_cond_while_loop_and_fori_loop_match_jax(jax_side):
   np.testing.assert_array_equal(got.numpy(), fori)
 
 
+def _counted_while(n: int, body, x):
+  """A WHILE node driven by the counted form's plain version: the handle
+  is ``counter < n`` on entry (the counter is 0 there), then the plain
+  version sets it at the end of every round."""
+  counter = torch.zeros(1, dtype=torch.int32)
+  more, rounds = bool(counter[0] < n), 0
+  while more:
+    x = body(x)
+    counter, handle = graph.set_counted_plain(counter, n)
+    more, rounds = bool(handle[0]), rounds + 1
+  return x, counter, rounds
+
+
+@pytest.mark.parametrize("n", COUNTED)
+def test_counted_form_matches_jax_fori_loop(jax_side, n):
+  """The counted form's plain version runs ``n`` rounds, leaves its counter
+  at 0 for the next run of the node, and the loop equals
+  ``jax.lax.fori_loop(0, n, ...)``; so does ``graph.fori_loop`` eagerly."""
+  (_, _, _, _, _, _, counted), _, _ = jax_side
+  want = counted[COUNTED.index(n)]
+  start = torch.from_numpy(_flow_inputs()[2])
+  body = lambda v: _counted_body(v, torch)  # noqa: E731
+  got, counter, rounds = _counted_while(n, body, start)
+  assert rounds == n and int(counter[0]) == 0
+  np.testing.assert_array_equal(got.numpy(), want)
+  again, counter, rounds = _counted_while(n, body, start)
+  assert rounds == n and int(counter[0]) == 0
+  np.testing.assert_array_equal(again.numpy(), want)
+  np.testing.assert_array_equal(graph.fori_loop(n, body, start).numpy(), want)
+
+
 def test_cartpole_scan_matches_the_jax_example(jax_side):
   """The xla_step example's loop: rewards per step bit for bit."""
-  (cp_rewards, _, _, _, _, _), _, _ = jax_side
+  (cp_rewards, _, _, _, _, _, _), _, _ = jax_side
   env = envpool_torch.make_gymnasium("CartPole-v1", num_envs=CP_ENVS, seed=0, device="cpu")
   env.reset()
   handle, recv, send, _ = env.xla()
@@ -357,7 +428,7 @@ def test_cartpole_scan_matches_the_jax_example(jax_side):
 def test_sokoban_scan_matches_the_jitted_jax_scan(jax_side):
   """Random mode, noops included, every lane auto-resetting: every output
   field of every step and the final pool state bit for bit."""
-  (_, sk_outs, sk_pool, _, _, _), acts, keys = jax_side
+  (_, sk_outs, sk_pool, _, _, _, _), acts, keys = jax_side
   env = envpool_torch.make_gymnasium("Sokoban-v0", device="cpu", **SK_KW)
   env.reset()
   handle, recv, send, _ = env.xla()
