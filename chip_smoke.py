@@ -38,11 +38,16 @@ Phases (any failure exits non-zero before the result lines):
      CPU port step for step, to float tolerance;
   8. PPO (``envpool_torch.train``): ``examples/ppo_sokoban.py``'s
      configuration (Sokoban-v0 as in phase 6, the full-width bf16
-     ``SokobanCNN()``, ``PPOConfig(num_steps=32, lr=2.5e-4)``), 3 iterations
-     at 1024 envs and 2 at 16384, each with its env-steps/s and its rollout
-     and update times by CUDA events, every metric finite, ``mean_reward``
-     in the Sokoban range, the parameters changed, then a rollout and an
-     update traced apart (launches, device time, idle share); one float32
+     ``SokobanCNN()``, ``PPOConfig(num_steps=32, lr=2.5e-4)``) at 1024 and
+     16384 envs, the rollout captured: 2 iterations with the update eager
+     (the iteration before the update was captured), then 3 and 2 from the same state with the update
+     captured (``graph.CapturedCall``), after 2 iterations the parameters,
+     Adam state, key, handle and metrics bit for bit against the eager
+     update's; each iteration's env-steps/s, rollout and update times by
+     CUDA events, the update graph's capture and instantiate seconds and
+     nodes, every metric finite, ``mean_reward`` in the Sokoban range, the
+     parameters changed, then a rollout and a captured update traced apart
+     (launches, device time, idle share); one float32
      iteration on the card against the CPU port from the same parameters
      and key (TF32 off; equal actions >= 0.99, parameters within 1e-4); PPO
      learning CartPole-v1 on the card with ``tests/test_learning.py``'s
@@ -143,24 +148,48 @@ Phases (any failure exits non-zero before the result lines):
      of a traced ``xla()`` step); PPO at ``examples/ppo_sokoban.py``'s
      width (``SokobanCNN()``, 1024 envs, 32 steps) for 2 iterations
      unsharded and on the 4-shard env mesh, and one iteration on a (2, 2)
-     env x model mesh: the rollouts' pool outputs equal where the actions
-     agree, the differing actions within a bound, the metrics within rtol
-     1e-3; a file checkpoint of the 4-shard Sokoban pool replayed bit for
+     env x model mesh, both meshes' iterations (on one card the unsharded
+     one, captured) bit for bit against the unsharded iteration; one more
+     on the (2, 2) mesh through the per-row path that a mesh over several
+     cards runs (``rollout_rows``/``update_rows``): the rollout's pool
+     outputs equal where the actions agree, the differing actions within a
+     bound, the metrics within rtol 1e-3 (atol 1e-5); on both meshes,
+     ``ShardedEnvPool.rollout`` (Sokoban-v0, 16384 envs, 16 steps) captured
+     against the same steps eagerly and, also on a (2, 2) env x model mesh,
+     ``ShardedPPOTrainStep`` (1024 envs, one iteration of 8 steps) captured
+     against ``eager``, bit for bit, with env-steps/s, the (2, 2) mesh's
+     bit for bit against the 4-shard mesh's; a
+     file checkpoint of the
+     4-shard Sokoban pool replayed bit for
      bit; a ``trace`` that lists CUDA kernels; ``dryrun_multichip(8)``;
  16. the host tier (``HostEnvPool`` and its bridge to the card; no kernel
-     of its own): the port's Atari wrapper stack at the JAX package's
+     of its own), in a child process stopped at HOST_CHILD_TIMEOUT s (a
+     host function that never runs hangs the child, not the script):
+     first each call that waits for the stream (``Tensor.item``/``.cpu``,
+     ``Event``/``Stream.synchronize``, ``torch.cuda.synchronize``, 4096
+     ``CUDAGraph.replay``s of a graph with a host node) behind a pending
+     host function, which takes the GIL: each must return; then the port's
+     Atari wrapper stack at the JAX package's
      defaults (gray, 84x84, stack 4, frame_skip 4, noop_max 30) over a
      scripted emulator with ``tests/test_atari_stack.py``'s rules (the
      card's machine has no ale_py and no ROM), 256 envs on as many threads
      as the host has cores: reset + 48 steps through ``step``, an async
-     pool (batch 64) for 48 recv/send rounds, and ``xla()`` loops on
-     cuda:0 of 48 steps with the actions on the card and of 24 with the
-     actions on the host: env-steps/s, host ms per step, bytes and
-     CUDA-event time of the copy to the card per step and how much of it
-     the host waits for; every output of
-     both ``xla()`` loops, kept on the card, bit for bit against the
-     ``step`` loop's outputs at the same seed and actions; every lane lost
-     a life and ended a game, with the common fields' override rules after
+     pool (batch 64) for 48 recv/send rounds, eager ``xla()`` loops on
+     cuda:0 of 48 steps with the actions on the card (the sends under
+     ``set_sync_debug_mode("error")``) and of 12 with the actions on the
+     host, and ``graph.CapturedScan`` over the first 12 steps (the host
+     step a host node; its one synchronizing call the wait after the
+     replays, under ``set_sync_debug_mode("warn")``): env-steps/s, the ms a send takes to return and
+     the host step's, the stream time per step past it, bytes and
+     CUDA-event time of the copy to the card per step; every output of
+     the three loops, kept on the card, bit for bit against the ``step``
+     loop's outputs at the same seed and actions; a captured scan whose
+     host step fails raises after its replays, the steps queued behind it
+     leave the pool alone, and it replays again once raised; a host-API
+     ``step`` right after a pending eager send waits for it; one PPO iteration over
+     the scripted stack (32 envs, ``AtariCNN``, 4 steps) captured against
+     eager on a twin pool, bit for bit; every lane lost a life and ended a
+     game, with the common fields' override rules after
      each; the registry lists every id, and making ``Hopper-v4`` and
      ``CheetahRun-v1`` without mujoco raises an ImportError that names it
      (with mujoco, 8 envs x 20 ``xla()`` steps of each on the card);
@@ -168,22 +197,26 @@ Phases (any failure exits non-zero before the result lines):
      neither procgen nor vizdoom), in a child process that puts them in
      place before it imports the port, so the registry lists their ids:
      procgen's ``BigfishHard-v0`` with ``tests/test_procgen_stack.py``'s
-     rules at 256 envs, reset + 200 steps through ``step``, an async pool
-     (batch 64) for 200 rounds and ``xla()`` on cuda:0 for 200 steps with
+     rules at 256 envs, reset + 100 steps through ``step``, an async pool
+     (batch 64) for 100 rounds and ``xla()`` on cuda:0 for 100 steps with
      the actions on the card; ``VizdoomCustom-v1`` with
      ``tests/test_vizdoom_stack.py``'s rules at the JAX package's defaults
      (84x84, stack 4, frame_skip 4) at 256 envs, the same loops 32 steps
      deep (every episode ends twice), with float64 buttons drawn on the
      card and with ``use_combined_action=True`` and int32 ids: env-steps/s,
-     bytes and
-     CUDA-event time of the copy per step, every ``xla()`` output bit for
-     bit against the ``step`` loop's, the action in the spec's dtype and
-     shape where it reaches the workers, the common fields' rules; then
-     the port's examples in child processes on the card, all at once
+     bytes and CUDA-event time of the copy per step, every ``xla()`` output
+     bit for bit against the ``step`` loop's (procgen's first 25 also
+     through ``graph.CapturedScan``), the action in the spec's dtype and shape
+     where it reaches the workers, the common fields' rules; then the
+     port's examples in child processes on the card, all at once
      (``python -m envpool_torch.examples.ppo_sokoban --iterations 2``,
-     ``ppo_mujoco --iterations 2``, ``xla_step``): exit 0, every number
-     they print finite, their seconds. ``async_loop`` steps ``Ant-v4``,
-     which needs mujoco, so only the CPU tests run it;
+     ``ppo_mujoco --iterations 2``, ``xla_step``, ``cleanrl_ppo
+     --iterations 1 --num-steps 32``, ``sb3_example``, ``tianshou_example`` and
+     ``acme_example``, the last three driving their adapters alone): exit
+     0, every number they print finite, their seconds; ``acme_example``
+     needs ``dm_env`` and is not run, with the reason printed, where the
+     machine lacks it. ``async_loop`` steps ``Ant-v4``, which needs mujoco,
+     so only the CPU tests run it;
  18. captured rollouts (``envpool_torch.core.graph``): in a child process
      (its traces in a fresh profiler), both forms of the set-handle kernel
      of ``csrc/graph_cond.cu`` against their plain versions through IF
@@ -872,6 +905,9 @@ def cartpole_card_vs_cpu(torch, envpool_torch, device, n=8192, steps=100) -> dic
 # other fields at their defaults (2 epochs of 4 minibatches)
 PPO_STEPS = 32
 PPO_LR = 2.5e-4
+# iterations with the update eager (as it ran before its capture), held bit for bit against as
+# many with it captured
+PPO_EAGER_ITERS = 2
 # a Sokoban step's reward lies in [step - box, step + box + finished]
 SOKOBAN_REWARD_RANGE = (-1.1, 10.9)
 # the CartPole learning check of tests/test_learning.py:20-43; the port's
@@ -880,13 +916,46 @@ SOKOBAN_REWARD_RANGE = (-1.1, 10.9)
 CARTPOLE_PPO_SEED = 12
 
 
+def ppo_iteration(torch, step, state, eager_update=False):
+  """One timed iteration through ``rollout`` and ``update`` (or
+  ``update_eager``): -> (state, metrics as floats, host s, rollout ms and
+  update ms by CUDA events)."""
+  ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  ev[0].record()
+  rollout = step.rollout(state)
+  ev[1].record()
+  state, metrics = (step.update_eager if eager_update else step.update)(state, rollout)
+  ev[2].record()
+  torch.cuda.synchronize()
+  secs = time.perf_counter() - t0
+  return (state, {k: float(v) for k, v in metrics.items()}, secs,
+          ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]))
+
+
+def ppo_state_equal(torch, got, want, tag: str) -> None:
+  """Parameters, Adam moments and count, key and pool handle bit for bit."""
+  bit_equal(torch, (got.params, got.opt_state["mu"], got.opt_state["nu"], got.key),
+            (want.params, want.opt_state["mu"], want.opt_state["nu"], want.key), tag)
+  bit_equal(torch, got.handle, want.handle, tag + " handle")
+  if got.opt_state["count"] != want.opt_state["count"]:
+    raise AssertionError(f"{tag}: Adam counts {got.opt_state['count']} and "
+                         f"{want.opt_state['count']}")
+
+
 def ppo_sokoban(torch, envpool_torch, device, n, iters, card) -> dict:
   """PPO over the full-width SokobanCNN (three 128-channel 3x3 convs, a
-  256-unit dense layer, bf16) on Sokoban-v0 at ``n`` envs: ``iters``
-  iterations timed (rollout and update by CUDA events, the iteration on the
-  host clock), then a rollout and an update traced apart by
-  ``torch.profiler``. Every metric must be
-  finite, ``mean_reward`` in the Sokoban range, the parameters changed."""
+  256-unit dense layer, bf16) on Sokoban-v0 at ``n`` envs, the rollout
+  captured in both runs: PPO_EAGER_ITERS iterations with the update run
+  eagerly (the iteration before its capture), then ``iters`` from the same state with the
+  update captured (``graph.CapturedCall``; the first one captures it), each
+  timed (rollout and update by CUDA events, the iteration on the host
+  clock); after PPO_EAGER_ITERS iterations the two runs' parameters, Adam
+  moments, keys, handles and metrics must be equal bit for bit. Then a
+  rollout and a captured update traced apart by ``torch.profiler``. Every
+  metric finite, ``mean_reward`` in the Sokoban range, the parameters
+  changed."""
   from envpool_torch.models import SokobanCNN
   from envpool_torch.train import PPOConfig, make_ppo_train_step, ppo_init
 
@@ -895,42 +964,60 @@ def ppo_sokoban(torch, envpool_torch, device, n, iters, card) -> dict:
   )
   net = SokobanCNN()
   cfg = PPOConfig(num_steps=PPO_STEPS, lr=PPO_LR)
-  state, tx = ppo_init(pool, net, cfg, seed=SEED)
-  step = make_ppo_train_step(pool, net, cfg, tx)
-  params0 = {k: v.clone() for k, v in state.params.items()}
+  state0, tx = ppo_init(pool, net, cfg, seed=SEED)
   torch.cuda.reset_peak_memory_stats()
-  res = {"iters": []}
-  for it in range(iters):
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ev[0].record()
-    rollout = step.rollout(state)
-    ev[1].record()
-    state, metrics = step.update(state, rollout)
-    ev[2].record()
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    m = {k: float(v) for k, v in metrics.items()}
-    if not all(np.isfinite(v) for v in m.values()):
-      raise AssertionError(f"PPO Sokoban {n} envs, iteration {it}: {m}")
-    lo, hi = SOKOBAN_REWARD_RANGE
-    if not lo <= m["mean_reward"] <= hi:
-      raise AssertionError(f"PPO Sokoban: mean_reward {m['mean_reward']}")
-    row = {"sps": n * PPO_STEPS / secs, "iter_ms": 1e3 * secs,
-           "rollout_ms": ev[0].elapsed_time(ev[1]),
-           "update_ms": ev[1].elapsed_time(ev[2]), **m}
-    res["iters"].append(row)
-    log(f"PPO Sokoban-v0 {n} envs, iteration {it}: {row['sps']:.1f} env-steps/s, "
-        f"{row['iter_ms']:.1f} ms (rollout {row['rollout_ms']:.1f} ms, update "
-        f"{row['update_ms']:.1f} ms by CUDA events); pg_loss {m['pg_loss']:.5f} "
-        f"v_loss {m['v_loss']:.5f} entropy {m['entropy']:.5f} mean_reward "
-        f"{m['mean_reward']:.5f} [{card}]")
-  changed = sum(not torch.equal(state.params[k], params0[k]) for k in params0)
-  if changed != len(params0):
-    raise AssertionError(f"PPO Sokoban: {len(params0) - changed} tensors unchanged")
-  res["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
-  last = res["iters"][-1]
+  res = {}
+  ends = {}
+  for mode, count in (("eager_update", PPO_EAGER_ITERS), ("captured", iters)):
+    step = make_ppo_train_step(pool, net, cfg, tx)
+    state, rows = state0, []
+    for it in range(count):
+      state, m, secs, rollout_ms, update_ms = ppo_iteration(
+        torch, step, state, eager_update=mode == "eager_update")
+      if not all(np.isfinite(v) for v in m.values()):
+        raise AssertionError(f"PPO Sokoban {n} envs, {mode} iteration {it}: {m}")
+      lo, hi = SOKOBAN_REWARD_RANGE
+      if not lo <= m["mean_reward"] <= hi:
+        raise AssertionError(f"PPO Sokoban: mean_reward {m['mean_reward']}")
+      row = {"sps": n * PPO_STEPS / secs, "iter_ms": 1e3 * secs,
+             "rollout_ms": rollout_ms, "update_ms": update_ms,
+             "update_share": update_ms / (1e3 * secs), **m}
+      rows.append(row)
+      log(f"PPO Sokoban-v0 {n} envs, {mode} iteration {it}: {row['sps']:.1f} "
+          f"env-steps/s, {row['iter_ms']:.1f} ms (rollout {rollout_ms:.1f} ms, "
+          f"update {update_ms:.1f} ms by CUDA events, {100 * row['update_share']:.1f}% "
+          f"of the iteration); pg_loss {m['pg_loss']:.5f} v_loss {m['v_loss']:.5f} "
+          f"entropy {m['entropy']:.5f} mean_reward {m['mean_reward']:.5f} [{card}]")
+      if it + 1 == PPO_EAGER_ITERS:
+        ends[mode] = (state, m)
+    res[mode] = {"iters": rows}
+  (got, got_m), (want, want_m) = ends["captured"], ends["eager_update"]
+  ppo_state_equal(torch, got, want, f"PPO {n} envs, captured update")
+  if got_m != want_m:
+    raise AssertionError(f"PPO {n} envs, captured metrics {got_m} against {want_m}")
+  changed = sum(not torch.equal(state.params[k], state0.params[k]) for k in state0.params)
+  if changed != len(state0.params):
+    raise AssertionError(f"PPO Sokoban: {len(state0.params) - changed} tensors unchanged")
+  graph_ = step._update
+  res.update(update_capture_s=graph_.capture_s, update_instantiate_s=graph_.instantiate_s,
+             update_nodes=graph_.nodes, update_host_nodes=graph_.host_nodes,
+             peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+  # the steady iterations: the first captured one also captures the update
+  steady = res["captured"]["iters"][1:]
+  eager = res["eager_update"]["iters"][1:]
+  res["sps"] = float(np.mean([r["sps"] for r in steady]))
+  res["eager_update_sps"] = float(np.mean([r["sps"] for r in eager]))
+  res["update_ms"] = float(np.mean([r["update_ms"] for r in steady]))
+  res["eager_update_ms"] = float(np.mean([r["update_ms"] for r in eager]))
+  log(f"PPO Sokoban-v0 {n} envs: after {PPO_EAGER_ITERS} iterations the "
+      f"captured update's parameters, Adam moments, key, handle and metrics "
+      f"equal the eager update's bit for bit; captured {res['sps']:.1f} "
+      f"env-steps/s (update {res['update_ms']:.2f} ms) against "
+      f"{res['eager_update_sps']:.1f} with the update eager "
+      f"({res['eager_update_ms']:.2f} ms); the update's graph: capture "
+      f"{graph_.capture_s:.3f} s, instantiate {graph_.instantiate_s:.3f} s, "
+      f"{graph_.nodes} nodes [{card}]")
+  last = steady[-1]
   traced = {}
   rollout = None
 
@@ -944,7 +1031,7 @@ def ppo_sokoban(torch, envpool_torch, device, n, iters, card) -> dict:
     wall_us = 1e3 * last[f"{phase}_ms"]
     traced[phase] = {"busy_ms": busy_us / 1e3, "launches": sum(r[2] for r in rows),
                      "idle": 1 - busy_us / wall_us}
-    log(f"profile: PPO Sokoban-v0 {phase} of {n} envs, device kernels "
+    log(f"profile: PPO Sokoban-v0 {phase} of {n} envs (captured), device kernels "
         f"{busy_us / 1e3:.1f} ms in {traced[phase]['launches']:.0f} launches; "
         f"untraced {phase} {wall_us / 1e3:.1f} ms, so the device idles "
         f"{100 * traced[phase]['idle']:.1f}% [{card}]")
@@ -2043,6 +2130,8 @@ SHARD_DEVICE = "cuda:0"
 SHARD_CAR_STEPS = 25
 SHARD_SOKOBAN_STEPS = 64
 SHARD_PPO_ITERS = 2
+SHARD_ROLLOUT_STEPS = 16  # the sharded rollout, captured against eager
+SHARD_CAPTURE_STEPS = 8  # the sharded trainer's steps, captured against eager
 # PPO on Sokoban, sharded against unsharded from the same parameters and
 # key. A shard's convs and GEMMs run at a quarter of the batch, where cuDNN
 # and cuBLAS may pick other kernels: a logit off in its last bits flips a
@@ -2197,11 +2286,17 @@ def ppo_sharded(torch, envpool_torch, card) -> dict:
   """examples/ppo_sokoban.py's full width (SokobanCNN(), 1024 envs,
   PPOConfig(num_steps=32, lr=2.5e-4)): SHARD_PPO_ITERS iterations unsharded
   and on the 4-shard env mesh, and one on a (2, 2) mesh with
-  model_axis="model". Each sharded iteration starts from the unsharded
+  model_axis="model", through the trainer's ``rollout`` and ``update`` (on
+  this card's meshes the unsharded iteration, captured) and once more
+  through the per-row path that a mesh over several cards runs
+  (``rollout_rows`` / ``update_rows``, eager: each row's block, the model
+  axis's column blocks). Each sharded iteration starts from the unsharded
   run's parameters, optimizer state and key (its pool from its own last
   iteration): bf16 would carry the float32 parameters' last-bit
   differences into whole bf16 steps. Rollout outputs equal where the
-  actions agree, differing actions within SHARD_PPO_FLIPS, metrics close."""
+  actions agree, differing actions within SHARD_PPO_FLIPS, metrics close;
+  the one-device paths' parameters, Adam moments, key and metrics equal
+  the unsharded iteration's bit for bit."""
   from envpool_torch.models import SokobanCNN
   from envpool_torch.parallel import Mesh, ShardedEnvPool, make_mesh
   from envpool_torch.train import PPOConfig, make_ppo_train_step, ppo_init
@@ -2209,26 +2304,28 @@ def ppo_sharded(torch, envpool_torch, card) -> dict:
   n = 1024
   spec = envpool_torch.make_spec("Sokoban-v0", num_envs=n, seed=SEED, **SOKOBAN_KW)
   cfg = PPOConfig(num_steps=PPO_STEPS, lr=PPO_LR)
+  model_mesh = Mesh(np.array([SHARD_DEVICE] * 4, object).reshape(2, 2),
+                    ("env", "model"))
+  # name -> (mesh, model axis, iterations, through the per-row path)
   layouts = {
-    "unsharded": (None, None, SHARD_PPO_ITERS),
+    "unsharded": (None, None, SHARD_PPO_ITERS, False),
     f"env mesh of {SHARDS}": (make_mesh(devices=[SHARD_DEVICE] * SHARDS), None,
-                              SHARD_PPO_ITERS),
-    "(2, 2) env x model": (Mesh(np.array([SHARD_DEVICE] * 4, object).reshape(2, 2),
-                                ("env", "model")), "model", 1),
+                              SHARD_PPO_ITERS, False),
+    "(2, 2) env x model": (model_mesh, "model", 1, False),
+    "(2, 2) env x model, per row": (model_mesh, "model", 1, True),
   }
   runs = {}
-  for name, (mesh, model_axis, _) in layouts.items():
+  for name, (mesh, model_axis, _, _) in layouts.items():
     pool = (envpool_torch.make_gymnasium("Sokoban-v0", num_envs=n, seed=SEED,
                                          device=SHARD_DEVICE, **SOKOBAN_KW)
             if mesh is None else ShardedEnvPool(spec, mesh))
     net = SokobanCNN()
     state, tx = ppo_init(pool, net, cfg, seed=SEED)
-    runs[name] = {"state": state, "rows": [],
-                  "step": make_ppo_train_step(pool, net, cfg, tx, mesh=mesh,
-                                              model_axis=model_axis)}
+    step = make_ppo_train_step(pool, net, cfg, tx, mesh=mesh, model_axis=model_axis)
+    runs[name] = {"state": state, "rows": [], "step": step}
   for it in range(SHARD_PPO_ITERS):
     start = runs["unsharded"]["state"]
-    for name, (mesh, _, iters) in layouts.items():
+    for name, (mesh, _, iters, per_row) in layouts.items():
       if it >= iters:
         continue
       run = runs[name]
@@ -2237,14 +2334,15 @@ def ppo_sharded(torch, envpool_torch, card) -> dict:
       step = run["step"]
       sync(torch, SHARD_DEVICE)
       t0 = time.perf_counter()
-      rollout = step.rollout(state)
+      rollout = step.rollout_rows(state) if per_row else step.rollout(state)
       sync(torch, SHARD_DEVICE)
       t1 = time.perf_counter()
-      run["state"], metrics = step.update(state, rollout)
+      run["state"], metrics = (step.update_rows if per_row else step.update)(state, rollout)
       sync(torch, SHARD_DEVICE)
       t2 = time.perf_counter()
       traj = rollout[2] if mesh is None else step.gather(rollout[2], torch.device(SHARD_DEVICE))
       run["rows"].append({"traj": traj, "metrics": {k: float(v) for k, v in metrics.items()},
+                          "state": run["state"], "per_row": per_row,
                           "rollout_ms": 1e3 * (t1 - t0), "update_ms": 1e3 * (t2 - t1)})
   out = {}
   base = runs["unsharded"]["rows"]
@@ -2257,7 +2355,19 @@ def ppo_sharded(torch, envpool_torch, card) -> dict:
       entry = {"iter_ms": row["rollout_ms"] + row["update_ms"],
                "rollout_ms": row["rollout_ms"], "update_ms": row["update_ms"], **m}
       extra = ""
-      if name != "unsharded":
+      if name != "unsharded" and not row["per_row"]:
+        # one card: the unsharded iteration, bit for bit
+        got, want = row["state"], base[it]["state"]
+        bit_equal(torch, (got.params, got.opt_state["mu"], got.opt_state["nu"], got.key),
+                  (want.params, want.opt_state["mu"], want.opt_state["nu"], want.key),
+                  f"PPO {name} iteration {it}")
+        bit_equal(torch, row["traj"], base[it]["traj"], f"PPO {name} rollout {it}")
+        if m != base[it]["metrics"]:
+          raise AssertionError(f"PPO {name} iteration {it}: {m} against "
+                               f"{base[it]['metrics']}")
+        entry["bit_for_bit"] = True
+        extra = "; trajectory, parameters, Adam moments, key and metrics bit for bit"
+      elif name != "unsharded":
         flips, checked = flips_and_outputs(base[it]["traj"], row["traj"])
         entry["flips"] = flips
         entry["metric_max_rel"] = metrics_close(m, base[it]["metrics"], f"PPO {name} {it}")
@@ -2274,6 +2384,125 @@ def ppo_sharded(torch, envpool_torch, card) -> dict:
           f"pg_loss {m['pg_loss']:.6f} v_loss {m['v_loss']:.6f} entropy "
           f"{m['entropy']:.6f} mean_reward {m['mean_reward']:.6f}{extra} [{card}]")
     out[name] = res
+  return out
+
+
+def sharded_captured(torch, envpool_torch, card) -> dict:
+  """The sharded paths captured against eager, on both meshes of
+  ``shard_meshes``: ``ShardedEnvPool.rollout`` of Sokoban-v0 at
+  SOKOBAN_ENVS envs over SHARD_ROLLOUT_STEPS steps (a policy of threefry
+  draws, its key in the carry) through its ``graph.CapturedScan`` against
+  the same steps through ``xla()`` one by one, every field and the final
+  state bit for bit; ``ShardedPPOTrainStep`` at ``examples/ppo_sokoban.py``'s
+  width (``SokobanCNN()``, 1024 envs, SHARD_CAPTURE_STEPS steps), one
+  iteration captured
+  (rollout and update) against the same iteration with both run eagerly,
+  parameters, Adam state, key, handle and metrics bit for bit, on both
+  meshes and on a (2, 2) env x model mesh of cuda:0. env-steps/s of each
+  (captured: a second iteration, its graphs replayed)."""
+  from envpool_torch.core import prng
+  from envpool_torch.models import SokobanCNN
+  from envpool_torch.parallel import Mesh, ShardedEnvPool
+  from envpool_torch.train import PPOConfig, make_ppo_train_step, ppo_init
+
+  n = SOKOBAN_ENVS
+  spec = envpool_torch.make_spec("Sokoban-v0", num_envs=n, seed=SEED, **SOKOBAN_KW)
+  cfg = PPOConfig(num_steps=SHARD_CAPTURE_STEPS, lr=PPO_LR)
+  ppo_spec = envpool_torch.make_spec("Sokoban-v0", num_envs=1024, seed=SEED, **SOKOBAN_KW)
+  out = {}
+
+  def policy(key, states):
+    key, sub = prng.split(key, 2)
+    return key, prng.randint(sub, (n,), -1, 4)
+
+  for name, mesh in shard_meshes(torch).items():
+    pool = ShardedEnvPool(spec, mesh)
+    key0 = prng.prng_key(SEED + 44, SHARD_DEVICE)
+    handle, recv, send, _ = pool.xla()
+    sync(torch, SHARD_DEVICE)
+    t0 = time.perf_counter()
+    key, rows = key0, []
+    for _ in range(SHARD_ROLLOUT_STEPS):
+      _, states = recv(handle)
+      key, action = policy(key, states)
+      handle = send(handle, action)
+      rows.append(tuple(states))
+    sync(torch, SHARD_DEVICE)
+    eager_s = time.perf_counter() - t0
+    want = tuple(torch.stack(r) for r in zip(*rows))
+    del rows
+    (got_handle, got_key), traj = pool.rollout(policy, key0, SHARD_ROLLOUT_STEPS)
+    bit_equal(torch, traj, want, f"sharded rollout on {name}")
+    bit_equal(torch, (got_handle.pool, got_key), (handle.pool, key),
+              f"sharded rollout's final state on {name}")
+    del traj, want
+    sync(torch, SHARD_DEVICE)
+    t0 = time.perf_counter()
+    pool.rollout(policy, key0, SHARD_ROLLOUT_STEPS)
+    sync(torch, SHARD_DEVICE)
+    captured_s = time.perf_counter() - t0
+    scan = pool._rollout_scan[1]
+    out[name] = {"rollout_eager_sps": SHARD_ROLLOUT_STEPS * n / eager_s,
+                 "rollout_captured_sps": SHARD_ROLLOUT_STEPS * n / captured_s,
+                 "rollout_nodes": scan.nodes, "rollout_capture_s": scan.capture_s}
+    log(f"sharding on {name}: Sokoban-v0 rollout ({n} envs x {SHARD_ROLLOUT_STEPS} "
+        f"steps) captured bit for bit against eager, "
+        f"{out[name]['rollout_eager_sps']:.1f} -> {out[name]['rollout_captured_sps']:.1f} "
+        f"env-steps/s ({scan.nodes} nodes) [{card}]")
+    del pool, scan
+    torch.cuda.empty_cache()
+  trainers, kept = dict(shard_meshes(torch)), {}
+  trainers["(2, 2) env x model of cuda:0"] = Mesh(
+    np.array([SHARD_DEVICE] * 4, object).reshape(2, 2), ("env", "model"))
+  for name, mesh in trainers.items():
+    # the trainer: captured against eager, from one state
+    model_axis = "model" if "model" in mesh.axis_names else None
+    res = out.setdefault(name, {})
+    pool = ShardedEnvPool(ppo_spec, mesh)
+    net = SokobanCNN()
+    state0, tx = ppo_init(pool, net, cfg, seed=SEED)
+    ends = {}
+    for mode in ("eager", "captured"):
+      step = make_ppo_train_step(pool, net, cfg, tx, mesh=mesh, model_axis=model_axis)
+      run = step.eager if mode == "eager" else step
+      state, secs = state0, []
+      # the captured run's second iteration, timed alone, replays its graphs
+      for it in range(1 if mode == "eager" else 2):
+        sync(torch, SHARD_DEVICE)
+        t0 = time.perf_counter()
+        state, metrics = run(state)
+        sync(torch, SHARD_DEVICE)
+        secs.append(time.perf_counter() - t0)
+        if it == 0:
+          ends[mode] = (state, {k: float(v) for k, v in metrics.items()})
+      res[f"ppo_{mode}_sps"] = 1024 * SHARD_CAPTURE_STEPS / secs[-1]
+      res[f"ppo_{mode}_iter_ms"] = [1e3 * x for x in secs]
+    ppo_state_equal(torch, ends["captured"][0], ends["eager"][0],
+                    f"sharded trainer on {name}")
+    if ends["captured"][1] != ends["eager"][1]:
+      raise AssertionError(f"sharded trainer on {name}: metrics {ends['captured'][1]} "
+                           f"against {ends['eager'][1]}")
+    res.update(ppo_update_nodes=step._update.nodes, ppo_rollout_nodes=step._scan.nodes,
+               metrics=ends["captured"][1])
+    kept[name] = ends["captured"]
+    log(f"sharding on {name}: PPO (1024 envs, {SHARD_CAPTURE_STEPS} steps, one "
+        f"iteration) captured against eager, parameters, Adam "
+        f"state, key, handle and metrics bit for bit, {res['ppo_eager_sps']:.1f} -> "
+        f"{res['ppo_captured_sps']:.1f} env-steps/s per iteration; metrics "
+        f"{res['metrics']} [{card}]")
+    del pool, step, state, state0, ends
+    torch.cuda.empty_cache()
+  # on one card every mesh runs the unsharded iteration: the model axis's
+  # ends equal the env mesh's bit for bit
+  env_mesh = f"{SHARDS} shards of cuda:0"
+  (got, got_m), (want, want_m) = kept[name], kept[env_mesh]
+  bit_equal(torch, (got.params, got.opt_state["mu"], got.opt_state["nu"], got.key),
+            (want.params, want.opt_state["mu"], want.opt_state["nu"], want.key),
+            f"sharded trainer on {name} against {env_mesh}")
+  if got_m != want_m:
+    raise AssertionError(f"sharded trainer on {name}: metrics {got_m} against {want_m}")
+  log(f"sharding: on {name} the captured iteration's parameters, Adam state, "
+      f"key and metrics equal the {env_mesh} one's bit for bit [{card}]")
   return out
 
 
@@ -2323,8 +2552,14 @@ def checkpoint_and_trace(torch, envpool_torch, pool, scratch, card) -> dict:
 HOST_ENVS = 256
 HOST_STEPS = 48
 HOST_ASYNC_BATCH = 64
-HOST_OVERLAP_STEPS = 24  # the xla() loop with the actions on the host
+# the xla() loop with the actions on the host (24 steps until the captured
+# checks came) and the captured scan
+HOST_OVERLAP_STEPS = 12
 HOST_ACTIONS = 4  # the scripted emulator's minimal action set
+GIL_QUEUE_MS = 50  # device work queued ahead of a host function
+GIL_REPLAYS = 4096  # replays of a graph with a host node, past the launch queue
+HOST_PPO_ENVS, HOST_PPO_STEPS = 32, 4  # PPO over the host pool, captured vs eager
+HOST_CHILD_TIMEOUT = 420  # phase 16's child (~100 s on an H100 host)
 
 
 class ScriptedALE:
@@ -2405,32 +2640,90 @@ def host_async_rate(pool, rounds, draw) -> float:
   return rounds * pool.config["batch_size"] / (time.perf_counter() - t0)
 
 
-def host_xla_loop(torch, pool, acts, wait: bool):
-  """``pool.reset()`` through the host API, then one ``xla()`` step per
-  action (card tensors or numpy). With ``wait`` (card actions, whose read
-  waits for the previous step's copy in stream order) that wait is made
-  before each step and timed: the part of the copy the host does not hide.
-  Returns (card outputs per step, steps s, per-step host ms, the copies'
-  (start, end, bytes), the waits in ms, how many copies had landed when
-  the next step returned)."""
+def host_xla_loop(torch, pool, acts):
+  """``pool.reset()`` through the host API, then one eager ``xla()`` step per
+  action (card tensors or numpy): each send returns before its host step
+  runs (a host function on the stream), and the device is synchronised at
+  the end. Returns (card outputs per step, loop s, per-step ms for a send
+  to return, the copies' (start, end, bytes), per-step ms of the host step
+  itself, timed where the host function runs it)."""
   pool.reset()
   handle, _, _, step = pool.xla()
-  outs, step_ms, events, waits, landed = [], [], [], [], 0
-  t0 = time.perf_counter()
-  for act in acts:
-    if events and wait:
-      tw = time.perf_counter()
-      events[-1][1].synchronize()
-      waits.append(1e3 * (time.perf_counter() - tw))
-    ts = time.perf_counter()
-    handle, out = step(handle, act)
-    step_ms.append(1e3 * (time.perf_counter() - ts))
-    if events and events[-1][1].query():
-      landed += 1
-    events.append(pool.last_copy)
-    outs.append(out)
+  inner, host_step_ms = pool._host_step, []
+
+  def timed(action, ids):
+    t0 = time.perf_counter()
+    cols = inner(action, ids)
+    host_step_ms.append(1e3 * (time.perf_counter() - t0))
+    return cols
+
+  pool._host_step = timed
+  outs, send_ms, events = [], [], []
+  try:
+    t0 = time.perf_counter()
+    for act in acts:
+      ts = time.perf_counter()
+      handle, out = step(handle, act)
+      send_ms.append(1e3 * (time.perf_counter() - ts))
+      events.append(pool.last_copy)
+      outs.append(out)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+  finally:
+    del pool._host_step
+  return outs, secs, send_ms, events, host_step_ms
+
+
+def host_scan(torch, pool, acts):
+  """``graph.CapturedScan`` over the ``xla()`` step (``acts`` on the card,
+  row ``t`` taken through a device counter): ``pool.reset()``, then one
+  call that captures (its warm-up queues no host step) and replays
+  ``len(acts)`` steps, under ``set_sync_debug_mode("warn")``: its one
+  synchronizing call is the wait after the replays, before the host
+  steps' errors are raised (a graph with host nodes makes it), and the
+  capture and replays make none. Returns (outputs ``[T, ...]`` per field,
+  s of the call, the scan)."""
+  import warnings
+
+  from envpool_torch.core import graph
+
+  pool.reset()
+  handle, recv, send, _ = pool.xla()
+
+  def body(carry):
+    h, t = carry
+    h = send(h, acts.index_select(0, t)[0])
+    return (h, t + 1), recv(h)[1]
+
+  sc = graph.CapturedScan(body, len(acts))
+  t = torch.zeros(1, dtype=torch.int64, device="cuda")
   torch.cuda.synchronize()
-  return outs, time.perf_counter() - t0, step_ms, events, waits, landed
+  # only the sync warnings, each recorded: an "always" filter for every
+  # warning would slow the host step's threads (catching is process-wide)
+  with warnings.catch_warnings(record=True) as caught:
+    warnings.filterwarnings("always", message="called a synchronizing CUDA operation")
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+      t0 = time.perf_counter()
+      (final, _), outs = sc((handle, t))
+    finally:
+      torch.cuda.set_sync_debug_mode(0)
+  torch.cuda.synchronize()
+  secs = time.perf_counter() - t0
+  syncs = [str(w.message) for w in caught
+           if "called a synchronizing CUDA operation" in str(w.message)]
+  if len(syncs) != 1:
+    raise AssertionError(f"captured host scan: {len(syncs)} synchronizing calls "
+                         f"(the wait after the replays is the one expected): {syncs}")
+  if int(final[0]) != len(acts):
+    raise AssertionError(f"captured host scan: {int(final[0])} sends counted")
+  return outs, secs, sc
+
+
+def same_scan_as_host(torch, outs, want, keys, tag) -> None:
+  """A captured scan's ``[T, ...]`` outputs equal the host API's, bit for
+  bit."""
+  same_as_host(torch, [[o[t] for o in outs] for t in range(len(want))], want, keys, tag)
 
 
 def same_as_host(torch, outs, want, keys, tag) -> None:
@@ -2522,6 +2815,181 @@ def host_registry(torch, envpool_torch, card) -> dict:
           "made": made}
 
 
+def gil_checks(torch, card) -> dict:
+  """A host function takes the GIL on CUDA's callback thread, so a call that
+  waits for the stream while it holds the GIL never returns once a host
+  function is queued before it. Each call below waits behind one (queued
+  behind GIL_QUEUE_MS of device work, so it is still pending when the call
+  starts) and must return, the host function having run; a call that kept
+  the GIL would hang, and the child's timeout fails the script. Then
+  GIL_REPLAYS replays of a graph holding a host node, more than the
+  launch queue holds, so that ``replay`` itself blocks. Returns ms per
+  call."""
+  from envpool_torch.core import graph
+
+  dev = torch.device("cuda", 0)
+  ran = []
+  callback = graph.HOST_FN(lambda data: ran.append(data))
+  x = torch.zeros(1, device=dev)
+  stream = torch.cuda.current_stream(dev)
+  ev = torch.cuda.Event()
+  calls = {
+    "Tensor.item": lambda: x.item(),
+    "Tensor.cpu": lambda: x.cpu(),
+    "Event.synchronize": lambda: (ev.record(stream), ev.synchronize()),
+    "Stream.synchronize": lambda: stream.synchronize(),
+    "torch.cuda.synchronize": lambda: torch.cuda.synchronize(dev),
+  }
+  res = {}
+  for i, (name, call) in enumerate(calls.items()):
+    log(f"GIL check: {name} behind a queued host function")
+    queue_ahead(torch, GIL_QUEUE_MS)
+    graph.launch_host_func(callback, i + 1, dev)
+    x.add_(1)
+    t0 = time.perf_counter()
+    call()
+    res[name] = 1e3 * (time.perf_counter() - t0)
+    if ran[-1:] != [i + 1]:
+      raise AssertionError(f"GIL check {name}: returned before its host function ran")
+  g = torch.cuda.CUDAGraph()
+  side = torch.cuda.Stream(dev)
+  side.wait_stream(stream)
+  with torch.cuda.stream(side):
+    x.add_(1)
+  stream.wait_stream(side)
+  with torch.cuda.graph(g, stream=side):
+    x.add_(1)
+    graph.launch_host_func(callback, 0, dev)
+  ran.clear()
+  log(f"GIL check: {GIL_REPLAYS} replays of a graph with a host node")
+  t0 = time.perf_counter()
+  for _ in range(GIL_REPLAYS):
+    g.replay()
+  res["CUDAGraph.replay"] = 1e3 * (time.perf_counter() - t0) / GIL_REPLAYS
+  torch.cuda.synchronize()
+  if len(ran) != GIL_REPLAYS:
+    raise AssertionError(f"GIL check: {len(ran)} of {GIL_REPLAYS} host nodes ran")
+  del g
+  log("GIL checks: each call returned with its host function run (it waits "
+      "without the GIL): " + ", ".join(f"{k} {v:.2f} ms" for k, v in res.items()) +
+      f" (replay: per replay, {GIL_REPLAYS} back to back) [{card}]")
+  return res
+
+
+def host_api_waits(torch, atari, acts, want, keys) -> dict:
+  """An eager ``xla()`` send returns before its host step runs; a host-API
+  call right after it must wait for that step (it synchronises the device
+  first) and see the pool it left: a send queued behind GIL_QUEUE_MS of
+  device work, then ``step`` through the host API, whose output must be
+  the step loop's next one."""
+  pool = scripted_atari_pool(atari, "cuda")
+  pool.reset()
+  handle, _, _, step = pool.xla()
+  queue_ahead(torch, GIL_QUEUE_MS)
+  handle, out = step(handle, torch.from_numpy(acts[0]).to("cuda"))
+  pending = not pool.last_copy[1].query()
+  obs, rew, term, trunc, info = pool.step(acts[1])
+  same_as_host(torch, [out], want[1:2], keys, "the send before the host-API call")
+  if not np.array_equal(obs, want[2][keys.index("obs")]) or not np.array_equal(
+      rew, want[2][keys.index("reward")]):
+    raise AssertionError("a host-API step after an eager send ran before it")
+  return {"send_pending_at_host_call": pending}
+
+
+def host_ppo(torch, envpool_torch, atari, card) -> dict:
+  """One PPO iteration over the scripted Atari stack (HOST_PPO_ENVS envs,
+  the full-width ``AtariCNN``, ``PPOConfig(num_steps=HOST_PPO_STEPS)``):
+  captured (the rollout's host steps as host nodes, the update) on one pool
+  against the same iteration run eagerly on a twin pool of the same seed,
+  from one state: parameters, Adam state, key, handle and metrics bit for
+  bit."""
+  from envpool_torch.models import AtariCNN
+  from envpool_torch.train import PPOConfig, make_ppo_train_step, ppo_init
+
+  cfg = PPOConfig(num_steps=HOST_PPO_STEPS)
+  net = AtariCNN(num_actions=HOST_ACTIONS)
+  ends, res = {}, {}
+  state0 = tx = None
+  for mode in ("eager", "captured"):
+    pool = scripted_atari_pool(atari, "cuda", num_envs=HOST_PPO_ENVS)
+    if state0 is None:
+      state0, tx = ppo_init(pool, net, cfg, seed=SEED)
+    step = make_ppo_train_step(pool, net, cfg, tx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = (step.eager if mode == "eager" else step)(state0)
+    torch.cuda.synchronize()
+    res[f"{mode}_s"] = time.perf_counter() - t0
+    ends[mode] = (state, {k: float(v) for k, v in metrics.items()})
+    if mode == "captured":
+      res.update(rollout_nodes=step._scan.nodes, rollout_host_nodes=step._scan.host_nodes,
+                 update_nodes=step._update.nodes)
+    del pool, step
+  ppo_state_equal(torch, ends["captured"][0], ends["eager"][0], "PPO over the host pool")
+  if ends["captured"][1] != ends["eager"][1]:
+    raise AssertionError(f"PPO over the host pool: metrics {ends['captured'][1]} "
+                         f"against {ends['eager'][1]}")
+  if not all(np.isfinite(v) for v in ends["captured"][1].values()):
+    raise AssertionError(f"PPO over the host pool: {ends['captured'][1]}")
+  res["metrics"] = ends["captured"][1]
+  log(f"PPO over the scripted Atari stack ({HOST_PPO_ENVS} envs, AtariCNN, "
+      f"{HOST_PPO_STEPS} steps): one iteration captured (rollout graph "
+      f"{res['rollout_nodes']} nodes, {res['rollout_host_nodes']} of them host "
+      f"nodes; update graph {res['update_nodes']} nodes, capture included "
+      f"{res['captured_s']:.2f} s) equal to the eager iteration "
+      f"({res['eager_s']:.2f} s) bit for bit [{card}]")
+  return res
+
+
+def host_scan_error(torch, atari, card) -> dict:
+  """A captured scan over the ``xla()`` step whose host step fails: the
+  call raises after its replays (the graph waits for its stream and
+  raises the host function's error), the host steps queued behind the
+  failed one do not step the pool, and once raised the graph replays
+  again."""
+  from envpool_torch.core import graph
+
+  steps = 4
+  pool = scripted_atari_pool(atari, "cuda", num_envs=8)
+  pool.reset()
+  handle, recv, send, _ = pool.xla()
+  acts = torch.zeros(8, dtype=torch.int32, device="cuda")
+
+  def body(h):
+    h = send(h, acts)
+    return h, recv(h)[1][0]
+
+  sc = graph.CapturedScan(body, steps)
+  sc(handle)
+  calls = []
+
+  def fail(action, ids):
+    calls.append(len(calls))
+    raise ValueError("a scripted host step failure")
+
+  pool._host_step = fail
+  try:
+    sc(handle)
+  except RuntimeError as e:
+    if not isinstance(e.__cause__, ValueError):
+      raise AssertionError(f"captured host scan raised {e!r} from {e.__cause__!r}")
+  else:
+    raise AssertionError("a captured scan whose host step failed did not raise")
+  finally:
+    del pool._host_step
+  if len(calls) != 1:
+    raise AssertionError(f"the pool was stepped {len(calls)} times in the failed replays")
+  (final, ys) = sc(handle)
+  torch.cuda.synchronize()
+  if not bool(torch.isfinite(ys.float()).all()):
+    raise AssertionError("captured host scan after the failure: non-finite obs")
+  log(f"host tier: a captured scan ({steps} steps, {sc.host_nodes} host node) "
+      f"whose host step failed raised after its replays, the {steps - 1} host "
+      f"steps queued behind it did not step the pool, and the graph replayed "
+      f"again once raised [{card}]")
+  return {"steps": steps, "failed_calls": len(calls), "raised": True}
+
+
 def host_tier(torch, envpool_torch, card) -> dict:
   """Phase 16: the host tier's bridge to the card over the Atari stack."""
   from envpool_torch.envs import atari
@@ -2530,6 +2998,7 @@ def host_tier(torch, envpool_torch, card) -> dict:
   make_ale = atari_env._make_ale
   atari_env._make_ale = lambda task, seed, rap: ScriptedALE()
   try:
+    gil = gil_checks(torch, card)
     rng = np.random.default_rng(SEED + 60)
     acts = rng.integers(0, HOST_ACTIONS, (HOST_STEPS, HOST_ENVS)).astype(np.int32)
     # 1. sync: reset + HOST_STEPS steps through step, the twin of loop 3
@@ -2544,70 +3013,120 @@ def host_tier(torch, envpool_torch, card) -> dict:
       pool, HOST_STEPS,
       lambda n: rng.integers(0, HOST_ACTIONS, n).astype(np.int32))
     del pool
-    # 3. the xla() loop on cuda:0 with the actions on the card
+    # 3. the eager xla() loop on cuda:0 with the actions on the card, its
+    # sends under set_sync_debug_mode("error")
+    card_acts = torch.from_numpy(acts).to("cuda")
     pool = scripted_atari_pool(atari, "cuda")
-    outs, xla_s, step_ms, events, waits, _ = host_xla_loop(
-      torch, pool, torch.from_numpy(acts).to("cuda"), wait=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+      outs, xla_s, send_ms, events, host_step_ms = host_xla_loop(torch, pool, card_acts)
+    finally:
+      torch.cuda.set_sync_debug_mode(0)
     n_bytes = events[-1][2]
     copy_ms = [s.elapsed_time(e) for s, e, _ in events]
     same_as_host(torch, outs, want[1:], keys, "xla() with card actions")
-    del outs
-    bridge_ms = np.mean([host_ms(torch, lambda: pool._to_device(want[-1]))
-                         for _ in range(20)])
-    del pool
-    # 4. the xla() loop with the actions on the host: the copy can overlap
-    # the next step's host work
+    del outs, pool
+    # 4. the xla() loop with the actions on the host (copied to the card
+    # first, which waits for the stream)
     pool = scripted_atari_pool(atari, "cuda")
-    outs, xla_host_s, step_ms_h, events_h, _, landed = host_xla_loop(
-      torch, pool, acts[:HOST_OVERLAP_STEPS], wait=False)
+    outs, xla_host_s, send_ms_h, events_h, _ = host_xla_loop(
+      torch, pool, acts[:HOST_OVERLAP_STEPS])
     copy_ms_h = [s.elapsed_time(e) for s, e, _ in events_h]
     same_as_host(torch, outs, want[1:], keys, "xla() with host actions")
     del outs, pool
+    # 5. graph.scan over the xla() step: captured, host nodes replayed
+    pool = scripted_atari_pool(atari, "cuda")
+    outs, scan_s, sc = host_scan(torch, pool, card_acts[:HOST_OVERLAP_STEPS])
+    same_scan_as_host(torch, outs, want[1:HOST_OVERLAP_STEPS + 1], keys,
+                      "captured xla() scan")
+    scan = {"steps": HOST_OVERLAP_STEPS, "sps": HOST_OVERLAP_STEPS * HOST_ENVS / scan_s,
+            "capture_s": sc.capture_s,
+            "instantiate_s": sc.instantiate_s, "nodes": sc.nodes,
+            "host_nodes": sc.host_nodes}
+    del outs, pool, sc
+    scan_error = host_scan_error(torch, atari, card)
+    waits = host_api_waits(torch, atari, acts, want, keys)
+    ppo = host_ppo(torch, envpool_torch, atari, card)
     registry = host_registry(torch, envpool_torch, card)
   finally:
     atari_env._make_ale = make_ale
     atari_env._action_set_size.cache_clear()
   steps = HOST_STEPS * HOST_ENVS
+  step_ms = 1e3 * xla_s / HOST_STEPS
   res = {
-    "envs": HOST_ENVS, "steps": HOST_STEPS, "threads": os.cpu_count(),
+    "envs": HOST_ENVS, "steps": HOST_STEPS, "threads": os.cpu_count(), "gil": gil,
     "sync_sps": steps / sync_s, "sync_host_ms_per_step": 1e3 * sync_s / HOST_STEPS,
     "reset_s": reset_s, "async_sps": async_sps,
-    "xla_sps": steps / xla_s, "xla_host_ms_per_step": float(np.mean(step_ms)),
+    "xla_sps": steps / xla_s, "xla_ms_per_step": step_ms,
+    "send_ms_mean": float(np.mean(send_ms)),
+    "host_step_ms_mean": float(np.mean(host_step_ms)),
+    "stream_ms_per_step_beyond_host_step": step_ms - float(np.mean(host_step_ms)),
     "bytes_per_step": n_bytes,
     "copy_ms_mean": float(np.mean(copy_ms)), "copy_ms_max": float(np.max(copy_ms)),
     "copy_gbps": n_bytes / np.mean(copy_ms) / 1e6,
-    "bridge_ms": float(bridge_ms),
-    "exposed_wait_ms_mean": float(np.mean(waits)),
     "xla_host_actions_sps": HOST_OVERLAP_STEPS * HOST_ENVS / xla_host_s,
-    "xla_host_actions_host_ms_per_step": float(np.mean(step_ms_h)),
+    "xla_host_actions_send_ms": float(np.mean(send_ms_h)),
     "copy_ms_mean_host_actions": float(np.mean(copy_ms_h)),
-    "copies_landed_before_next_step_returned": landed,
+    "captured": scan, "captured_host_step_error": scan_error,
+    "host_api_after_send": waits, "ppo": ppo,
     **stack, "registry": registry,
   }
   log(f"host tier (Atari stack over a scripted emulator, {HOST_ENVS} envs, "
       f"{os.cpu_count()} threads): step {res['sync_sps']:.1f} env-steps/s "
       f"({res['sync_host_ms_per_step']:.2f} host ms per step, reset "
       f"{reset_s:.2f} s); async batch {HOST_ASYNC_BATCH} {async_sps:.1f} "
-      f"env-steps/s; xla() on cuda:0 {res['xla_sps']:.1f} env-steps/s "
-      f"({res['xla_host_ms_per_step']:.2f} host ms per step) [{card}]")
+      f"env-steps/s; xla() on cuda:0 eager {res['xla_sps']:.1f} env-steps/s "
+      f"({step_ms:.2f} ms per step, a send returns in {res['send_ms_mean']:.3f} ms, "
+      f"the host step {res['host_step_ms_mean']:.2f} ms); captured by graph.scan "
+      f"{scan['sps']:.1f} env-steps/s ({scan['nodes']} nodes, {scan['host_nodes']} "
+      f"host nodes; capture {scan['capture_s']:.3f} s) [{card}]")
   log(f"host-to-card copy per step: {n_bytes} B (obs {HOST_ENVS * 4 * 84 * 84} B), "
       f"{res['copy_ms_mean']:.4f} ms mean / {res['copy_ms_max']:.4f} max by CUDA "
-      f"events ({res['copy_gbps']:.2f} GB/s); the bridge (staging into "
-      f"page-locked memory, the copies, a synchronise) {bridge_ms:.3f} ms, "
-      f"{100 * bridge_ms / res['xla_host_ms_per_step']:.2f}% of an xla() step; "
-      f"with the actions on the card the "
-      f"next step's action read waits {res['exposed_wait_ms_mean']:.4f} ms for "
-      f"it; with host actions {res['xla_host_actions_sps']:.1f} env-steps/s "
-      f"({res['xla_host_actions_host_ms_per_step']:.2f} host ms per step), copy "
-      f"{res['copy_ms_mean_host_actions']:.4f} ms, {landed} of "
-      f"{HOST_OVERLAP_STEPS - 1} copies landed while the next step ran over "
-      f"{HOST_OVERLAP_STEPS} steps [{card}]")
-  log(f"host tier checks: every output of both xla() loops ({HOST_STEPS} and "
-      f"{HOST_OVERLAP_STEPS} steps) equal to the host API's, every field bit "
-      f"for bit, on cuda:0; "
+      f"events ({res['copy_gbps']:.2f} GB/s); a step takes "
+      f"{res['stream_ms_per_step_beyond_host_step']:.3f} ms of stream time past "
+      f"its host step (the copies in and out and the launch gaps, which the "
+      f"next host step now waits for in stream order); with host actions "
+      f"{res['xla_host_actions_sps']:.1f} env-steps/s, a send returns in "
+      f"{res['xla_host_actions_send_ms']:.2f} ms [{card}]")
+  log(f"host tier checks: every output of both eager xla() loops ({HOST_STEPS} "
+      f"and {HOST_OVERLAP_STEPS} steps) and of the captured scan "
+      f"({HOST_OVERLAP_STEPS} steps) equal to the "
+      f"host API's, every field bit for bit, on cuda:0; eager sends under "
+      f"set_sync_debug_mode('error'); a host-API step after a pending send "
+      f"(pending: {waits['send_pending_at_host_call']}) waited for it; "
       f"{stack['games_ended']} games ended, every lane lost a life and ended "
       f"a game, the override rules held")
   return res
+
+
+def host_tier_child(path: str) -> int:
+  """Phase 16 in a process of its own, under the parent's timeout: a host
+  function that never runs (a GIL deadlock) fails the script instead of
+  hanging it; the results written to ``path`` (JSON)."""
+  import torch
+
+  if not torch.cuda.is_available():
+    raise RuntimeError("phase 16 needs a CUDA device")
+  sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+  import envpool_torch
+
+  res = host_tier(torch, envpool_torch, card_line())
+  with open(path, "w") as f:
+    json.dump(res, f)
+  return 0
+
+
+def run_host_tier(card, scratch: str) -> dict:
+  """Phase 16's child process, stopped at HOST_CHILD_TIMEOUT s."""
+  path = os.path.join(scratch, "host_tier.json")
+  if os.path.exists(path):
+    os.remove(path)
+  proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--host-tier", path],
+                        timeout=HOST_CHILD_TIMEOUT)
+  if proc.returncode != 0:
+    raise AssertionError(f"phase 16's child exited {proc.returncode}")
+  with open(path) as f:
+    return json.load(f)
 
 
 # --------------------------------------------------------------- phase 17
@@ -2618,8 +3137,8 @@ def host_tier(torch, envpool_torch, card) -> dict:
 # imports envpool_torch, so the registry lists their ids and the pools come
 # from make_gymnasium as a user's would. 256 envs on as many threads as the
 # host has cores. procgen: BigfishHard-v0 (64x64x3, channel-first), reset +
-# 200 steps through step, an async pool (batch 64) for 200 rounds, the
-# xla() loop on cuda:0 for 200 steps. ViZDoom at the JAX package's
+# PROCGEN_STEPS steps through step, an async pool (batch 64) for as many
+# rounds, the xla() loop on cuda:0 for as many steps. ViZDoom at the JAX package's
 # defaults (84x84, stack 4, frame_skip 4; 3-channel 160x120 screens), both
 # action modes, the same loops cut in depth to VIZDOOM_STEPS, which end
 # every episode twice (at steps 15 and 31): an env-step costs the port's
@@ -2627,8 +3146,9 @@ def host_tier(torch, envpool_torch, card) -> dict:
 # about 5 times a procgen env-step on the host
 WHEEL_ENVS = 256
 WHEEL_ASYNC_BATCH = 64
+WHEEL_SCAN_STEPS = 25  # procgen's steps through graph.CapturedScan
 PROCGEN_ID = "BigfishHard-v0"
-PROCGEN_STEPS = 200
+PROCGEN_STEPS = 100  # an episode every 9 acts (200 until the captured checks came)
 VIZDOOM_ID = "VizdoomCustom-v1"
 VIZDOOM_STEPS = 32
 DOOM_BUTTONS = ("MOVE_FORWARD", "TURN_LEFT", "TURN_RIGHT", "ATTACK")
@@ -2642,7 +3162,14 @@ EXAMPLES = (
   ("ppo_sokoban", ("--iterations", "2"), 2),
   ("ppo_mujoco", ("--iterations", "2"), 2),
   ("xla_step", (), 1),
+  ("cleanrl_ppo", ("--iterations", "1", "--num-steps", "32"), 1),
+  ("sb3_example", (), 1),
+  ("tianshou_example", (), 1),
+  ("acme_example", (), 4),
 )
+# an example that needs a module the card's machine may lack (the port's dm
+# dialect imports dm_env); without it the example is not run, and says so
+EXAMPLE_NEEDS = {"acme_example": "dm_env"}
 
 
 class ScriptedProcgenGame:
@@ -2790,13 +3317,16 @@ def check_host_episodes(outs, keys, tag) -> int:
   return int(after.sum())
 
 
-def wheel_cell(torch, envpool_torch, task_id, card_acts, draw, tag, card, **kw):
+def wheel_cell(torch, envpool_torch, task_id, card_acts, draw, tag, card,
+               captured=False, **kw):
   """One host family over its scripted wheel at ``WHEEL_ENVS`` envs: reset
   + a step per row of ``card_acts`` (read back to the host) through
   ``step``; an async pool (batch ``WHEEL_ASYNC_BATCH``) for as many rounds,
-  its actions from ``draw``; the ``xla()`` loop on cuda:0 with the actions
-  on the card, every output bit for bit against the ``step`` loop's. The
-  actions reach the workers in the spec's dtype and shape on both paths."""
+  its actions from ``draw``; the eager ``xla()`` loop on cuda:0 with the
+  actions on the card and, with ``captured``, ``graph.CapturedScan`` over
+  the same step (host nodes), every output bit for bit against the
+  ``step`` loop's. The actions reach the workers in the spec's dtype and
+  shape on every path."""
 
   def make(**extra):
     return envpool_torch.make_gymnasium(
@@ -2818,17 +3348,29 @@ def wheel_cell(torch, envpool_torch, task_id, card_acts, draw, tag, card, **kw):
   del pool
   pool = make()
   seen_xla = spy_sends(pool)
-  outs, xla_s, step_ms, events, waits, _ = host_xla_loop(
-    torch, pool, card_acts, wait=True)
+  outs, xla_s, send_ms, events, host_step_ms = host_xla_loop(torch, pool, card_acts)
   same_as_host(torch, outs, want[1:], keys, f"{tag} xla()")
-  if seen != [want_act] * steps or seen_xla != [want_act] * steps:
-    raise AssertionError(f"{tag}: actions reached the workers as "
-                         f"{set(seen)} / {set(seen_xla)}, not {want_act}")
+  seen_scan, scan = [want_act] * WHEEL_SCAN_STEPS, None
+  if captured:
+    pool = make()
+    seen_scan = spy_sends(pool)
+    souts, scan_s, sc = host_scan(torch, pool, card_acts[:WHEEL_SCAN_STEPS])
+    same_scan_as_host(torch, souts, want[1:WHEEL_SCAN_STEPS + 1], keys,
+                      f"{tag} captured xla() scan")
+    scan = {"steps": WHEEL_SCAN_STEPS, "sps": WHEEL_SCAN_STEPS * WHEEL_ENVS / scan_s,
+            "capture_s": sc.capture_s,
+            "nodes": sc.nodes, "host_nodes": sc.host_nodes}
+    del souts, sc
+  if seen != [want_act] * steps or seen_xla != [want_act] * steps or (
+      seen_scan != [want_act] * WHEEL_SCAN_STEPS):
+    raise AssertionError(f"{tag}: actions reached the workers as {set(seen)} / "
+                         f"{set(seen_xla)} / {set(seen_scan)}, not {want_act}")
   out_dtypes = {k: str(o.dtype) for k, o in zip(keys, outs[0])}
   del outs, pool
   n_bytes = events[-1][2]
   copy_ms = [s.elapsed_time(e) for s, e, _ in events]
   obs_bytes = int(np.prod(want[0][keys.index("obs")].shape))
+  step_ms = 1e3 * xla_s / steps
   res = {
     "task_id": task_id, **{k: str(v) for k, v in kw.items()},
     "envs": WHEEL_ENVS, "steps": steps, "threads": os.cpu_count(),
@@ -2836,24 +3378,31 @@ def wheel_cell(torch, envpool_torch, task_id, card_acts, draw, tag, card, **kw):
     "sync_sps": steps * WHEEL_ENVS / sync_s,
     "sync_host_ms_per_step": 1e3 * sync_s / steps, "reset_s": reset_s,
     "async_sps": async_sps, "xla_sps": steps * WHEEL_ENVS / xla_s,
-    "xla_host_ms_per_step": float(np.mean(step_ms)),
+    "xla_ms_per_step": step_ms, "send_ms_mean": float(np.mean(send_ms)),
+    "host_step_ms_mean": float(np.mean(host_step_ms)),
+    "stream_ms_per_step_beyond_host_step": step_ms - float(np.mean(host_step_ms)),
     "bytes_per_step": n_bytes, "obs_bytes_per_step": obs_bytes,
     "copy_ms_mean": float(np.mean(copy_ms)), "copy_ms_max": float(np.max(copy_ms)),
     "copy_gbps": n_bytes / np.mean(copy_ms) / 1e6,
-    "exposed_wait_ms_mean": float(np.mean(waits)), "out_dtypes": out_dtypes,
+    "out_dtypes": out_dtypes, "captured": scan,
   }
+  scan_text = "" if scan is None else (
+    f"; captured by graph.scan {scan['sps']:.1f} env-steps/s ({scan['nodes']} "
+    f"nodes, {scan['host_nodes']} host nodes), bit for bit")
   log(f"{tag} ({WHEEL_ENVS} envs, {os.cpu_count()} threads, {steps} steps, "
       f"actions {res['action']}): step {res['sync_sps']:.1f} env-steps/s "
       f"({res['sync_host_ms_per_step']:.2f} host ms per step, reset "
       f"{reset_s:.3f} s); async batch {WHEEL_ASYNC_BATCH} {async_sps:.1f} "
       f"env-steps/s; xla() on cuda:0 {res['xla_sps']:.1f} env-steps/s "
-      f"({res['xla_host_ms_per_step']:.2f} host ms per step) [{card}]")
+      f"({step_ms:.2f} ms per step, the host step {res['host_step_ms_mean']:.2f} "
+      f"ms){scan_text} [{card}]")
   log(f"{tag} host-to-card copy per step: {n_bytes} B (obs {obs_bytes} B), "
       f"{res['copy_ms_mean']:.4f} ms mean / {res['copy_ms_max']:.4f} max by "
-      f"CUDA events ({res['copy_gbps']:.2f} GB/s); the next step's action "
-      f"read waits {res['exposed_wait_ms_mean']:.4f} ms for it; every xla() "
-      f"output on cuda:0 equal to the host API's, bit for bit; {episodes} "
-      f"episodes ended, the override rules held [{card}]")
+      f"CUDA events ({res['copy_gbps']:.2f} GB/s); "
+      f"{res['stream_ms_per_step_beyond_host_step']:.3f} ms of stream time per "
+      f"step past the host step; every xla() output on cuda:0 equal to the "
+      f"host API's, bit for bit; {episodes} episodes ended, the override "
+      f"rules held [{card}]")
   return res
 
 
@@ -2886,7 +3435,8 @@ def wheel_families(path: str) -> int:
     torch, envpool_torch, PROCGEN_ID,
     torch.randint(0, 15, (PROCGEN_STEPS, WHEEL_ENVS), device="cuda",
                   generator=gen, dtype=torch.int32),
-    lambda n: rng.integers(0, 15, n).astype(np.int32), "procgen " + PROCGEN_ID, card)
+    lambda n: rng.integers(0, 15, n).astype(np.int32), "procgen " + PROCGEN_ID, card,
+    captured=True)
   buttons = len(DOOM_BUTTONS)
   res["vizdoom_buttons"] = wheel_cell(
     torch, envpool_torch, VIZDOOM_ID,
@@ -2913,16 +3463,22 @@ def run_examples(card, scratch: str) -> dict:
   once (each one's seconds are its process's wall time beside the others;
   its output goes to files under ``scratch``): exit 0, the expected lines,
   every number in them finite."""
+  import importlib.util
   import re
 
   root = os.path.dirname(os.path.abspath(__file__))
+  missing = {name: mod for name, mod in EXAMPLE_NEEDS.items()
+             if importlib.util.find_spec(mod) is None}
+  for name, mod in missing.items():
+    log(f"example {name} not run: {mod} is not installed on this machine [{card}]")
+  examples = [e for e in EXAMPLES if e[0] not in missing]
   number = re.compile(r"[-+]?(?:nan|inf|\d[\d,]*\.?\d*(?:e[-+]?\d+)?)")
   files = {name: [os.path.join(scratch, f"example_{name}.{s}") for s in ("out", "err")]
-           for name, _, _ in EXAMPLES}
+           for name, _, _ in examples}
   t0 = time.perf_counter()
   procs = {}
   try:
-    for name, args, _ in EXAMPLES:
+    for name, args, _ in examples:
       with open(files[name][0], "w") as out, open(files[name][1], "w") as err:
         procs[name] = subprocess.Popen(
           [sys.executable, "-m", f"envpool_torch.examples.{name}", *args],
@@ -2941,8 +3497,8 @@ def run_examples(card, scratch: str) -> dict:
       if proc.poll() is None:
         proc.kill()
         proc.wait()
-  res = {}
-  for name, args, n_lines in EXAMPLES:
+  res = {name: {"not_run": f"{mod} is not installed"} for name, mod in missing.items()}
+  for name, args, n_lines in examples:
     returncode, seconds = procs[name].returncode, ended[name]
     with open(files[name][0]) as f:
       lines = f.read().strip().splitlines()
@@ -2984,8 +3540,10 @@ def last_host_families(torch, card, scratch: str) -> dict:
 
 # id -> (envs, steps, make kwargs): the compiled rollout of each device
 # family at its chip_smoke width. CheetahJaxRun-v1 and PusherJax-v4 get a cap
-# of 4 steps so that every lane resets twice inside the captured rollout,
-# through the IF node (Pusher's reset through its WHILE node)
+# of 2 steps so that every lane resets twice inside the captured rollout of
+# 6 steps (a cap of 4 and 10 steps until the host bridge's checks came),
+# through the IF node (Pusher's reset through its WHILE node);
+# BipedalWalkerHardcore-v3 runs 25 steps (50) and HumanoidCMUJaxRun-v1 2 (3)
 CAPTURED = {
   "CartPole-v1": (8192, 200, {}),
   "Sokoban-v0": (SOKOBAN_ENVS, 100, SOKOBAN_KW),
@@ -2993,11 +3551,11 @@ CAPTURED = {
   "Blackjack-v1": (SMALL_ENVS, 50, {}),
   "PongJaxDemo-v5": (PONG_ENVS, 50, {}),
   "LunarLander-v2": (BOX2D_ENVS, 50, {}),
-  "BipedalWalkerHardcore-v3": (BOX2D_ENVS, 50, {}),
+  "BipedalWalkerHardcore-v3": (BOX2D_ENVS, 25, {}),
   "HalfCheetahJax-v4": (4096, 10, {}),
-  "PusherJax-v4": (4096, 10, dict(max_episode_steps=4)),
-  "CheetahJaxRun-v1": (4096, 10, dict(max_episode_steps=4)),
-  "HumanoidCMUJaxRun-v1": (1024, 3, {}),
+  "PusherJax-v4": (4096, 6, dict(max_episode_steps=2)),
+  "CheetahJaxRun-v1": (4096, 6, dict(max_episode_steps=2)),
+  "HumanoidCMUJaxRun-v1": (1024, 2, {}),
 }
 COND_NODES_PER_TIMING = 1024  # set-handle kernels (and skipped IF nodes) timed per replay
 COND_WIDTHS = (1, SOKOBAN_ENVS)
@@ -3761,6 +4319,8 @@ def main(argv) -> int:
     return cpu_reference(argv[1], argv[2])
   if argv[:1] == ["--wheel-families"]:  # phase 17's child
     return wheel_families(argv[1])
+  if argv[:1] == ["--host-tier"]:  # phase 16's child
+    return host_tier_child(argv[1])
   if argv[:1] == ["--graph-cond"]:  # phase 18's kernel child
     return graph_cond_child(argv[1])
 
@@ -3879,8 +4439,10 @@ def main(argv) -> int:
 
   # 8. PPO
   t8 = time.perf_counter()
-  for n, iters in ((1024, 3), (SOKOBAN_ENVS, 2)):
-    ppo_sokoban(torch, envpool_torch, device, n, iters, card)
+  ppo = {n: ppo_sokoban(torch, envpool_torch, device, n, iters, card)
+         for n, iters in ((1024, 3), (SOKOBAN_ENVS, 2))}
+  log(json.dumps({"ppo": {str(n): {k: v for k, v in r.items() if k != "traced"}
+                          for n, r in ppo.items()}}))
   cmp = ppo_card_vs_cpu(torch, envpool_torch, device)
   log(f"PPO card vs cpu port, Sokoban-v0 64 envs 7x7, one iteration in float32 "
       f"(TF32 off): equal actions {cmp['equal_actions']:.6f}, parameters "
@@ -3977,6 +4539,7 @@ def main(argv) -> int:
   shard = {"car_racing": car_racing_sharded(torch, envpool_torch, sampler, card)}
   shard["sokoban"], sharded_pool = sokoban_sharded(torch, envpool_torch, card)
   shard["ppo"] = ppo_sharded(torch, envpool_torch, card)
+  shard["captured"] = sharded_captured(torch, envpool_torch, card)
   shard.update(checkpoint_and_trace(torch, envpool_torch, sharded_pool, scratch, card))
   del sharded_pool
   t_dry = time.perf_counter()
@@ -3989,7 +4552,7 @@ def main(argv) -> int:
   # 16. the host tier: the Atari stack over a scripted emulator through
   # step, an async pool and xla() on cuda:0; the registry without mujoco
   t16 = time.perf_counter()
-  host = host_tier(torch, envpool_torch, card)
+  host = run_host_tier(card, scratch)
   log(f"host tier phase: {time.perf_counter() - t16:.1f} s")
   log(json.dumps({"host_tier": host}))
 

@@ -26,6 +26,16 @@ Here a step is captured once into a ``torch.cuda.CUDAGraph`` and replayed:
   ``[length, ...]`` outputs through a device step counter it advances
   itself; then it replays the graph ``length`` times. On the CPU the same
   body runs eagerly ``length`` times.
+- ``CapturedCall(fn)``, for ``jax.jit(fn)`` of a function run once per
+  call (PPO's update): the same warm-up, capture and signature check, over
+  static copies of its arguments.
+- ``launch_host_func(fn, data, device)``, the device side of
+  ``io_callback(..., ordered=True)``: a stream-ordered host callback
+  eagerly, a host node under capture (``csrc/host_func.cu``), with
+  ``copy_async`` for the page-locked copies around it. The host tier's
+  ``xla()`` runs its host step through it. A host function cannot raise
+  into the stream: it keeps its error, and a graph that holds host nodes
+  waits for its stream after each replay and raises it.
 
 A predicate is a bool tensor and the branch runs where any of its elements
 is set (a one-element tensor is the plain ``lax.cond``): the set-handle
@@ -37,13 +47,16 @@ depth, made by ``cudaStreamCreate`` and never one of PyTorch's pooled
 streams), whose allocations come from a private pool of the graph, never
 from the normal pool; the pools live as long as the graph.
 
-A capture that fails raises; nothing falls back to the eager loop.
+Every graph counts its nodes (``nodes``; conditional bodies and host nodes
+included, ``host_nodes`` apart). A capture that fails raises; nothing falls
+back to the eager loop.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -109,6 +122,65 @@ def _check(err: int, what: str) -> None:
   if err != 0:
     where = _lib().graph_cond_failed().decode()
     raise RuntimeError(f"{what} failed: CUDA error {err} at {where}")
+
+
+# ------------------------------------------------------ host functions
+
+#: the C type of a host function: ``void fn(void* data)``
+HOST_FN = ctypes.CFUNCTYPE(None, ctypes.c_void_p)
+
+
+def _host_lib():
+  from envpool_torch import _build
+
+  lib = _build.load("host_func")
+  if lib.host_func_launch.argtypes is None:
+    vp = ctypes.c_void_p
+    lib.host_func_launch.argtypes = [vp, HOST_FN, vp]
+    lib.host_func_copy.argtypes = [vp, vp, vp, ctypes.c_size_t, ctypes.c_int]
+    for fn in (lib.host_func_launch, lib.host_func_copy):
+      fn.restype = ctypes.c_int
+    lib.host_func_error.argtypes = [ctypes.c_int]
+    lib.host_func_error.restype = ctypes.c_char_p
+  return lib
+
+
+def _host_check(err: int, what: str) -> None:
+  if err != 0:
+    raise RuntimeError(
+      f"{what} failed: CUDA error {err} ({_host_lib().host_func_error(err).decode()})")
+
+
+def launch_host_func(fn: Any, data: int, device: torch.device,
+                     check: Optional[Callable[[], None]] = None) -> None:
+  """Queue ``fn(data)`` on the current stream of ``device``: eagerly a
+  stream-ordered callback on CUDA's callback thread, under capture a host
+  node. ``fn`` is a ``HOST_FN`` that the caller keeps alive while any graph
+  holds it; it may make no CUDA call. ``check()`` raises what ``fn`` kept
+  of its errors: a graph that holds the node calls it after each replay,
+  once its stream has run the replay."""
+  stream = torch.cuda.current_stream(device).cuda_stream
+  _host_check(_host_lib().host_func_launch(stream, fn, data), "cudaLaunchHostFunc")
+  if _active is not None and torch.cuda.is_current_stream_capturing():
+    _active.host_nodes += 1
+    if check is not None and check not in _active.host_checks:
+      _active.host_checks.append(check)
+
+
+def _wait_stream(device: torch.device) -> None:
+  """Wait for the current stream of ``device`` (the wait releases the GIL,
+  which a queued host function takes)."""
+  torch.cuda.current_stream(device).synchronize()
+
+
+def copy_async(dst: int, src: int, nbytes: int, to_device: bool,
+               device: torch.device) -> None:
+  """``nbytes`` from ``src`` to ``dst`` (data pointers) on the current
+  stream of ``device``, host to device or device to host; the host side is
+  page-locked, so the copy is asynchronous and can be captured."""
+  stream = torch.cuda.current_stream(device).cuda_stream
+  _host_check(_host_lib().host_func_copy(stream, dst, src, nbytes, int(to_device)),
+              "cudaMemcpyAsync")
 
 
 def _pred_bytes(pred: torch.Tensor) -> torch.Tensor:
@@ -182,6 +254,8 @@ class _Capture:
     self.body_nodes: List[int] = []
     self.counters = torch.zeros(_MAX_COUNTED_LOOPS, dtype=torch.int32, device=device)
     self.counted_loops = 0
+    self.host_nodes = 0  # host functions captured, bodies included
+    self.host_checks: List[Callable[[], None]] = []  # their error checks
 
   def counter(self) -> torch.Tensor:
     """The next loop's round counter, one int32."""
@@ -226,11 +300,18 @@ def _capture_into(cuda_graph: "torch.cuda.CUDAGraph", stream: "torch.cuda.Stream
   global _active
   cap = _Capture(stream.device)
   _active = cap
+  collecting = gc.isenabled()
   try:
     with torch.cuda.graph(cuda_graph, stream=stream):
+      # the graph's entry collected the garbage; no collection may run
+      # inside the capture: a graph freed there (the trainer's captures
+      # sit in reference cycles) is reset, which invalidates the capture
+      gc.disable()
       yield cap
   finally:
     _active = None
+    if collecting:
+      gc.enable()
 
 
 def _current() -> _Capture:
@@ -397,9 +478,92 @@ def fori_loop(n: int, body_fn: Callable, init: Any) -> Any:
   return carry
 
 
-# --------------------------------------------------------------------- scan
+# ------------------------------------------------------------ captures
 
-class CapturedScan:
+def is_warming() -> bool:
+  """Whether a capture's warm-up is running: its eager call on a side
+  stream, whose results are thrown away. A host function is not queued
+  then (the host tier's step would advance its envs once too often)."""
+  return _warming
+
+
+class _Captured:
+  """What ``CapturedScan`` and ``CapturedCall`` share: one warm-up of the
+  function on a side stream, one capture of it into a graph there, the
+  leaves' signature checked at every later call, the node counts, and the
+  graph and its bodies' pools released together."""
+
+  def __init__(self) -> None:
+    self._graph: Optional[torch.cuda.CUDAGraph] = None
+    self._capture: Optional[_Capture] = None
+    self._signature: List[Tuple[torch.Size, torch.dtype]] = []
+    self._host_checks: List[Callable[[], None]] = []
+    self._device: Optional[torch.device] = None
+    self.capture_s = self.instantiate_s = 0.0
+    self.nodes = self.conditional_nodes = self.host_nodes = 0
+
+  def _check_signature(self, leaves: List[torch.Tensor]) -> None:
+    if [(t.shape, t.dtype) for t in leaves] != self._signature:
+      raise ValueError("the inputs' leaves changed shape or type since the capture")
+
+  def _warm(self, device: torch.device, fn: Callable[[], Any]):
+    """``fn()`` once on a new side stream with every conditional branch
+    taken (lazily made constants and library workspaces exist before the
+    capture, which reads nothing back); -> (the side stream, its result)."""
+    global _warming
+    _lib()  # the libraries are built and loaded before any capture
+    _host_lib()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    _warming = True
+    try:
+      with torch.cuda.stream(side):
+        out = fn()
+    finally:
+      _warming = False
+    torch.cuda.current_stream(device).wait_stream(side)
+    return side, out
+
+  def _record(self, side: "torch.cuda.Stream", fn: Callable[[], None]) -> None:
+    """Capture ``fn()`` on ``side`` and instantiate the graph."""
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    t0 = time.perf_counter()
+    with _capture_into(graph, side) as cap:
+      fn()
+    t1 = time.perf_counter()
+    graph.instantiate()
+    self.instantiate_s = time.perf_counter() - t1
+    self.capture_s = t1 - t0
+    count = ctypes.c_ulonglong()
+    _check(_lib().graph_cond_nodes(graph.raw_cuda_graph(), ctypes.byref(count)),
+           "graph_cond_nodes")
+    self.nodes = int(count.value) + sum(cap.body_nodes)
+    self.conditional_nodes = len(cap.body_nodes)
+    self.host_nodes = cap.host_nodes
+    self._host_checks, self._device = cap.host_checks, side.device
+    self._graph, self._capture = graph, cap
+
+  def _raise_host_errors(self) -> None:
+    """After a replay of a graph that holds host nodes: wait for the
+    stream, then raise the first error that its host functions kept (the
+    outputs of such a replay are not to be used)."""
+    if self.host_nodes:
+      _wait_stream(self._device)
+      for check in self._host_checks:
+        check()
+
+  def __del__(self) -> None:
+    graph, cap = getattr(self, "_graph", None), getattr(self, "_capture", None)
+    if graph is None:
+      return
+    try:
+      graph.reset()
+      cap.release()
+    except Exception:
+      pass  # interpreter shutdown
+
+
+class CapturedScan(_Captured):
   """``jax.jit(lambda c: lax.scan(body, c, None, length))`` with the graph
   kept: ``body(carry) -> (carry, y)``; calling the object with a carry
   returns ``(final carry, ys)``, each ``ys`` leaf ``[length, ...]``.
@@ -407,52 +571,62 @@ class CapturedScan:
   On the card the first call captures, later calls copy their carry into the
   static buffers and replay (the carry's leaves must keep their shapes and
   types). Tensors that ``body`` closes over are read at replay: update them
-  in place, as ``PPOTrainStep`` does with its parameters. Attributes after a
-  capture: ``capture_s``, ``instantiate_s``, ``nodes`` (the step graph's,
-  conditional bodies included) and ``conditional_nodes``."""
+  in place, as ``PPOTrainStep`` does with its parameters. A graph with host
+  nodes waits for its stream after the replays and raises the first error
+  that a host function kept. Attributes after a capture: ``capture_s``, ``instantiate_s``, ``nodes`` (the step graph's,
+  conditional bodies and host nodes included), ``conditional_nodes`` and
+  ``host_nodes``."""
 
   def __init__(self, body: Callable, length: int) -> None:
     if length < 1:
       raise ValueError("scan length must be at least 1")
+    super().__init__()
     self.body, self.length = body, int(length)
-    self._graph: Optional[torch.cuda.CUDAGraph] = None
-    self._capture: Optional[_Capture] = None
-    self.capture_s = self.instantiate_s = 0.0
-    self.nodes = self.conditional_nodes = 0
 
-  def __call__(self, carry: Any, steps: Optional[int] = None) -> Tuple[Any, Any]:
+  def __call__(self, carry: Any, steps: Optional[int] = None,
+               copy: bool = True) -> Tuple[Any, Any]:
     """``steps`` (at most ``length``) runs only the first steps of the scan,
     with ``ys`` of that length: a rollout timed at two lengths shares one
-    capture."""
+    capture. ``copy=False`` returns the graph's own carry and ``ys``
+    buffers (all ``length`` rows), which the next call overwrites."""
     steps = self.length if steps is None else int(steps)
     if not 1 <= steps <= self.length:
       raise ValueError(f"steps must lie in [1, {self.length}], got {steps}")
     leaves = _leaves(carry)
     if not leaves[0].is_cuda:
-      return self._eager(carry, steps)
+      return self.eager(carry, steps)
     if self._graph is None:
       self._build(carry)
-    elif [(t.shape, t.dtype) for t in leaves] != self._signature:
-      raise ValueError("the carry's leaves changed shape or type since the capture")
+    else:
+      self._check_signature(leaves)
     _copy_into(self._carry, carry)
     self.replay(steps)
+    if not copy:
+      return self._carry, self._ys
     return (tree_map(torch.clone, self._carry),
             tree_map(lambda y: y[:steps].clone(), self._ys))
 
   def replay(self, steps: Optional[int] = None) -> None:
     """The graph alone, ``steps`` times (default ``length``) from step 0, on
     the carry its buffers hold: a call without its copies in and out, for
-    timing the rollout itself."""
+    timing the rollout itself. A graph with host nodes then waits for its
+    stream and raises their errors."""
     self._t.zero_()
     for _ in range(self.length if steps is None else steps):
       self._graph.replay()
+    self._raise_host_errors()
 
-  def _eager(self, carry: Any, steps: int) -> Tuple[Any, Any]:
-    signature = [(t.shape, t.dtype) for t in _leaves(carry)]
+  def eager(self, carry: Any, steps: Optional[int] = None) -> Tuple[Any, Any]:
+    """The scan as a loop of ``body`` calls, on any device (what the CPU
+    runs, and a mesh over several cards, which no graph can hold)."""
+    def signature(c):
+      return [(t.shape, t.dtype) for t in _leaves(c) if isinstance(t, torch.Tensor)]
+
+    first = signature(carry)
     ys = []
-    for _ in range(steps):
+    for _ in range(self.length if steps is None else steps):
       carry, y = self.body(carry)
-      if [(t.shape, t.dtype) for t in _leaves(carry)] != signature:
+      if signature(carry) != first:
         # the graph's static buffers could not hold it: refused here too
         raise ValueError("the body changed a carry leaf's shape or type")
       ys.append(y)
@@ -468,49 +642,57 @@ class CapturedScan:
     self._t.add_(1)
 
   def _build(self, carry: Any) -> None:
-    global _warming
     device = _leaves(carry)[0].device
-    _lib()  # the set-handle kernel is built before any capture
     self._signature = [(t.shape, t.dtype) for t in _leaves(carry)]
     self._carry = tree_map(torch.clone, carry)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    _warming = True
-    try:
-      with torch.cuda.stream(side):
-        _, y = self.body(self._carry)
-    finally:
-      _warming = False
-    torch.cuda.current_stream(device).wait_stream(side)
+    side, (_, y) = self._warm(device, lambda: self.body(self._carry))
     self._ys = tree_map(
       lambda v: torch.empty((self.length, *v.shape), dtype=v.dtype, device=device), y
     )
     del y
     self._t = torch.zeros(1, dtype=torch.int64, device=device)
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    t0 = time.perf_counter()
-    with _capture_into(graph, side) as cap:
-      self._step()
-    t1 = time.perf_counter()
-    graph.instantiate()
-    self.instantiate_s = time.perf_counter() - t1
-    self.capture_s = t1 - t0
-    count = ctypes.c_ulonglong()
-    _check(_lib().graph_cond_nodes(graph.raw_cuda_graph(), ctypes.byref(count)),
-           "graph_cond_nodes")
-    self.nodes = int(count.value) + sum(cap.body_nodes)
-    self.conditional_nodes = len(cap.body_nodes)
-    self._graph, self._capture = graph, cap
+    self._record(side, self._step)
 
-  def __del__(self) -> None:
-    graph, cap = getattr(self, "_graph", None), getattr(self, "_capture", None)
-    if graph is None:
-      return
-    try:
-      graph.reset()
-      cap.release()
-    except Exception:
-      pass  # interpreter shutdown
+
+class CapturedCall(_Captured):
+  """``jax.jit(fn)`` with the graph kept, for a function run once per
+  call: ``fn(*args)`` over trees of tensors, returning a tree of tensors.
+
+  On the card the first call warms ``fn`` up on a side stream and captures
+  one call over static copies of ``args``; every call copies its ``args``
+  into them (the leaves must keep their shapes and types), replays, and
+  returns clones of the outputs (with host nodes, once they ran and raised
+  no error). Tensors that ``fn`` closes over are read at replay. On the CPU
+  it calls ``fn(*args)``. Attributes as ``CapturedScan``'s."""
+
+  def __init__(self, fn: Callable) -> None:
+    super().__init__()
+    self.fn = fn
+
+  def __call__(self, *args: Any) -> Any:
+    leaves = _leaves(args)
+    if not leaves[0].is_cuda:
+      return self.fn(*args)
+    if self._graph is None:
+      self._build(args)
+    else:
+      self._check_signature(leaves)
+    _copy_into(self._args, args)
+    self._graph.replay()
+    self._raise_host_errors()
+    return tree_map(torch.clone, self._out)
+
+  def _build(self, args: Tuple[Any, ...]) -> None:
+    device = _leaves(args)[0].device
+    self._signature = [(t.shape, t.dtype) for t in _leaves(args)]
+    self._args = tree_map(torch.clone, args)
+    side, out = self._warm(device, lambda: self.fn(*self._args))
+    del out
+
+    def record() -> None:
+      self._out = self.fn(*self._args)
+
+    self._record(side, record)
 
 
 def scan(body: Callable, carry: Any, length: int) -> Tuple[Any, Any]:

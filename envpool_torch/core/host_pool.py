@@ -8,9 +8,10 @@ the port's counterpart of that tier: stateful per-env Python objects
 stepped by a worker-thread pool (the wrapped C libraries release the GIL,
 so threads scale as the reference's do), behind the same EnvSpec/dialect
 API as the on-device ``TorchEnvPool``, plus an ``xla()`` interface whose
-``send`` crosses to the card through page-locked staging buffers, the
-counterpart of the reference's XLA custom-call host bridge
-(``envpool/core/xla.h:113-210``) and of the JAX package's ``io_callback``.
+``send`` crosses to the card in stream order (page-locked copies around a
+host function, a host node of a captured graph), the counterpart of the
+reference's XLA custom-call host bridge (``envpool/core/xla.h:113-210``)
+and of the JAX package's ``io_callback(..., ordered=True)``.
 
 Execution design (mirrors the reference's, not a Python ThreadPoolExecutor
 translation — the executor's per-task future machinery and per-row dict
@@ -46,9 +47,11 @@ Semantics reproduced from the reference runtime:
 - teardown: poison pills, one per worker (``async_envpool.h:145-155``).
 
 The host API (``send``/``recv``/``step``/``reset``) returns numpy and never
-touches the card. ``device`` (default: the CUDA device; it raises without
-one unless the caller asks for ``"cpu"``) is where ``xla()`` puts its
-outputs.
+touches the card, except that after ``xla()`` has queued host steps on the
+card it first waits for the device (``torch.cuda.synchronize``, which
+releases the GIL), so that it never interleaves with a queued host step.
+``device`` (default: the CUDA device; it raises without one unless the
+caller asks for ``"cpu"``) is where ``xla()`` puts its outputs.
 """
 
 from __future__ import annotations
@@ -64,6 +67,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from . import graph
 from .env_spec import EnvSpec
 from .pool import _torch_dtype, resolve_device
 from .spec import ArraySpec
@@ -237,9 +241,10 @@ class HostEnvPool:
       (k, tuple(s.static_shape), s.dtype)
       for k, s in zip(self._state_keys, spec._state_spec)
     ]
-    # xla()'s page-locked staging sets, made at its first send
-    self._ring: Optional[_PinnedRing] = None
-    # (start, end) CUDA events and byte count of the last xla() send's
+    # xla()'s page-locked sets and host-step requests on the card, made at
+    # its first send there
+    self._bridge: Optional[_Bridge] = None
+    # (start, end) CUDA events and byte count of the last eager xla() send's
     # host-to-device copies, for timing them
     self.last_copy: Optional[Tuple[Any, Any, int]] = None
 
@@ -394,7 +399,19 @@ class HostEnvPool:
     for order in range(n):
       put((int(env_ids[order]), order, block, actions, force_reset))
 
+  def _await_bridge(self) -> None:
+    """Before a host-API call: let the host steps that ``xla()`` queued on
+    the card run first (the wait releases the GIL, which they take), then
+    raise the first of their errors. A no-op inside a host step."""
+    bridge = self._bridge
+    if bridge is None or getattr(_in_host_step, "active", False):
+      return
+    if bridge.queued:
+      torch.cuda.synchronize(self.device)
+    bridge.raise_error()
+
   def _send(self, action_list: List[np.ndarray]) -> None:
+    self._await_bridge()
     adict = dict(zip(self._action_keys, action_list))
     env_ids = np.asarray(adict["env_id"], dtype=np.int64)
     if len(self._env_action_keys) == 1:
@@ -404,9 +421,11 @@ class HostEnvPool:
     self._submit(env_ids, actions, False)
 
   def _reset(self, env_id: np.ndarray) -> None:
+    self._await_bridge()
     self._submit(np.asarray(env_id), None, True)
 
   def _recv(self) -> List[np.ndarray]:
+    self._await_bridge()
     if self._inflight == 0:
       raise RuntimeError("recv called with no pending send/reset")
     # look up WITHOUT popping: async workers resolve their block from
@@ -427,65 +446,84 @@ class HostEnvPool:
 
   # ------------------------------------------------------------------ bridge
 
-  def _to_device(self, cols: List[np.ndarray]) -> Tuple[torch.Tensor, ...]:
-    """One recv's columns -> tensors on the pool's device.
+  def _host_step(self, action: Dict[str, np.ndarray], ids: np.ndarray) -> List[np.ndarray]:
+    """``xla()``'s host step, ``host_step`` of the JAX package's
+    ``io_callback``: ``_send`` of the action columns (by key) to the envs
+    ``ids``, then ``_recv``; returns the received columns. On the CPU
+    ``send`` calls it; on the card a host function does, in stream order."""
+    alist = []
+    for k in self._action_keys:
+      if k in ("env_id", "players.env_id"):
+        alist.append(np.asarray(ids, np.int32))
+      else:
+        alist.append(np.asarray(action[k]))
+    self._send(alist)
+    return self._recv()
 
-    On the CPU the fresh block's arrays are wrapped without a copy: a block
-    is never written again once received. On the card each column goes
-    through a page-locked staging buffer and a ``non_blocking`` copy (a
-    pageable ``.to(device)`` would stage and synchronise on its own), into
-    a fresh device tensor, so outputs the caller holds are never
-    overwritten. The staging set is reused only after the CUDA event of its
-    last copy has completed.
-    """
-    if self.device.type == "cpu":
-      return tuple(torch.from_numpy(c) for c in cols)
-    if self._ring is None:
-      # allocated once: pin_memory per step would be a cudaHostAlloc each
-      self._ring = _PinnedRing(self._layout, self._batch_size)
-    n = len(cols[0])
-    stage = [buf[:n] for buf in self._ring.take()]
-    for col, buf in zip(cols, stage):
-      np.copyto(buf.numpy(), col)
-    # allocated before the copies are queued, so that the events below
-    # time the copies alone
-    outs = tuple(
-      torch.empty(buf.shape, dtype=buf.dtype, device=self.device)
-      for buf in stage
-    )
-    start = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for out, buf in zip(outs, stage):
-      out.copy_(buf, non_blocking=True)
-    end = self._ring.copied()
-    self.last_copy = (start, end, sum(col.nbytes for col in cols))
-    return outs
+  def _run_host_step(self, action: Dict[str, np.ndarray], ids: np.ndarray,
+                     outs: List[np.ndarray]) -> None:
+    """The host function's body: the host step, its columns written into
+    the page-locked output set. No CUDA call; an error is kept for the
+    next host-API call or ``send``, or the graph that holds the step, and
+    the pool is not stepped again until it has been raised."""
+    if self._bridge.errors:
+      return
+    _in_host_step.active = True
+    try:
+      for dst, col in zip(outs, self._host_step(action, ids)):
+        np.copyto(dst[:len(col)], col)
+    except Exception as e:  # raised later, on the caller's thread
+      self._bridge.errors.append(e)
+    finally:
+      _in_host_step.active = False
 
   def xla(self) -> Tuple[Any, Callable, Callable, Callable]:
     """Return ``(handle, recv, send, step)`` with the JAX signature.
 
-    The counterpart of the JAX package's ``io_callback`` bridge and of
-    ``envpool/core/xla.h:132-209``. ``send(handle, action, env_id=None)``
-    copies the action to the host (the workers must see it, so a card
-    tensor is read back here: that synchronisation cannot be avoided), runs
-    ``_send`` and ``_recv`` on this pool, and copies every output column to
-    the pool's device. The handle is ``(sends made, outputs)``; unlike the
-    on-device pool's, the env state lives in this pool, not in the handle.
+    The counterpart of the JAX package's ``io_callback(..., ordered=True)``
+    bridge and of ``envpool/core/xla.h:132-209``. The handle is ``(sends
+    made, outputs)``, the count an int32 tensor on the pool's device; unlike
+    the on-device pool's, the env state lives in this pool, not in the
+    handle. ``send(handle, action, env_id=None)`` runs ``_host_step``:
+
+    - on the CPU, directly, the received columns wrapped without a copy;
+    - on the card, in stream order on the current stream, which returns at
+      once and makes no host read: the action columns and the ids are
+      copied into a page-locked input set, a host function runs the host
+      step and writes every column into a page-locked output set, and the
+      columns are copied into fresh device tensors, so an output handed out
+      is never written again. Under capture the same calls become two
+      copies around a host node (``graph.launch_host_func``), so
+      ``graph.scan`` and ``CapturedScan`` hold the host step; their warm-up
+      call queues no host step. The sets are reused in stream order: keep
+      every send of the pool on one stream, or order the streams.
+
+    A host-API call (``send``/``recv``/``step``/``reset``) after a send on
+    the card first waits for the device. A host step that fails keeps its
+    error and the pool steps no further: the next ``send`` or host-API call
+    raises it, and so does a captured graph that holds the step, after its
+    replay (``graph.CapturedScan``/``CapturedCall`` then wait for the
+    stream). Outputs of the failed send, and of any send queued behind it,
+    are stale.
     """
-    all_ids = np.arange(self._num_envs, dtype=np.int32)
+    all_ids = torch.arange(self._num_envs, dtype=torch.int32, device=self.device)
 
     def send(handle, action, env_id=None):
       if not isinstance(action, dict):
         action = {self._env_action_keys[0]: action}
-      ids = all_ids if env_id is None else _host(env_id).astype(np.int32)
-      alist = []
-      for k in self._action_keys:
-        if k in ("env_id", "players.env_id"):
-          alist.append(ids)
-        else:
-          alist.append(_host(action[k]))
-      self._send(alist)
-      return (handle[0] + 1, self._to_device(self._recv()))
+      if self.device.type == "cpu":
+        ids = all_ids.numpy() if env_id is None else _host(env_id).astype(np.int32)
+        cols = self._host_step({k: _host(action[k]) for k in self._env_action_keys}, ids)
+        outs = tuple(torch.from_numpy(c) for c in cols)
+      else:
+        if self._bridge is None:
+          self._bridge = _Bridge(self)
+        self._bridge.raise_error()
+        ids = all_ids if env_id is None else _on(env_id, self.device).to(torch.int32)
+        outs = self._bridge.send(
+          self, {k: _on(action[k], self.device) for k in self._env_action_keys},
+          ids.contiguous())
+      return (handle[0] + 1, outs)
 
     def recv(handle):
       return handle, handle[1]
@@ -493,7 +531,7 @@ class HostEnvPool:
     def step(handle, action, env_id=None):
       return recv(send(handle, action, env_id))
 
-    handle0 = (0, tuple(
+    handle0 = (torch.zeros((), dtype=torch.int32, device=self.device), tuple(
       torch.zeros(
         (self._batch_size, *s.static_shape), dtype=_torch_dtype(s.dtype),
         device=self.device,
@@ -510,47 +548,130 @@ class HostEnvPool:
 
 
 def _host(x: Any) -> np.ndarray:
-  """An action or id batch as numpy on the host (a card tensor is read
-  back, which waits for the work queued before it)."""
+  """An action or id batch as numpy on the host (CPU pools)."""
   if isinstance(x, torch.Tensor):
     return x.detach().cpu().numpy()
   return np.asarray(x)
 
 
-class _PinnedRing:
-  """``depth`` sets of page-locked staging tensors, one per output column
-  of a full batch, used in turn by ``HostEnvPool._to_device``.
+def _on(x: Any, device: torch.device) -> torch.Tensor:
+  """An action or id batch as a contiguous tensor on ``device`` (host data
+  is copied there first, eagerly)."""
+  if not isinstance(x, torch.Tensor):
+    x = torch.as_tensor(np.asarray(x))
+  return x.detach().to(device).contiguous()
 
-  A set's copies to the card are still in flight when the next send
-  begins; the next set takes that send, and a set is reused only after the
-  CUDA event recorded behind its copies has completed."""
 
-  def __init__(
-    self, layout: List[Tuple[str, Tuple[int, ...], Any]], rows: int,
-    depth: int = 2,
-  ) -> None:
-    self.sets = [
-      [
-        torch.empty((rows, *shp), dtype=_torch_dtype(dt), pin_memory=True)
-        for _, shp, dt in layout
-      ]
-      for _ in range(depth)
+# set on the thread that runs a host step, whose host-API calls must not
+# wait for the device (the step itself is what the device waits for)
+_in_host_step = threading.local()
+
+# request id -> (pool, action views, id view, output views); ids are handed
+# to host functions as their data and never reused, and an entry holds its
+# pool weakly (a finalizer drops the pool's entries)
+_requests: Dict[int, Tuple[Any, Dict[str, np.ndarray], np.ndarray, List[np.ndarray]]] = {}
+_request_ids = itertools.count(1)
+
+
+def _run_request(data: Optional[int]) -> None:
+  """Every host function of the bridge: the request ``data``'s host step.
+  It runs on CUDA's callback thread, with the GIL that ctypes takes."""
+  entry = _requests.get(data or 0)
+  if entry is None:
+    return
+  ref, action, ids, outs = entry
+  pool = ref()
+  if pool is not None:
+    pool._run_host_step(action, ids, outs)
+
+
+# the one C callback of every request, alive for the process (graphs hold it)
+_RUN_REQUEST = graph.HOST_FN(_run_request)
+
+
+def _drop_requests(ids: List[int]) -> None:
+  for i in ids:
+    _requests.pop(i, None)
+
+
+class _Bridge:
+  """The card side of one pool's ``xla()``: a page-locked input set (each
+  action column and the env ids, ``num_envs`` rows), a page-locked output
+  set (every column, ``batch_size`` rows), both reused in stream order, and
+  one host-step request per shape of send (rows, action dtypes and shapes)."""
+
+  def __init__(self, pool: HostEnvPool) -> None:
+    self.device = pool.device
+    self.ids = torch.empty(pool._num_envs, dtype=torch.int32, pin_memory=True)
+    self.outs = [
+      torch.empty((pool._batch_size, *shp), dtype=_torch_dtype(dt), pin_memory=True)
+      for _, shp, dt in pool._layout
     ]
-    self.events: List[Optional[torch.cuda.Event]] = [None] * depth
-    self._next = 0
+    self.ins: Dict[Tuple[str, torch.dtype, Tuple[int, ...]], torch.Tensor] = {}
+    self.requests: Dict[Tuple[Any, ...], int] = {}
+    self.queued = False  # a host step was queued, eagerly or into a graph
+    self.errors: List[BaseException] = []
+    self._request_ids: List[int] = []
+    weakref.finalize(pool, _drop_requests, self._request_ids)
 
-  def take(self) -> List[torch.Tensor]:
-    """The next set, once the copies out of it have landed."""
-    ev = self.events[self._next]
-    if ev is not None:
-      ev.synchronize()
-    return self.sets[self._next]
+  def raise_error(self) -> None:
+    if self.errors:
+      err, self.errors = self.errors[0], []
+      raise RuntimeError("a host step of xla() failed on the host") from err
 
-  def copied(self) -> torch.cuda.Event:
-    """Record the event behind the copies out of the set just taken, and
-    move on to the next set."""
-    ev = torch.cuda.Event(enable_timing=True)
-    ev.record()
-    self.events[self._next] = ev
-    self._next = (self._next + 1) % len(self.sets)
-    return ev
+  def _request(self, pool: HostEnvPool, shape: Tuple[Any, ...],
+               action: Dict[str, torch.Tensor], rows: int) -> int:
+    m = shape[0]
+    views = {}
+    for k, a in action.items():
+      key = (k, a.dtype, tuple(a.shape[1:]))
+      if key not in self.ins:
+        self.ins[key] = torch.empty((pool._num_envs, *key[2]), dtype=a.dtype,
+                                    pin_memory=True)
+      views[k] = self.ins[key][:m].numpy()
+    rid = next(_request_ids)
+    _requests[rid] = (weakref.ref(pool), views, self.ids[:m].numpy(),
+                      [o[:rows].numpy() for o in self.outs])
+    self._request_ids.append(rid)
+    self.requests[shape] = rid
+    return rid
+
+  def send(self, pool: HostEnvPool, action: Dict[str, torch.Tensor],
+           ids: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Queue one host step on the current stream; -> its output columns."""
+    dev, m = self.device, ids.shape[0]
+    if ids.dim() != 1 or not 0 < m <= pool._num_envs:
+      raise ValueError(f"env_id must hold 1 to {pool._num_envs} ids, got {tuple(ids.shape)}")
+    for k, a in action.items():
+      if a.dim() == 0 or a.shape[0] != m:
+        raise ValueError(f"action {k!r} of shape {tuple(a.shape)} for {m} env ids")
+    rows = m if pool._is_sync else pool._batch_size
+    shape = (m, tuple((k, a.dtype, tuple(a.shape)) for k, a in action.items()))
+    rid = self.requests.get(shape)
+    if rid is None:
+      rid = self._request(pool, shape, action, rows)
+    for k, a in action.items():
+      buf = self.ins[(k, a.dtype, tuple(a.shape[1:]))]
+      graph.copy_async(buf.data_ptr(), a.data_ptr(), a.numel() * a.element_size(),
+                       False, dev)
+    graph.copy_async(self.ids.data_ptr(), ids.data_ptr(), 4 * m, False, dev)
+    if not graph.is_warming():
+      graph.launch_host_func(_RUN_REQUEST, rid, dev, check=self.raise_error)
+      self.queued = True
+    outs = tuple(torch.empty((rows, *b.shape[1:]), dtype=b.dtype, device=dev)
+                 for b in self.outs)
+    stream = torch.cuda.current_stream(dev)
+    timed = not torch.cuda.is_current_stream_capturing()
+    if timed:
+      start = torch.cuda.Event(enable_timing=True)
+      start.record(stream)
+    n_bytes = 0
+    for out, buf in zip(outs, self.outs):
+      nb = out.numel() * out.element_size()
+      graph.copy_async(out.data_ptr(), buf.data_ptr(), nb, True, dev)
+      n_bytes += nb
+    if timed:
+      end = torch.cuda.Event(enable_timing=True)
+      end.record(stream)
+      pool.last_copy = (start, end, n_bytes)
+    return outs

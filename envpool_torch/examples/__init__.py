@@ -7,6 +7,14 @@ only when asked for)::
   python -m envpool_torch.examples.ppo_mujoco --task HalfCheetahJax-v4
   python -m envpool_torch.examples.xla_step
   python -m envpool_torch.examples.async_loop     # needs mujoco
+  python -m envpool_torch.examples.cleanrl_ppo --num-envs 16 --iterations 40
+  python -m envpool_torch.examples.sb3_example
+  python -m envpool_torch.examples.tianshou_example
+  python -m envpool_torch.examples.acme_example   # needs dm_env
+
+The last three drive their library's adapter on their own where the
+library (stable_baselines3, tianshou, dm-acme) is not installed; their
+imports of it are made late, inside ``main``.
 """
 
 

@@ -42,7 +42,10 @@ def entry(device: Union[None, str, torch.device] = None) -> Tuple[Callable, Tupl
 
 def dryrun_multichip(n_devices: int, device: Union[None, str, torch.device] = None) -> None:
   """One full PPO iteration over a mesh of ``n_devices`` logical shards of
-  ``device`` (the card by default), on tiny shapes.
+  ``device`` (the card by default), on tiny shapes, through the per-row
+  path that a mesh over several cards runs (``ShardedPPOTrainStep.per_row``:
+  on logical shards of one device the trainer's own call is the unsharded
+  iteration).
 
   An even count of at least 4 makes a ``(n // 2, 2)`` mesh over
   ``("env", "model")``: env-axis data parallelism and the weights split
@@ -70,5 +73,5 @@ def dryrun_multichip(n_devices: int, device: Union[None, str, torch.device] = No
   state, tx = ppo_init(pool, net, cfg, seed=0)
   train_step = make_ppo_train_step(pool, net, cfg, tx, mesh=mesh,
                                    model_axis=model_axis)
-  state, metrics = train_step(state)
+  state, metrics = train_step.per_row(state)
   assert math.isfinite(float(metrics["pg_loss"])), metrics

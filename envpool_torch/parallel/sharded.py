@@ -26,6 +26,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from envpool_torch.core import graph
 from envpool_torch.core.env_spec import EnvSpec
 from envpool_torch.core.envpool_api import (
   DMConvertMixin,
@@ -166,6 +167,8 @@ class ShardedEnvPool(TorchEnvPool):
     ]
     self._pending = deque()
     self._last_out = None
+    # the last rollout's scan and its (policy_fn, num_steps)
+    self._rollout_scan: Tuple[Any, Optional[graph.CapturedScan]] = (None, None)
 
   @property
   def mesh(self) -> Mesh:
@@ -242,19 +245,28 @@ class ShardedEnvPool(TorchEnvPool):
 
     ``policy_fn(policy_state, states) -> (policy_state, action)``. Returns
     ``((handle, policy_state), traj)``, each field of ``traj`` stacked to
-    ``[num_steps, num_envs, ...]`` (the JAX package's ``lax.scan``).
+    ``[num_steps, num_envs, ...]`` (the JAX package's ``lax.scan``). When
+    every device of the mesh is the same card, the steps run through one
+    ``graph.CapturedScan``, kept for the next call with the same
+    ``(policy_fn, num_steps)`` (the policy state must then be a tree of tensors); on the
+    CPU, and on a mesh over several cards, which no graph spans, they run
+    as a loop.
     """
     handle, recv, send, _ = self.xla()
-    steps = []
-    for _ in range(num_steps):
+
+    def body(carry):
+      handle, pstate = carry
       _, states = recv(handle)
-      policy_state, action = policy_fn(policy_state, states)
-      handle = send(handle, action)
-      steps.append(states)
-    traj = tuple(
-      tree_map(lambda *xs: torch.stack(xs), *field) for field in zip(*steps)
-    )
-    return (handle, policy_state), traj
+      pstate, action = policy_fn(pstate, states)
+      return (send(handle, action), pstate), tuple(states)
+
+    key, scan = self._rollout_scan
+    if key != (policy_fn, num_steps):
+      scan = graph.CapturedScan(body, num_steps)
+      self._rollout_scan = ((policy_fn, num_steps), scan)
+    if len(set(self._mesh.devices.ravel().tolist())) == 1:
+      return scan((handle, policy_state))
+    return scan.eager((handle, policy_state))
 
 
 ShardedDMEnvPool = _dialect_class("ShardedDMEnvPool", DMConvertMixin, ShardedEnvPool)

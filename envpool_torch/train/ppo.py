@@ -5,11 +5,15 @@ The port of ``envpool_tpu/train/ppo.py``, with its semantics: the same
 config, the same key stream (``core/prng.py`` reproduces jax's threefry
 draws: ``split``, ``categorical``, ``normal``, ``permutation``), the same
 loss and metrics, and ``optax.chain(clip_by_global_norm, adam)`` as
-``ClipAdam``. The JAX rollout is one ``lax.scan`` inside its ``jit``; here
-the rollout step (policy forward, key split, draw, pool ``send``) runs
-through ``graph.CapturedScan``: captured once as a CUDA graph and replayed
-``num_steps`` times on the card, a loop of the same step on the CPU. The
-update stays eager, its gradient from ``torch.autograd``.
+``ClipAdam``. The JAX iteration is one ``jit``; here it is two captures on
+the card: the rollout step (policy forward, key split, draw, pool
+``send``) runs through ``graph.CapturedScan``, captured once as a CUDA
+graph and replayed ``num_steps`` times, and the update (the bootstrap
+value, GAE, the permutations, every minibatch's forward, ``torch.autograd``
+gradient and ``ClipAdam`` step, the metrics) through
+``graph.CapturedCall``, one replay. On the CPU both run eagerly, the same
+code. The pool may be a ``TorchEnvPool`` or a ``HostEnvPool``, whose
+captured rollout holds its host step as a host node.
 
 With ``mesh`` (``envpool_torch.parallel.Mesh``), ``make_ppo_train_step``
 splits the batch over the mesh's ``axis_name`` axis (data parallelism:
@@ -32,7 +36,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -81,19 +85,51 @@ class ClipAdam:
   """``optax.chain(clip_by_global_norm(max_norm), adam(lr))`` over dicts of
   tensors: the gradient is scaled by ``max_norm / norm`` when its global
   norm reaches ``max_norm``, then Adam (b1 0.9, b2 0.999, eps 1e-8) with
-  optax's bias correction; the step count stays on the host."""
+  optax's bias correction. The step count stays on the host; the bias
+  corrections are read from device memory (``bias_rows``), so that a
+  captured update takes each replay's from its inputs."""
 
   def __init__(self, max_norm: float, lr: float, b1: float = 0.9,
                b2: float = 0.999, eps: float = 1e-8) -> None:
     self.max_norm, self.lr, self.b1, self.b2, self.eps = max_norm, lr, b1, b2, eps
+    # per device: the bias corrections of counts 1..len, and the
+    # page-locked host table its copy came from (never written again)
+    self._tables: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+  def bias_rows(self, count: int, steps: int, device: Any) -> torch.Tensor:
+    """``[steps, 2]`` float32: ``1 - b1**c`` and ``1 - b2**c`` for the
+    counts ``c = count .. count + steps - 1``, each computed in np.float32
+    as optax does (bit for bit with it). Rows of a per-device table made
+    on the host at the first call and when a count outgrows it (its copy to
+    the card is asynchronous); a slice costs no copy."""
+    device = torch.device(device)
+    need = count + steps - 1
+    entry = self._tables.get(device)
+    if entry is None or entry[0].shape[0] < need:
+      k = max(1024, 2 * need)
+      b1, b2 = np.float32(self.b1), np.float32(self.b2)
+      host = np.empty((k, 2), np.float32)
+      for c in range(1, k + 1):
+        host[c - 1] = 1 - b1 ** np.float32(c), 1 - b2 ** np.float32(c)
+      src = torch.from_numpy(host)
+      if device.type == "cuda":
+        src = src.pin_memory()
+        table = torch.empty(src.shape, dtype=src.dtype, device=device)
+        table.copy_(src, non_blocking=True)
+      else:
+        table = src
+      entry = self._tables[device] = (table, src)
+    return entry[0][count - 1:need]
 
   def init(self, params: Params) -> Dict[str, Any]:
     return {"count": 0,
             "mu": {k: torch.zeros_like(v) for k, v in params.items()},
             "nu": {k: torch.zeros_like(v) for k, v in params.items()}}
 
-  def update(self, grads: Params, opt_state: Dict[str, Any]) -> Tuple[Params, Dict[str, Any]]:
-    """-> (updates to add to the params, new state)."""
+  def update(self, grads: Params, opt_state: Dict[str, Any],
+             bias: Optional[torch.Tensor] = None) -> Tuple[Params, Dict[str, Any]]:
+    """-> (updates to add to the params, new state). ``bias`` is this
+    step's row of ``bias_rows`` (default: read from the table here)."""
     names = list(grads)
     g = [grads[k] for k in names]
     norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
@@ -107,9 +143,10 @@ class ClipAdam:
       g, g, value=1 - self.b2,
     )
     count = opt_state["count"] + 1
+    if bias is None:
+      bias = self.bias_rows(count, 1, g[0].device)[0]
     # optax's bias correction, 1 - decay**count in float32
-    bc1 = float(1 - np.float32(self.b1) ** np.float32(count))
-    bc2 = float(1 - np.float32(self.b2) ** np.float32(count))
+    bc1, bc2 = bias[0], bias[1]
     denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), self.eps)
     upd = torch._foreach_mul(
       torch._foreach_div(torch._foreach_div(mu, bc1), denom), -self.lr
@@ -207,7 +244,12 @@ def ppo_loss(net: nn.Module, cfg: PPOConfig, params: Params,
 
 class PPOTrainStep:
   """One PPO iteration, ``state -> (state, metrics)``; ``rollout`` and
-  ``update`` are its two phases, callable apart to time them."""
+  ``update`` are its two phases, callable apart to time them.
+
+  On the card both are captured (``graph.CapturedScan`` and
+  ``graph.CapturedCall``) and the returned state holds copies of the
+  graphs' outputs. ``update_eager`` and ``eager`` run the same code launched
+  op by op: the references that the captures are held against."""
 
   def __init__(self, pool: TorchEnvPool, net: nn.Module, cfg: PPOConfig,
                tx: ClipAdam) -> None:
@@ -221,6 +263,11 @@ class PPOTrainStep:
     # refilled before each rollout
     self._params: Optional[Params] = None
     self._scan = graph.CapturedScan(self._rollout_step, cfg.num_steps)
+    self._update = graph.CapturedCall(self._update_fn)
+    # the trajectory the update reads: set before each update, on the card
+    # to the captured update's own buffers (``_static_traj``)
+    self._traj: Any = None
+    self._static_traj: Any = None
 
   def _apply(self, params: Params, obs: torch.Tensor):
     return functional_call(self.net, params, (obs,))
@@ -253,25 +300,54 @@ class PPOTrainStep:
     return (handle, key), traj
 
   @torch.no_grad()
-  def rollout(self, state: PPOState):
-    """``num_steps`` pool steps -> (handle, key, traj of [T, N, ...]
-    tensors, the value of the last obs)."""
+  def _run_scan(self, state: PPOState, copy: bool, eager: bool = False):
+    """The rollout's scan from ``state`` -> (handle, key, trajectory); with
+    ``copy=False`` the trajectory is the scan's own buffers on the card,
+    with ``eager`` a loop of step calls."""
     if self._params is None:
       self._params = {k: v.detach().clone() for k, v in state.params.items()}
     else:
       for k, v in state.params.items():
         self._params[k].copy_(v)
-    (handle, key), traj = self._scan((state.handle, state.key))
-    # bootstrap value for the final observation
-    _, states = self._recv(handle)
-    _, last_value = self._apply(state.params, states[self._obs])
-    return handle, key, traj, last_value
+    carry = (state.handle, state.key)
+    if eager:
+      (handle, key), traj = self._scan.eager(carry)
+      return handle, key, traj
+    (handle, key), traj = self._scan(carry, copy=copy)
+    if not copy:
+      handle, key = graph.tree_map(torch.clone, (handle, key))
+    return handle, key, traj
 
-  def update(self, state: PPOState, rollout) -> Tuple[PPOState, Dict[str, torch.Tensor]]:
-    """GAE and ``update_epochs`` x ``num_minibatches`` Adam steps."""
+  def _last_obs(self, handle) -> torch.Tensor:
+    return self._recv(handle)[1][self._obs]
+
+  def _value(self, params: Params, obs: torch.Tensor) -> torch.Tensor:
+    return self._apply(params, obs)[1]
+
+  @torch.no_grad()
+  def rollout(self, state: PPOState):
+    """``num_steps`` pool steps -> (handle, key, traj of [T, N, ...]
+    tensors, the value of the last obs)."""
+    handle, key, traj = self._run_scan(state, copy=True)
+    return handle, key, traj, self._value(state.params, self._last_obs(handle))
+
+  def _grads(self, params: Params, batch: Dict[str, torch.Tensor]):
+    """-> (loss aux, gradients by name) of one minibatch."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    total, aux = ppo_loss(self.net, self.cfg, leaves, batch)
+    grads = torch.autograd.grad(total, list(leaves.values()))
+    return aux, dict(zip(leaves, grads))
+
+  def _update_fn(self, params: Params, mu: Params, nu: Params, key: torch.Tensor,
+                 last_obs: torch.Tensor, bias: torch.Tensor):
+    """What the update's graph holds: the bootstrap value, GAE and
+    ``update_epochs`` x ``num_minibatches`` Adam steps over ``self._traj``,
+    the ``k``-th with row ``k`` of ``bias``; -> (params, mu, nu, key,
+    metrics)."""
     cfg, tx = self.cfg, self.tx
-    handle, key, traj, last_value = rollout
+    traj = self._traj
     with torch.no_grad():
+      last_value = self._value(params, last_obs)
       adv, returns = compute_gae(traj, last_value, cfg.gamma, cfg.gae_lambda)
     flat = {
       "obs": traj["obs"].flatten(0, 1),
@@ -282,7 +358,7 @@ class PPOTrainStep:
     }
     n = flat["logp"].shape[0]
     mb = n // cfg.num_minibatches
-    params, opt_state = state.params, state.opt_state
+    opt_state = {"count": 0, "mu": mu, "nu": nu}
     aux_all = []
     for _ in range(cfg.update_epochs):
       key, sub = prng.split(key, 2)
@@ -290,19 +366,58 @@ class PPOTrainStep:
       shuffled = {k: v[perm] for k, v in flat.items()}
       for i in range(cfg.num_minibatches):
         batch = {k: v[i * mb:(i + 1) * mb] for k, v in shuffled.items()}
-        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
-        total, aux = ppo_loss(self.net, cfg, leaves, batch)
-        grads = torch.autograd.grad(total, list(leaves.values()))
+        aux, grads = self._grads(params, batch)
         with torch.no_grad():
-          updates, opt_state = tx.update(dict(zip(leaves, grads)), opt_state)
+          updates, opt_state = tx.update(grads, opt_state, bias[len(aux_all)])
           params = apply_updates(params, updates)
         aux_all.append({k: v.detach() for k, v in aux.items()})
     metrics = {k: torch.stack([a[k] for a in aux_all]).mean() for k in aux_all[0]}
     metrics["mean_reward"] = traj["reward"].mean()
+    return params, opt_state["mu"], opt_state["nu"], key, metrics
+
+  def _run_update(self, state: PPOState, rollout, captured: bool
+                  ) -> Tuple[PPOState, Dict[str, torch.Tensor]]:
+    cfg = self.cfg
+    handle, key, traj, _ = rollout
+    steps = cfg.update_epochs * cfg.num_minibatches
+    count = state.opt_state["count"]
+    args = (state.params, state.opt_state["mu"], state.opt_state["nu"], key,
+            self._last_obs(handle), self.tx.bias_rows(count + 1, steps, key.device))
+    if captured and key.is_cuda:
+      if self._static_traj is None:
+        self._static_traj = graph.tree_map(torch.clone, traj)
+      graph._copy_into(self._static_traj, traj)
+      self._traj = self._static_traj
+      params, mu, nu, key, metrics = self._update(*args)
+    else:
+      self._traj = traj
+      params, mu, nu, key, metrics = self._update_fn(*args)
+    self._traj = None
+    opt_state = {"count": count + steps, "mu": mu, "nu": nu}
     return PPOState(handle, params, opt_state, key), metrics
 
+  def update(self, state: PPOState, rollout) -> Tuple[PPOState, Dict[str, torch.Tensor]]:
+    """GAE and ``update_epochs`` x ``num_minibatches`` Adam steps (the
+    bootstrap value is recomputed from the handle, inside the update), one
+    captured call on the card."""
+    return self._run_update(state, rollout, captured=True)
+
+  def update_eager(self, state: PPOState, rollout) -> Tuple[PPOState, Dict[str, torch.Tensor]]:
+    """``update`` launched op by op on the card (the same code)."""
+    return self._run_update(state, rollout, captured=False)
+
+  def eager(self, state: PPOState) -> Tuple[PPOState, Dict[str, torch.Tensor]]:
+    """One iteration with the rollout's steps and the update launched op by
+    op on the card (the same code as ``__call__``'s)."""
+    handle, key, traj = self._run_scan(state, copy=True, eager=True)
+    return self._run_update(state, (handle, key, traj, None), captured=False)
+
   def __call__(self, state: PPOState) -> Tuple[PPOState, Dict[str, torch.Tensor]]:
-    return self.update(state, self.rollout(state))
+    handle, key, traj = self._run_scan(state, copy=False)
+    if self._static_traj is None and traj is getattr(self._scan, "_ys", None):
+      # the captured update reads the rollout's own buffers: no copy
+      self._static_traj = traj
+    return self._run_update(state, (handle, key, traj, None), captured=True)
 
 
 class _MeshLayout:
@@ -378,7 +493,19 @@ class ShardedPPOTrainStep(PPOTrainStep):
   on the first device and copied out). With ``model_axis``, every
   parameter of two or more dimensions is split over that axis along its
   output features (``models.nets.forward_split``). The result equals the
-  unsharded trainer's up to the order of float sums.
+  unsharded trainer's up to the order of float sums. This per-row path is
+  ``rollout_rows`` / ``update_rows`` (``per_row``: one iteration), eager.
+
+  When every device of the mesh is the same one (``one_device``:
+  ``make_mesh()`` on a machine with one card, logical shards), the rows and
+  the model axis's blocks share that device and the parameters, so there is
+  nothing to split: the iteration is the unsharded trainer's (the policy
+  and each minibatch whole, captured on the card), bit for bit, and
+  ``rollout`` hands its trajectory out as per-row views. A mesh over
+  several cards runs the per-row path as eager loops: no graph spans
+  cards, and no machine here has two cards to hold such a capture against.
+  The per-row path runs on any mesh, so that it can be held against the
+  one-device path and the JAX trainer where there is one device.
   """
 
   def __init__(self, pool: TorchEnvPool, net: nn.Module, cfg: PPOConfig,
@@ -386,6 +513,15 @@ class ShardedPPOTrainStep(PPOTrainStep):
                model_axis: Optional[str] = None) -> None:
     super().__init__(pool, net, cfg, tx)
     self.layout = _MeshLayout(mesh, axis_name, model_axis)
+    self._one_device = len(set(self.layout.devices.ravel().tolist())) == 1
+    self._rows_scan = graph.CapturedScan(self._rollout_step_rows, cfg.num_steps)
+    self._rows: Any = None  # the per-row rollout's placed parameters
+
+  @property
+  def one_device(self) -> bool:
+    """Whether every device of the mesh is the same one (then the
+    iteration is the unsharded one)."""
+    return self._one_device
 
   def _row_apply(self, row, obs: torch.Tensor):
     whole, columns = row
@@ -400,63 +536,111 @@ class ShardedPPOTrainStep(PPOTrainStep):
     b = n // rows
     return [slice(r * b, (r + 1) * b) for r in range(rows)]
 
+  def _rollout_step_rows(self, carry):
+    """One step of the per-row rollout: each row's policy on its block on
+    its device, the draws at the full batch shape and sliced, one pool
+    ``send``; -> (carry, per row the step's ``_TRAJ_KEYS`` on the row's
+    device)."""
+    cfg, devs = self.cfg, self.layout.devices
+    handle, key = carry
+    act_dtype = torch.float32 if cfg.continuous else torch.int32
+    _, states = self._recv(handle)
+    obs = states[self._obs]
+    blocks = self._blocks(obs.shape[0])
+    key, sub = prng.split(key, 2)
+    obs_p = [obs[sl].to(devs[r, 0]) for r, sl in enumerate(blocks)]
+    outs = [self._row_apply(row, o) for row, o in zip(self._rows, obs_p)]
+    head = outs[0][0][0] if cfg.continuous else outs[0][0]
+    shape = (obs.shape[0], *head.shape[1:])
+    noise = (prng.normal if cfg.continuous else prng.gumbel)(sub, shape)
+    cols = []
+    for r, (sl, o, (out, value)) in enumerate(zip(blocks, obs_p, outs)):
+      z = noise[sl].to(devs[r, 0])
+      if cfg.continuous:
+        mean, log_std = out
+        action = mean + torch.exp(log_std) * z
+        logp = _gauss_logp(action, mean, log_std)
+      else:
+        action = torch.argmax(z + out, dim=-1)
+        logp = torch.log_softmax(out, dim=-1).gather(-1, action[:, None])[:, 0]
+      cols.append([o, action, logp, value])
+    handle = self._send(
+      handle, torch.cat([c[1].to(obs.device) for c in cols]).to(act_dtype)
+    )
+    _, nxt = self._recv(handle)
+    ys = tuple(
+      dict(zip(_TRAJ_KEYS, [*row, nxt[self._rew][sl].to(devs[r, 0]),
+                            nxt[self._done][sl].to(devs[r, 0])]))
+      for r, (row, sl) in enumerate(zip(cols, blocks))
+    )
+    return (handle, key), ys
+
+  def _last_values(self, params: Params, obs: torch.Tensor) -> List[torch.Tensor]:
+    devs, blocks = self.layout.devices, self._blocks(obs.shape[0])
+    _, rows = self.layout.place(params, grad=False)
+    return [self._row_apply(row, obs[sl].to(devs[r, 0]))[1]
+            for r, (row, sl) in enumerate(zip(rows, blocks))]
+
   @torch.no_grad()
   def rollout(self, state: PPOState):
     """``num_steps`` pool steps -> (handle, key, per-row trajectories of
     ``[T, block, ...]`` tensors on the rows' devices, per-row values of the
-    last obs); ``gather`` makes them the unsharded trainer's."""
-    cfg, devs = self.cfg, self.layout.devices
-    handle, key = state.handle, state.key
-    _, rows = self.layout.place(state.params, grad=False)
-    act_dtype = torch.float32 if cfg.continuous else torch.int32
-    steps: List[List[Any]] = [[] for _ in rows]
-    for _ in range(cfg.num_steps):
-      _, states = self._recv(handle)
-      obs = states[self._obs]
-      blocks = self._blocks(obs.shape[0])
-      key, sub = prng.split(key, 2)
-      obs_r = [obs[sl].to(devs[r, 0]) for r, sl in enumerate(blocks)]
-      outs = [self._row_apply(row, o) for row, o in zip(rows, obs_r)]
-      head = outs[0][0][0] if cfg.continuous else outs[0][0]
-      shape = (obs.shape[0], *head.shape[1:])
-      noise = (prng.normal if cfg.continuous else prng.gumbel)(sub, shape)
-      acts = []
-      for r, sl in enumerate(blocks):
-        out, value = outs[r]
-        z = noise[sl].to(devs[r, 0])
-        if cfg.continuous:
-          mean, log_std = out
-          action = mean + torch.exp(log_std) * z
-          logp = _gauss_logp(action, mean, log_std)
-        else:
-          action = torch.argmax(z + out, dim=-1)
-          logp = torch.log_softmax(out, dim=-1).gather(-1, action[:, None])[:, 0]
-        acts.append(action)
-        steps[r].append([obs_r[r], action, logp, value])
-      handle = self._send(
-        handle, torch.cat([a.to(obs.device) for a in acts]).to(act_dtype)
-      )
-      _, nxt = self._recv(handle)
-      for r, sl in enumerate(blocks):
-        steps[r][-1] += [nxt[self._rew][sl].to(devs[r, 0]),
-                         nxt[self._done][sl].to(devs[r, 0])]
-    trajs = [
-      {k: torch.stack(v) for k, v in zip(_TRAJ_KEYS, zip(*row_steps))}
-      for row_steps in steps
-    ]
-    _, states = self._recv(handle)
-    obs = states[self._obs]
-    last = [self._row_apply(row, obs[sl].to(devs[r, 0]))[1]
-            for r, (row, sl) in enumerate(zip(rows, self._blocks(obs.shape[0])))]
-    return handle, key, trajs, last
+    last obs); ``gather`` makes them the unsharded trainer's. On one device
+    the unsharded rollout (captured on the card), cut into rows."""
+    if not self.one_device:
+      return self.rollout_rows(state)
+    handle, key, traj, value = super().rollout(state)
+    blocks = self._blocks(value.shape[0])
+    return (handle, key, tuple({k: v[:, sl] for k, v in traj.items()} for sl in blocks),
+            [value[sl] for sl in blocks])
+
+  @torch.no_grad()
+  def rollout_rows(self, state: PPOState):
+    """The per-row rollout, eager on any mesh; -> as ``rollout``."""
+    _, self._rows = self.layout.place(state.params, grad=False)
+    (handle, key), trajs = self._rows_scan.eager((state.handle, state.key))
+    self._rows = None
+    return handle, key, trajs, self._last_values(state.params, self._last_obs(handle))
 
   @staticmethod
-  def gather(trajs: List[Dict[str, torch.Tensor]], device) -> Dict[str, torch.Tensor]:
+  def gather(trajs: Sequence[Dict[str, torch.Tensor]], device) -> Dict[str, torch.Tensor]:
     """Per-row trajectories -> one ``[T, N, ...]`` dict on ``device``."""
     return {k: torch.cat([t[k].to(device) for t in trajs], 1) for k in trajs[0]}
 
+  def _whole(self, rollout):
+    handle, key, trajs, _ = rollout
+    return handle, key, self.gather(trajs, self.layout.devices[0, 0]), None
+
   def update(self, state: PPOState, rollout) -> Tuple[PPOState, Dict[str, torch.Tensor]]:
-    """GAE per row, then ``update_epochs`` x ``num_minibatches`` steps."""
+    """GAE and ``update_epochs`` x ``num_minibatches`` steps: on one device
+    the unsharded update (captured on the card), else per row."""
+    if not self.one_device:
+      return self.update_rows(state, rollout)
+    return super().update(state, self._whole(rollout))
+
+  def update_eager(self, state: PPOState, rollout) -> Tuple[PPOState, Dict[str, torch.Tensor]]:
+    if not self.one_device:
+      return self.update_rows(state, rollout)
+    return super().update_eager(state, self._whole(rollout))
+
+  def eager(self, state: PPOState) -> Tuple[PPOState, Dict[str, torch.Tensor]]:
+    if not self.one_device:
+      return self.per_row(state)
+    return super().eager(state)
+
+  def __call__(self, state: PPOState) -> Tuple[PPOState, Dict[str, torch.Tensor]]:
+    if not self.one_device:
+      return self.per_row(state)
+    return super().__call__(state)
+
+  def per_row(self, state: PPOState) -> Tuple[PPOState, Dict[str, torch.Tensor]]:
+    """One iteration through the per-row path, eager on any mesh."""
+    return self.update_rows(state, self.rollout_rows(state))
+
+  def update_rows(self, state: PPOState, rollout) -> Tuple[PPOState, Dict[str, torch.Tensor]]:
+    """The per-row update (what a mesh over several devices runs, eager):
+    GAE per row, then each minibatch split by the rows that hold its
+    samples."""
     cfg, tx, layout = self.cfg, self.tx, self.layout
     devs = layout.devices
     handle, key, trajs, last = rollout

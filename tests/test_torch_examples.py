@@ -1,19 +1,30 @@
 """The port's example scripts (``envpool_torch/examples/``) through their
 ``main`` on the CPU at a tiny size: the printed lines carry the JAX
 scripts' fields, every number finite; ``async_loop`` where ``mujoco``
-imports. And the twin of ``tests/test_learning.py::
-test_ppo_learns_inverted_pendulum_continuous`` on the port, with its
-configuration, seed and bars."""
+imports; the four library examples with their adapters driven alone
+(none of the libraries is installed). And the twin of
+``tests/test_learning.py::test_ppo_learns_inverted_pendulum_continuous`` on
+the port, with its configuration, seed and bars."""
 
 import math
 import re
+import sys
 
 import numpy as np
 import pytest
 import torch
 
 import envpool_torch
-from envpool_torch.examples import async_loop, ppo_mujoco, ppo_sokoban, xla_step
+from envpool_torch.examples import (
+  acme_example,
+  async_loop,
+  cleanrl_ppo,
+  ppo_mujoco,
+  ppo_sokoban,
+  sb3_example,
+  tianshou_example,
+  xla_step,
+)
 from envpool_torch.models import GaussianMLPActorCritic
 from envpool_torch.train import PPOConfig, make_ppo_train_step, ppo_init
 
@@ -128,3 +139,113 @@ def test_ppo_learns_inverted_pendulum_continuous() -> None:
   best = float(np.max(rewards[5:]))
   assert best > rewards[0], rewards
   assert best > 0.97, rewards
+
+
+# ------------------------------------------------- the library examples
+
+
+def test_cleanrl_ppo(capsys, monkeypatch):
+  """Two iterations of the CleanRL-style trainer: one line each, every
+  number finite, episodes counted as they end; without ``gymnasium``, as
+  on the card's machine."""
+  monkeypatch.setitem(sys.modules, "gymnasium", None)
+  history = cleanrl_ppo.main(TINY[:4] + ["--num-steps", "16", "--iterations", "2"])
+  lines = capsys.readouterr().out.strip().splitlines()
+  assert len(lines) == len(history) == 2
+  for it, (line, row) in enumerate(zip(lines, history)):
+    assert line.startswith(f"iter {it:3d}  episodic_return="), line
+    assert all(math.isfinite(v) for v in row.values()), row
+  assert history[1]["episodes"] >= history[0]["episodes"] > 0
+
+
+def test_sb3_adapter_steps_with_per_env_infos(capsys, monkeypatch):
+  """The SB3 adapter steps past its first step (the JAX package's script
+  raises ``KeyError: 0`` there), with one info dict per env and the nested
+  ``players`` dict indexed per env too; without ``gymnasium``."""
+  monkeypatch.setitem(sys.modules, "gymnasium", None)
+  res = sb3_example.main(["--device", "cpu", "--num-envs", "4", "--steps", "30"])
+  (line,) = capsys.readouterr().out.strip().splitlines()
+  assert line.startswith("adapter round-trip OK: 30 steps of 4 envs"), line
+  assert math.isfinite(res["mean_reward"]) and res["episodes_ended"] > 0
+  env = sb3_example.EnvPoolVecAdapter(
+    envpool_torch.make_gymnasium("CartPole-v1", num_envs=3, seed=0, device="cpu"))
+  env.reset()
+  env.step_async(np.zeros(3, np.int32))
+  _, _, done, infos = env.step_wait()
+  assert len(infos) == 3 and done.shape == (3,)
+  for i, info in enumerate(infos):
+    assert info["env_id"] == i and info["players"]["env_id"] == i
+    assert np.ndim(info["elapsed_step"]) == 0
+
+
+def test_tianshou_adapter_drives_all_and_subsets(capsys, monkeypatch):
+  """Without tianshou the script drives the adapter: every env, then the
+  subset ``[1, 3]`` reset and stepped; without ``gymnasium``."""
+  monkeypatch.setitem(sys.modules, "gymnasium", None)
+  res = tianshou_example.main(["--device", "cpu", "--num-envs", "5", "--steps", "20"])
+  (line,) = capsys.readouterr().out.strip().splitlines()
+  assert "the adapter alone: 20 steps of 5 envs" in line, line
+  assert res["subset_rows"] == 2 and math.isfinite(res["mean_reward"])
+
+
+def test_acme_adapter_runs_episodes_without_jax(capsys, monkeypatch):
+  """The single-env dm view runs its episodes with ``jax`` unimportable
+  (the JAX package's script imports it for ``tree_map``)."""
+  pytest.importorskip("dm_env")
+  monkeypatch.setitem(sys.modules, "jax", None)
+  returns = acme_example.main(["--device", "cpu", "--episodes", "2"])
+  lines = capsys.readouterr().out.strip().splitlines()
+  assert len(lines) == 3 and lines[0].startswith("dm-acme is not installed")
+  assert len(returns) == 2 and all(r > 0 for r in returns)
+  view = acme_example.BatchedToSingleDmEnv(
+    envpool_torch.make_dm("CartPole-v1", num_envs=2, seed=0, device="cpu"), 1)
+  ts = view.reset()
+  assert np.asarray(ts.observation.obs).shape == (4,) and ts.reward == 0.0
+
+
+def test_acme_example_runs_acme_loop_with_its_own_actor(capsys, monkeypatch):
+  """With ``acme`` importable, the script runs the view through
+  ``acme.EnvironmentLoop`` with its fixed-action ``acme.core.Actor`` and
+  imports nothing of jax. A stand-in ``acme`` (the loop's
+  ``run_episode`` contract: reset, ``observe_first``, then
+  ``select_action``/``step``/``observe`` until the last step) takes the
+  library's place, which no machine here has; its episodes equal the
+  script's own episodes without acme."""
+  import types
+
+  pytest.importorskip("dm_env")
+  monkeypatch.setitem(sys.modules, "jax", None)
+  core = types.ModuleType("acme.core")
+
+  class Actor:
+    pass
+
+  class EnvironmentLoop:
+    def __init__(self, environment, actor):
+      assert isinstance(actor, Actor)
+      self.env, self.actor = environment, actor
+
+    def run_episode(self):
+      ts = self.env.reset()
+      self.actor.observe_first(ts)
+      total, steps = 0.0, 0
+      while not ts.last():
+        action = self.actor.select_action(ts.observation)
+        ts = self.env.step(action)
+        self.actor.observe(action, ts)
+        total, steps = total + ts.reward, steps + 1
+      self.actor.update()
+      return {"episode_return": total, "episode_length": steps}
+
+  core.Actor = Actor
+  acme = types.ModuleType("acme")
+  acme.core, acme.EnvironmentLoop = core, EnvironmentLoop
+  monkeypatch.setitem(sys.modules, "acme", acme)
+  monkeypatch.setitem(sys.modules, "acme.core", core)
+  got = acme_example.main(["--device", "cpu", "--episodes", "2"])
+  lines = capsys.readouterr().out.strip().splitlines()
+  assert len(lines) == 3 and lines[0].startswith("dm-acme's EnvironmentLoop")
+  view = acme_example.BatchedToSingleDmEnv(
+    envpool_torch.make_dm("CartPole-v1", num_envs=4, seed=0, device="cpu"), 0)
+  assert got == [r for r, _ in acme_example.noop_episodes(view, 2)]
+  assert all(r > 0 for r in got)

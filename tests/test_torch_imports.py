@@ -221,6 +221,32 @@ def test_no_jax_or_reference_imports():
     }, path
 
 
+def _imported_names(path: Path):
+  """Every dotted name an import statement of ``path`` binds or reads: the
+  module, and for ``from m import a`` also ``m.a``."""
+  tree = ast.parse(path.read_text(), filename=str(path))
+  for node in ast.walk(tree):
+    if isinstance(node, ast.Import):
+      for alias in node.names:
+        yield alias.name
+    elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+      yield node.module
+      for alias in node.names:
+        yield f"{node.module}.{alias.name}"
+
+
+def test_no_jax_named_module_anywhere_in_an_import():
+  """No import of the port or of ``chip_smoke.py`` names a jax module at
+  any depth of its dotted path (``acme.agents.jax`` imports jax, yet its
+  top-level package is ``acme``)."""
+  files = sorted((ROOT / "envpool_torch").rglob("*.py"))
+  files.append(ROOT / "chip_smoke.py")
+  for path in files:
+    for name in _imported_names(path):
+      parts = set(name.split("."))
+      assert not parts & {"jax", "jaxlib", "flax", "optax", "envpool_tpu"}, (path, name)
+
+
 def _module_level_imports(path: Path):
   """Roots of the imports outside any function body."""
   tree = ast.parse(path.read_text(), filename=str(path))

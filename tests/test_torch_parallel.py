@@ -287,7 +287,7 @@ def iteration():
               out=[np.asarray(o) for o in jstate2.handle.out])
 
 
-def _port_iteration(it, mesh=None, model_axis=None):
+def _port_iteration(it, mesh=None, model_axis=None, rows=False):
   spec = envpool_torch.make_spec("CartPole-v1", **it["kw"])
   pool = (envpool_torch.make_gymnasium("CartPole-v1", device="cpu", **it["kw"])
           if mesh is None else ShardedEnvPool(spec, mesh))
@@ -296,7 +296,7 @@ def _port_iteration(it, mesh=None, model_axis=None):
   np.testing.assert_array_equal(state.key.numpy(), it["key"])
   state = state._replace(params=params_from_flax(net, it["flax0"]))
   step = make_ppo_train_step(pool, net, it["cfg"], tx, mesh=mesh, model_axis=model_axis)
-  state2, m = step(state)
+  state2, m = step.per_row(state) if rows else step(state)
   return net, state2, {k: float(v) for k, v in m.items()}
 
 
@@ -313,16 +313,20 @@ def _close(net, got, want):
                                err_msg=k)
 
 
-@pytest.mark.parametrize("layout", ["env", "env_model"])
+@pytest.mark.parametrize("layout", ["env", "env_model", "env_rows", "env_model_rows"])
 def test_trainer_matches_unsharded_and_jax(iteration, layout):
   """8 env shards, or a (4, 2) mesh with ``model_axis="model"``: one
-  iteration against the unsharded port trainer and the JAX sharded one."""
-  if layout == "env":
-    mesh, model_axis = make_mesh(devices=CPU8), None
-  else:
+  iteration against the unsharded port trainer and the JAX sharded one,
+  through the trainer's call (on these logical shards of the CPU, the
+  unsharded iteration) and, for ``*_rows``, through the per-row path that
+  a mesh over several devices runs (``per_row``: each row's block on its
+  device, the model axis's column blocks)."""
+  if layout.startswith("env_model"):
     mesh, model_axis = _mesh((4, 2), ("env", "model")), "model"
+  else:
+    mesh, model_axis = make_mesh(devices=CPU8), None
   net, plain, plain_m = _port_iteration(iteration)
-  got = _port_iteration(iteration, mesh, model_axis)
+  got = _port_iteration(iteration, mesh, model_axis, rows=layout.endswith("_rows"))
   _close(net, got, (plain.params, plain_m))
   want = params_from_flax(net, iteration["params"])
   _close(net, got, (want, iteration["metrics"]))
@@ -338,3 +342,150 @@ def test_trainer_matches_unsharded_and_jax(iteration, layout):
 @pytest.mark.parametrize("n_devices", [8, 2])
 def test_dryrun_multichip(n_devices):
   dryrun_multichip(n_devices, device="cpu")
+
+
+# ------------------------------------------------- what the card captures
+
+
+def test_sharded_rollout_reads_nothing_back():
+  """``ShardedEnvPool.rollout`` (one ``graph.CapturedScan`` when the mesh
+  is one card) under ``tests/test_torch_graph.py``'s host-read guard, on 4
+  logical shards of the CPU: no host read, and the trajectory bit for bit
+  against the unsharded ``xla()`` loop."""
+  from test_torch_graph import HostReadGuard
+
+  spec = envpool_torch.make_spec("CartPole-v1", num_envs=16, seed=1)
+  sharded = ShardedEnvPool(spec, make_mesh(devices=["cpu"] * 4))
+  plain = envpool_torch.make_gymnasium("CartPole-v1", num_envs=16, seed=1, device="cpu")
+  obs = spec._state_keys.index("obs")
+
+  def policy(t, states):
+    return t + 1, (states[obs][:, 2] > 0).to(torch.int32)
+
+  sharded.rollout(policy, torch.zeros((), dtype=torch.int64), 2)  # constants made once
+  with HostReadGuard() as guard:
+    (_, t), traj = sharded.rollout(policy, torch.zeros((), dtype=torch.int64), 8)
+  assert guard.found == [], guard.found
+  assert int(t) == 8
+  h, recv, send, _ = plain.xla()
+  (_, _), want = _unsharded_loop(recv, send, policy, h)
+  for k, g, w in zip(spec._state_keys, traj, want):
+    assert torch.equal(g, w), k
+
+
+def _unsharded_loop(recv, send, policy, handle, steps=8):
+  """The same rollout over an unsharded pool, step by step."""
+  rows, t = [], torch.zeros((), dtype=torch.int64)
+  for _ in range(steps):
+    _, states = recv(handle)
+    t, action = policy(t, states)
+    handle = send(handle, action)
+    rows.append(states)
+  return (handle, t), [torch.stack(r) for r in zip(*rows)]
+
+
+@pytest.mark.parametrize("model_axis", [None, "model"])
+def test_sharded_trainer_reads_nothing_back(iteration, model_axis):
+  """``ShardedPPOTrainStep``'s rollout and update on one device (what the
+  card captures: the unsharded rollout step and update, the trajectory cut
+  into rows) under the host-read guard, on the 8-shard env mesh and a (4, 2)
+  env x model mesh of the CPU."""
+  from test_torch_graph import HostReadGuard
+
+  mesh = (make_mesh(devices=CPU8) if model_axis is None
+          else _mesh((4, 2), ("env", "model")))
+  spec = envpool_torch.make_spec("CartPole-v1", **iteration["kw"])
+  pool = ShardedEnvPool(spec, mesh)
+  net = MLPActorCritic(num_actions=2, hidden=(16, 16), dtype=torch.float32)
+  state, tx = ppo_init(pool, net, iteration["cfg"], seed=0)
+  step = make_ppo_train_step(pool, net, iteration["cfg"], tx, mesh=mesh,
+                             model_axis=model_axis)
+  assert step.one_device
+  state, _ = step(state)  # constants and the bias table made once
+  with HostReadGuard() as guard:
+    rollout = step.rollout(state)
+    new, metrics = step.update(state, rollout)
+  assert guard.found == [], guard.found
+  assert all(torch.isfinite(v) for v in metrics.values())
+  assert new.opt_state["count"] == 4
+
+
+def test_rows_update_matches_one_device_update(iteration):
+  """The update of a mesh over several devices (``update_rows``: eager,
+  each minibatch split by row) on the 8-shard CPU mesh, against the
+  one-device update of the same rollout: the same sums in another
+  grouping, within ``_close``'s tolerances."""
+  spec = envpool_torch.make_spec("CartPole-v1", **iteration["kw"])
+  net = MLPActorCritic(num_actions=2, hidden=(16, 16), dtype=torch.float32)
+  runs = []
+  for rows in (False, True):
+    mesh = make_mesh(devices=CPU8)
+    pool = ShardedEnvPool(spec, mesh)
+    state, tx = ppo_init(pool, net, iteration["cfg"], seed=0)
+    state = state._replace(params=params_from_flax(net, iteration["flax0"]))
+    step = make_ppo_train_step(pool, net, iteration["cfg"], tx, mesh=mesh)
+    assert step.one_device
+    rollout = step.rollout(state)
+    new, m = step.update_rows(state, rollout) if rows else step.update(state, rollout)
+    runs.append((net, new, {k: float(v) for k, v in m.items()}))
+  _close(net, runs[1], (runs[0][1].params, runs[0][2]))
+  assert torch.equal(runs[0][1].key, runs[1][1].key)
+
+
+def test_one_device_env_mesh_equals_unsharded():
+  """On one device the rows share parameters and device, so the sharded
+  trainer runs the policy and each minibatch whole (what the card
+  captures): on the env axis two iterations equal the unsharded
+  trainer's bit for bit."""
+  cfg = PPOConfig(num_steps=4, update_epochs=1, num_minibatches=2)
+  spec = envpool_torch.make_spec("CartPole-v1", num_envs=16, seed=0)
+  runs = []
+  for mesh in (None, make_mesh(devices=CPU8)):
+    pool = (envpool_torch.make_gymnasium("CartPole-v1", num_envs=16, seed=0, device="cpu")
+            if mesh is None else ShardedEnvPool(spec, mesh))
+    net = MLPActorCritic(num_actions=2, hidden=(16, 16), dtype=torch.float32)
+    state, tx = ppo_init(pool, net, cfg, seed=0)
+    step = make_ppo_train_step(pool, net, cfg, tx, mesh=mesh)
+    for _ in range(2):
+      state, metrics = step(state)
+    runs.append((state, metrics))
+  (want, want_m), (got, got_m) = runs
+  for k in want.params:
+    assert torch.equal(got.params[k], want.params[k]), k
+    assert torch.equal(got.opt_state["mu"][k], want.opt_state["mu"][k]), k
+  assert torch.equal(got.key, want.key)
+  assert {k: float(v) for k, v in got_m.items()} == {k: float(v) for k, v in want_m.items()}
+
+
+def test_one_device_model_mesh_equals_unsharded():
+  """On one device the model axis's blocks share the device, so the
+  trainer runs each layer whole: on a (4, 2) env x model mesh two
+  iterations equal the unsharded trainer's bit for bit, through the call
+  and through ``eager``. ``one_device`` is derived from the mesh and cannot
+  be set."""
+  cfg = PPOConfig(num_steps=4, update_epochs=1, num_minibatches=2)
+  spec = envpool_torch.make_spec("CartPole-v1", num_envs=16, seed=0)
+  runs = {}
+  for name in ("unsharded", "call", "eager"):
+    mesh = None if name == "unsharded" else _mesh((4, 2), ("env", "model"))
+    pool = (envpool_torch.make_gymnasium("CartPole-v1", num_envs=16, seed=0, device="cpu")
+            if mesh is None else ShardedEnvPool(spec, mesh))
+    net = MLPActorCritic(num_actions=2, hidden=(16, 16), dtype=torch.float32)
+    state, tx = ppo_init(pool, net, cfg, seed=0)
+    step = make_ppo_train_step(pool, net, cfg, tx, mesh=mesh,
+                               model_axis=None if mesh is None else "model")
+    if mesh is not None:
+      assert step.one_device
+      with pytest.raises(AttributeError):
+        step.one_device = False
+    run = step.eager if name == "eager" else step
+    for _ in range(2):
+      state, metrics = run(state)
+    runs[name] = (net, state, {k: float(v) for k, v in metrics.items()})
+  _, want, want_m = runs["unsharded"]
+  for name in ("call", "eager"):
+    _, got, got_m = runs[name]
+    for k in want.params:
+      assert torch.equal(got.params[k], want.params[k]), (name, k)
+      assert torch.equal(got.opt_state["nu"][k], want.opt_state["nu"][k]), (name, k)
+    assert torch.equal(got.key, want.key) and got_m == want_m, name

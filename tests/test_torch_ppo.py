@@ -345,3 +345,127 @@ def test_ppo_learns_cartpole():
   best = float(np.max(rewards[5:]))
   assert best > rewards[0], rewards
   assert best > 0.985, rewards
+
+
+# ------------------------------------- the captured update and the host pool
+
+
+def test_bias_rows_match_optax():
+  """``ClipAdam.bias_rows`` (the table the captured update reads) against
+  optax's ``1 - decay**count`` (``tree_bias_correction``, jitted as optax
+  runs it) for every count of two iterations of the default config, bit
+  for bit; a later count grows the table and keeps the rows."""
+  cfg = tppo.PPOConfig()
+  steps = 2 * cfg.update_epochs * cfg.num_minibatches
+  tx = tppo.ClipAdam(cfg.max_grad_norm, cfg.lr)
+  got = tx.bias_rows(1, steps, "cpu").numpy()
+  count = jnp.arange(1, steps + 1, dtype=jnp.int32)
+  for col, decay in enumerate((tx.b1, tx.b2)):
+    want = np.asarray(jax.jit(lambda c, d=decay: 1 - d ** c)(count))
+    assert want.dtype == got.dtype == np.float32
+    np.testing.assert_array_equal(got[:, col], want)
+  far = tx.bias_rows(5000, 3, "cpu").numpy()
+  np.testing.assert_array_equal(tx.bias_rows(1, steps, "cpu").numpy(), got)
+  assert far[0, 0] == np.float32(1 - np.float32(tx.b1) ** np.float32(5000))
+
+
+def _cartpole_pair(num_envs=8, **cfg_kw):
+  kw = dict(num_envs=num_envs, seed=0)
+  jpool = envpool_tpu.make_gymnasium("CartPole-v1", **kw)
+  tpool = envpool_torch.make_gymnasium("CartPole-v1", device="cpu", **kw)
+  jnet = jnets.MLPActorCritic(num_actions=2, hidden=(16, 16), dtype=jnp.float32)
+  tnet = tnets.MLPActorCritic(num_actions=2, hidden=(16, 16), dtype=torch.float32)
+  return jpool, tpool, jnet, tnet, jppo.PPOConfig(**cfg_kw), tppo.PPOConfig(**cfg_kw)
+
+
+def _same_iteration(tnet, tstate, tm, jstate, jm, atol=1e-6):
+  """``test_one_iteration_matches_jax``'s tolerances."""
+  for k in jm:
+    np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4, atol=1e-6, err_msg=k)
+  want = params_from_flax(tnet, jax.tree.map(np.asarray, jstate.params))
+  for k in want:
+    np.testing.assert_allclose(tstate.params[k].numpy(), want[k].numpy(),
+                               rtol=0, atol=atol, err_msg=k)
+  np.testing.assert_array_equal(tstate.key.numpy(), np.asarray(jstate.key))
+
+
+def test_two_iterations_match_jax():
+  """Two iterations of the port's trainer (its update the function that
+  the card captures) against two of the jitted JAX trainer: CartPole-v1, 8
+  envs, num_steps=4, 2 epochs of 2 minibatches (bias corrections of counts
+  1 to 8), a (16, 16) float32 MLP from the JAX parameters and key."""
+  jpool, tpool, jnet, tnet, jcfg, tcfg = _cartpole_pair(
+    num_steps=4, update_epochs=2, num_minibatches=2)
+  jstate, jtx = jppo.ppo_init(jpool, jnet, jcfg, seed=0)
+  tstate, ttx = tppo.ppo_init(tpool, tnet, tcfg, seed=0)
+  tstate = tstate._replace(params=params_from_flax(tnet, jax.tree.map(np.asarray, jstate.params)))
+  jstep = jax.jit(jppo.make_ppo_train_step(jpool, jnet, jcfg, jtx))
+  tstep = tppo.make_ppo_train_step(tpool, tnet, tcfg, ttx)
+  for it in range(2):
+    jstate, jm = jstep(jstate)
+    tstate, tm = tstep(tstate)
+    _same_iteration(tnet, tstate, tm, jstate, jm)
+    assert tstate.opt_state["count"] == 4 * (it + 1)
+  for g, w in zip(tstate.handle.out, jstate.handle.out):
+    np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-5)
+
+
+def test_update_reads_nothing_back():
+  """``PPOTrainStep.update`` under ``tests/test_torch_graph.py``'s
+  host-read guard: no host read and no tensor from host data (the bias
+  corrections come from the device table), as its capture needs."""
+  from test_torch_graph import HostReadGuard
+
+  _, tpool, _, tnet, _, tcfg = _cartpole_pair(num_steps=4, num_minibatches=2)
+  state, tx = tppo.ppo_init(tpool, tnet, tcfg, seed=3)
+  step = tppo.make_ppo_train_step(tpool, tnet, tcfg, tx)
+  state, _ = step(state)  # the table is made once, at the first update
+  rollout = step.rollout(state)
+  with HostReadGuard() as guard:
+    new, metrics = step.update(state, rollout)
+  assert guard.found == [], guard.found
+  assert new.opt_state["count"] == 2 * tcfg.update_epochs * tcfg.num_minibatches
+  assert all(torch.isfinite(v) for v in metrics.values())
+
+
+def test_host_pool_iteration_matches_jax(monkeypatch):
+  """One iteration over a ``HostEnvPool`` (the Atari stack at 16x16, stack
+  2, over ``tests/test_atari_stack.py``'s scripted emulator; its columns
+  hold no float64) against the JAX trainer over its host pool, whose
+  rollout steps the envs through ``io_callback``: a float32
+  ``SokobanCNN(channels=(4, 4))`` from the JAX parameters and key, 4 envs,
+  num_steps=4, 1 epoch of 2 minibatches. The port's rollout runs the same
+  host steps (``HostEnvPool._host_step``) that its capture holds as host
+  nodes on the card. Tolerances as ``test_one_iteration_matches_jax``'s,
+  the parameters within 1e-5 (convolutions sum in another order)."""
+  from envpool_torch.envs import atari as port_atari
+  from envpool_torch.envs.atari import atari_env as A
+  from envpool_tpu.envs import atari as jax_atari
+  from envpool_tpu.envs.atari import atari_env as JA
+  from test_atari_stack import FakeALE
+
+  monkeypatch.setattr(A, "_make_ale", lambda task, seed, rap: FakeALE())
+  monkeypatch.setattr(JA, "_make_ale", lambda task, seed, rap: FakeALE())
+  kw = dict(num_envs=4, seed=1, img_height=16, img_width=16, stack_num=2, num_threads=2)
+  try:
+    jpool = jax_atari.AtariGymnasiumEnvPool(jax_atari.AtariEnvSpec(
+      jax_atari.AtariEnvSpec.gen_config(**kw)))
+    tpool = port_atari.AtariGymnasiumEnvPool(port_atari.AtariEnvSpec(
+      port_atari.AtariEnvSpec.gen_config(**kw)), "cpu")
+    jnet = jnets.SokobanCNN(num_actions=4, channels=(4, 4), dtype=jnp.float32)
+    tnet = tnets.SokobanCNN(num_actions=4, channels=(4, 4), dtype=torch.float32)
+    cfg_kw = dict(num_steps=4, update_epochs=1, num_minibatches=2)
+    jcfg, tcfg = jppo.PPOConfig(**cfg_kw), tppo.PPOConfig(**cfg_kw)
+    jstate, jtx = jppo.ppo_init(jpool, jnet, jcfg, seed=0)
+    tstate, ttx = tppo.ppo_init(tpool, tnet, tcfg, seed=0)
+    tstate = tstate._replace(
+      params=params_from_flax(tnet, jax.tree.map(np.asarray, jstate.params)))
+    jstate2, jm = jax.jit(jppo.make_ppo_train_step(jpool, jnet, jcfg, jtx))(jstate)
+    tstate2, tm = tppo.make_ppo_train_step(tpool, tnet, tcfg, ttx)(tstate)
+  finally:
+    A._action_set_size.cache_clear()
+    JA._action_set_size.cache_clear()
+  assert int(tstate2.handle[0]) == cfg_kw["num_steps"]
+  for k, g, w in zip(tpool.spec._state_keys, tstate2.handle[1], jstate2.handle[1]):
+    np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=k)
+  _same_iteration(tnet, tstate2, tm, jstate2, jm, atol=1e-5)
