@@ -14,7 +14,18 @@ Phases (any failure exits non-zero before the result lines):
      times from CUDA events (L2 warm, and cold: 64 MB written before each
      launch) and the byte bound. The background kernel runs on the main
      path's own inputs (all coarse after a reset, all fine after 60 steps,
-     half of each) and on random inputs with a random per-env path;
+     half of each) and on random inputs with a random per-env path. The
+     threefry kernel (``csrc/threefry.cu``) against ``threefry_plain`` at
+     Sokoban's shapes (16384 keys: the pool's split of a strided view, a
+     contiguous split, a single-word draw, the pool's fold_in under a
+     broadcast key), at 1 key x 131,072 counters (PPO's permutation) and on
+     empty outputs; the step kernel (``csrc/sokoban_step.cu``) at 16384
+     envs in both level modes, from a pool's state after a reset and 30
+     steps, actions in [-5, 7], its step and its reset mode, against
+     ``step_plain``/``reset_plain`` on the card and on CPU copies, every
+     output bit for bit; both timed warm and cold beside their bound (bytes,
+     and threefry blocks at THREEFRY_OPS 32-bit operations) and their plain
+     time;
   4. the main path: ``make_gymnasium("CarRacing-v2", num_envs=1024)`` on the
      card, reset + 300 steps; a pool with ``max_episode_steps=64`` over 150
      steps (every lane auto-resets twice); an async pool (batch 256) for 20
@@ -32,8 +43,11 @@ Phases (any failure exits non-zero before the result lines):
      card against the CPU port over 100 steps (200 until phase 17's run
      outgrew the time limit), every output field bit for
      bit; one ``torch.profiler`` trace of ``xla()`` steps (device time,
-     launches per step, idle share). The Sokoban path has no hand-written
-     kernel (it has no Pallas counterpart; the fused step is queued);
+     launches per step, idle share). The headline run is the main path of
+     the threefry and step kernels: their counts start at 0 before it, the
+     step kernel must launch exactly once per ``SokobanEnv.step`` and
+     ``reset`` (1 + 300), and the trace gives each kernel's time and
+     launches per step;
   7. CartPole-v1 at 8192 envs (``bench.py``'s width), the card against the
      CPU port step for step, to float tolerance;
   8. PPO (``envpool_torch.train``): ``examples/ppo_sokoban.py``'s
@@ -249,6 +263,7 @@ Phases (any failure exits non-zero before the result lines):
      that replay launches and the bytes that ``cond``'s operand clones copy
      in it, both counted from the structure recorded during the capture
      (the nodes and the loops they sit in, whether the reset branch ran);
+     the threefry and step kernels' launches recorded into the graphs;
      the masked entry points with a device env_id; CheetahJaxRun-v1
      and PusherJax-v4 with lanes that reset through the IF node (Pusher's
      reset through its WHILE node); then the PPO rollout on Sokoban-v0 at
@@ -520,6 +535,211 @@ def background_shard(torch, args, card) -> dict:
       f"{ms:.4f} ms warm, bound {bound_ms * 1e3:.2f} us ({n_bytes} B), "
       f"{100 * bound_ms / ms:.1f}% of bound [{card}]")
   return {"n": k, "ms": ms, "bound_ms": bound_ms}
+
+
+def bit_diff(torch, got, want) -> int:
+  """0 where the two trees are equal bit for bit (floats by their bits),
+  else the largest absolute difference of their integer or bit views."""
+  from envpool_torch.core.pool import tree_map
+
+  gl, wl = [], []
+  tree_map(gl.append, got)
+  tree_map(wl.append, want)
+  if len(gl) != len(wl):
+    raise AssertionError(f"trees of {len(gl)} and {len(wl)} leaves")
+  err = 0
+  for g, w in zip(gl, wl):
+    if g.dtype != w.dtype or g.shape != w.shape:
+      raise AssertionError(f"{g.dtype} {tuple(g.shape)} against {w.dtype} {tuple(w.shape)}")
+    if g.is_floating_point():
+      bits = torch.int64 if g.element_size() == 8 else torch.int32
+      g, w = g.view(bits), w.view(bits)
+    if g.numel() and not torch.equal(g, w.to(g.device)):
+      err = max(err, int((g.long() - w.to(g.device).long()).abs().max()))
+  return err
+
+
+def threefry_cases(torch, device) -> dict:
+  """The threefry kernel's inputs (keys, n_ctr, pair, data): the main
+  path's shapes at SOKOBAN_ENVS keys (the pool's split of its carry, a view
+  ``both[:, 0]``; a contiguous split; the single-word draw of a view
+  ``both[:, 1]``; the pool's fold_in of env ids under one broadcast key),
+  PPO's permutation draw (1 key x 131,072 counters), and empty outputs."""
+  from envpool_torch.core import prng
+
+  g = np.random.default_rng(SEED + 30)
+
+  def keys(*shape):
+    return torch.from_numpy(
+      g.integers(0, 2**32, shape + (2,), dtype=np.uint64).astype(np.int64)
+    ).to(device)
+
+  n = SOKOBAN_ENVS
+  both = keys(n, 2)
+  ids = torch.arange(n, dtype=torch.int32, device=device)
+  return {
+    "split": (both[:, 0], 2, True, None),
+    "split_contiguous": (keys(n), 2, True, None),
+    "bits": (both[:, 1], 1, False, None),
+    "fold_in": (prng.prng_key(SEED, device).expand(n, 2), 1, True, ids),
+    "bits_wide": (keys(), 131072, False, None),
+    "empty_keys": (keys(0), 2, True, None),
+    "empty_counters": (keys(n), 0, False, None),
+  }
+
+
+def threefry_bound(keys, n_ctr: int, pair: bool, data):
+  """(byte ms, op ms, bytes): each distinct key read once (a broadcast key
+  once), the data read, the output written once; THREEFRY_OPS 32-bit
+  operations per hash."""
+  n_keys = keys.numel() // 2
+  distinct = 1 if n_keys and keys.stride(0) == 0 else n_keys
+  n_bytes = (16 * distinct + (0 if data is None else data.numel() * data.element_size())
+             + n_keys * n_ctr * (16 if pair else 8))
+  ops = n_keys * n_ctr * THREEFRY_OPS
+  return 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * ops / INT_OPS_PER_S, n_bytes
+
+
+def check_threefry(torch, device, card: str) -> dict:
+  """The threefry kernel against ``threefry_plain`` on every case of
+  ``threefry_cases``, bit for bit; warm and cold times, plain times, bound."""
+  from envpool_torch.core import prng
+
+  res = {"max_abs_err": 0, "cases": {}}
+  for name, (keys, n_ctr, pair, data) in threefry_cases(torch, device).items():
+    def kernel():
+      return prng.threefry_kernel(keys, n_ctr, pair, data)
+
+    def plain():
+      return prng.threefry_plain(keys, n_ctr, pair, data)
+
+    err = bit_diff(torch, kernel(), plain())
+    torch.cuda.synchronize()
+    if err:
+      raise AssertionError(f"threefry {name}: kernel != plain, max err {err}")
+    byte_ms, op_ms, n_bytes = threefry_bound(keys, n_ctr, pair, data)
+    bound_ms = max(byte_ms, op_ms)
+    r = {"keys": keys.numel() // 2, "counters": n_ctr, "pair": pair,
+         "bound_ms": bound_ms, "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
+    if keys.numel() and n_ctr:
+      r["ms"] = time_cuda(torch, kernel, 50)
+      r["ms_cold"] = time_cold(torch, kernel)
+      r["plain_ms"] = time_cuda(torch, plain, 10, queue=False)
+      log(f"threefry {name}: {r['keys']} keys x {n_ctr} counters "
+          f"({'pair' if pair else 'xor'}), bit-exact, kernel {r['ms']:.5f} ms warm, "
+          f"{r['ms_cold']:.5f} ms cold, plain {r['plain_ms']:.4f} ms, bound "
+          f"{bound_ms * 1e3:.3f} us ({n_bytes} B, {r['bound_by']}), "
+          f"{100 * bound_ms / r['ms']:.1f}% of bound warm, library none [{card}]")
+    else:
+      log(f"threefry {name}: empty output {tuple(kernel().shape)}, equal, no launch")
+    res["cases"][name] = r
+  return res
+
+
+def sokoban_step_cases(torch, envpool_torch, device) -> dict:
+  """The step kernel's inputs at SOKOBAN_ENVS envs in both level modes:
+  the pool's state after a reset and 30 steps (mid-episode, some lanes at
+  their cap), actions in [-5, 7] (noops and out-of-range actions) and the
+  pool's step key, a view ``both[:, 1]``; each mode's step and reset."""
+  from envpool_torch.core import prng
+
+  modes = {
+    "random": SOKOBAN_KW,
+    "sequential": dict(levels_dir=sokoban_levels_dir(envpool_torch),
+                       load_sequentially=True, max_episode_steps=60),
+  }
+  n = SOKOBAN_ENVS
+  g = np.random.default_rng(SEED + 31)
+  cases = {}
+  for mode, kw in modes.items():
+    env = envpool_torch.make_gymnasium(
+      "Sokoban-v0", num_envs=n, seed=SEED, device=device, **kw
+    )
+    env.reset()
+    for a in sokoban_actions(SEED + 32, 30, n):
+      env.step(a)
+    st = envpool_torch.state_from_numpy(env.save_state(), device)
+    keys = prng.split(st.rng, 2)[:, 1]
+    action = torch.from_numpy(g.integers(-5, 8, n).astype(np.int32)).to(device)
+    cases[f"{mode}_step"] = (env._cfg, st.env, action, keys)
+    cases[f"{mode}_reset"] = (env._cfg, st.env, None, keys)
+    del env
+  return cases
+
+
+def sokoban_kernel_bound(cfg, state, action, fresh: int):
+  """(byte ms, op ms, bytes) of one step-kernel call: what it must read
+  (the state, or the cursor alone in reset mode; the actions; the keys and
+  a bank row, its two indices and, in random mode, the file's start and
+  length per fresh lane) and write (the state, the obs, elapsed_step and
+  reward, done and trunc) once; the fresh lanes' threefry blocks as
+  32-bit operations (13 in random mode, the cap's 2 in sequential mode)."""
+  n, dd = state["world"].shape[0], state["world"].shape[1] ** 2
+  state_bytes = n * (dd + 8 + 6 * 4)
+  sequential = bool(cfg.load_sequentially)
+  per_fresh = 16 + dd + 8 + (0 if sequential else 12)
+  read = (4 * n if action is None else state_bytes + 4 * n) + fresh * per_fresh
+  write = state_bytes + 3 * n * dd + 4 * n + (0 if action is None else 6 * n)
+  capped = int(cfg.min_episode_steps) < int(cfg.max_episode_steps)
+  blocks = (2 if capped else 0) + (0 if sequential else 11)
+  ops = fresh * blocks * THREEFRY_OPS
+  return (1e3 * (read + write) / HBM_BYTES_PER_S, 1e3 * ops / INT_OPS_PER_S,
+          read + write)
+
+
+def check_sokoban_step(torch, envpool_torch, device, card: str) -> dict:
+  """The step kernel (``SokobanEnv.step``/``reset`` on the card) against
+  ``step_plain``/``reset_plain`` on the card and on CPU copies of the same
+  inputs, every output bit for bit; warm and cold times, plain times, the
+  bound."""
+  from envpool_torch.core.pool import tree_map
+  from envpool_torch.envs.sokoban.sokoban import SokobanEnv
+
+  res = {"max_abs_err": 0, "cases": {}}
+  for name, (cfg, state, action, keys) in sokoban_step_cases(
+    torch, envpool_torch, device
+  ).items():
+    if action is None:
+      def kernel():
+        return SokobanEnv.reset(cfg, state, keys)
+
+      def plain():
+        return SokobanEnv.reset_plain(cfg, state, keys)
+    else:
+      def kernel():
+        return SokobanEnv.step(cfg, state, action, keys)
+
+      def plain():
+        return SokobanEnv.step_plain(cfg, state, action, keys)
+    got, want = kernel(), plain()
+    cpu = lambda t: t.cpu()
+    on_cpu = (SokobanEnv.reset_plain(cfg, tree_map(cpu, state), keys.cpu())
+              if action is None else
+              SokobanEnv.step_plain(cfg, tree_map(cpu, state), action.cpu(), keys.cpu()))
+    err = max(bit_diff(torch, got, want), bit_diff(torch, got, on_cpu))
+    if err:
+      raise AssertionError(f"sokoban_step {name}: kernel != plain, max err {err}")
+    fresh = state["world"].shape[0] if action is None else int(want[3].sum())
+    r = {"fresh_lanes": fresh}
+    if action is not None:
+      r["noops"] = int((action < 0).sum())
+      r["out_of_range"] = int((action > 3).sum())
+      if not (fresh and r["noops"] and r["out_of_range"]):
+        raise AssertionError(f"sokoban_step {name}: a case without done lanes, noops "
+                             f"or out-of-range actions: {r}")
+    byte_ms, op_ms, n_bytes = sokoban_kernel_bound(cfg, state, action, fresh)
+    r["bound_ms"] = max(byte_ms, op_ms)
+    r["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
+    r["ms"] = time_cuda(torch, kernel, 50)
+    r["ms_cold"] = time_cold(torch, kernel)
+    r["plain_ms"] = time_cuda(torch, plain, 10, queue=False)
+    log(f"sokoban_step {name}: {SOKOBAN_ENVS} envs, {fresh} fresh lanes, bit-exact "
+        f"against plain on the card and on the CPU, kernel {r['ms']:.5f} ms warm, "
+        f"{r['ms_cold']:.5f} ms cold, plain {r['plain_ms']:.4f} ms, bound "
+        f"{r['bound_ms'] * 1e3:.3f} us ({n_bytes} B, {r['bound_by']}), "
+        f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound warm, library none [{card}]")
+    res["cases"][name] = r
+  return res
 
 
 # --------------------------------------------------------------- phase 4
@@ -4296,8 +4516,12 @@ def captured_rollouts(torch, envpool_torch, card) -> dict:
   log(f"set_conditional checks and timings (a child process): "
       f"{time.perf_counter() - t0:.1f} s")
   # the phase's main path: every count from 0
+  from envpool_torch.core import prng
+  from envpool_torch.envs.sokoban.sokoban import SokobanEnv
+
   graph.set_conditional.launches = graph.set_counted.launches = 0
   sampler.fused_background.launches = 0
+  prng.threefry_kernel.launches = SokobanEnv.kernel_launches = 0
   for task_id in CAPTURED:
     t0 = time.perf_counter()
     res[task_id] = captured_cell(torch, envpool_torch, task_id, card)
@@ -4308,7 +4532,9 @@ def captured_rollouts(torch, envpool_torch, card) -> dict:
   res["ppo_sokoban"] = captured_ppo(torch, envpool_torch, card)
   res["launches"] = {"set_conditional": graph.set_conditional.launches,
                      "set_conditional_counted": graph.set_counted.launches,
-                     "car_racing_sampler": sampler.fused_background.launches}
+                     "car_racing_sampler": sampler.fused_background.launches,
+                     "threefry": prng.threefry_kernel.launches,
+                     "sokoban_step": SokobanEnv.kernel_launches}
   if not all(res["launches"].values()):
     raise AssertionError(f"phase 18 launched a kernel no time: {res['launches']}")
   return res
@@ -4356,6 +4582,10 @@ def main(argv) -> int:
 
   # 3. kernel vs plain
   kres = check_background(torch, envpool_torch, device, card)
+  t3 = time.perf_counter()
+  tf_res = check_threefry(torch, device, card)
+  step_res = check_sokoban_step(torch, envpool_torch, device, card)
+  log(f"threefry and sokoban_step checks: {time.perf_counter() - t3:.1f} s")
 
   # 4. main path
   env, last_action, sps, launches, _ = run_sync(
@@ -4392,9 +4622,26 @@ def main(argv) -> int:
       f"{cmp['obs_equal']:.6f}, reward max err {cmp['reward_max_err']:.3g}, "
       f"pos max err {cmp['pos_max_err']:.3g}, integer fields exact")
 
-  # 6. Sokoban-v0, the headline workload
+  # 6. Sokoban-v0, the headline workload: the main path of the threefry and
+  # step kernels, every count from 0
   t6 = time.perf_counter()
+  from envpool_torch.core import prng
+  from envpool_torch.envs.sokoban.sokoban import SokobanEnv
+
+  prng.threefry_kernel.launches = SokobanEnv.kernel_launches = 0
   env, sps, sps_xla, dones, bound = sokoban_headline(torch, envpool_torch, device)
+  main_launches = {"threefry": prng.threefry_kernel.launches,
+                   "sokoban_step": SokobanEnv.kernel_launches}
+  # one step kernel per SokobanEnv.step and reset: the reset, then every
+  # step of the step loop and of the xla() loop; the pool's reset branch
+  # never runs (done is carried as 0 by an env-side auto-reset family)
+  want_steps = 1 + 2 * SOKOBAN_STEPS
+  log(f"Sokoban-v0 kernel launches in reset + {2 * SOKOBAN_STEPS} steps: "
+      f"sokoban_step {main_launches['sokoban_step']} (expected {want_steps}), "
+      f"threefry {main_launches['threefry']} (the pool's init fold_in and split, "
+      f"then one split per advance)")
+  if main_launches["sokoban_step"] != want_steps or not main_launches["threefry"]:
+    raise AssertionError(f"Sokoban-v0 main path launches {main_launches}")
   log(f"Sokoban-v0: {SOKOBAN_ENVS} envs, reset + {SOKOBAN_STEPS} steps of "
       f"actions in [-1, 3]: every lane auto-reset ({int(dones.min())} to "
       f"{int(dones.max())} terminal steps per lane), NaN rewards exactly at "
@@ -4406,12 +4653,17 @@ def main(argv) -> int:
   ).to(device))
   log_profile(f"Sokoban-v0 xla() step of {SOKOBAN_ENVS} envs", busy_us, rows,
               1e6 * SOKOBAN_ENVS / sps_xla, card)
+  sokoban_trace = {"busy_us": busy_us, "launches": sum(r[2] for r in rows),
+                   "kernels": {k: (us, count) for k, us, count in rows
+                               if "threefry" in k or "sokoban" in k}}
+  for kname, (us, count) in sokoban_trace["kernels"].items():
+    log(f"  {kname[:60]}: {us:.2f} us/step, {count:.1f} launches/step")
   byte_ms, op_ms, n_bytes = bound
-  log(f"Sokoban-v0 step bound (no fused kernel yet, queued): "
+  log(f"Sokoban-v0 pool step bound: "
       f"{1e3 * max(byte_ms, op_ms):.2f} us per step of {SOKOBAN_ENVS} envs "
       f"({n_bytes} B, {'bytes' if byte_ms >= op_ms else 'operations'}; "
       f"operations {1e3 * op_ms:.2f} us) against {busy_us:.1f} us of eager "
-      f"device kernels")
+      f"device kernels in {sokoban_trace['launches']:.0f} launches")
   del env
   env, episodes, sps_seq = sokoban_sequential(torch, envpool_torch, device)
   log(f"Sokoban-v0 sequential mode: 1024 envs, 200 steps, {episodes} "
@@ -4652,7 +4904,53 @@ def main(argv) -> int:
             f"recorded into phase 18's graphs; per_replayed_step: as for "
             f"set_conditional",
   }
-  log(json.dumps({"kernels": [kernel, cond_kernel, counted_kernel]}))
+  tf_main = tf_res["cases"]["split"]
+  threefry_kernel = {
+    "name": "threefry",
+    "route": "cuda",
+    "source": "envpool_torch/csrc/threefry.cu",
+    "replaces": "none: jax's threefry_2x32, which XLA fuses on the TPU, reached "
+                "through envpool_tpu/core/pool.py:67 (_split_keys) and every "
+                "family's draws",
+    "launches": main_launches["threefry"],
+    "max_abs_err": tf_res["max_abs_err"],
+    "ms": tf_main["ms"],
+    "plain_ms": tf_main["plain_ms"],
+    "bound_ms": tf_main["bound_ms"],
+    "bound_by": tf_main["bound_by"],
+    "library_ms": None,
+    "library": "null: no single PyTorch call computes threefry-2x32",
+    "ms_cold": tf_main["ms_cold"],
+    "cases": tf_res["cases"],
+    "unit": f"the pool's split of {SOKOBAN_ENVS} keys (a strided view), one "
+            f"launch; launches: phase 6's Sokoban-v0 run (reset + "
+            f"{2 * SOKOBAN_STEPS} steps)",
+  }
+  st_main = step_res["cases"]["random_step"]
+  step_kernel = {
+    "name": "sokoban_step",
+    "route": "cuda",
+    "source": "envpool_torch/csrc/sokoban_step.cu",
+    "replaces": "none: the XLA fusion of SokobanEnv.step and reset "
+                "(envpool_tpu/envs/sokoban/sokoban.py:289, :240, :173, :394) "
+                "under envpool_tpu/core/pool.py:215",
+    "launches": main_launches["sokoban_step"],
+    "max_abs_err": step_res["max_abs_err"],
+    "ms": st_main["ms"],
+    "plain_ms": st_main["plain_ms"],
+    "bound_ms": st_main["bound_ms"],
+    "bound_by": st_main["bound_by"],
+    "library_ms": None,
+    "library": "null: no single PyTorch call computes a Sokoban step",
+    "ms_cold": st_main["ms_cold"],
+    "cases": step_res["cases"],
+    "main_path_trace": sokoban_trace,
+    "unit": f"one SokobanEnv.step of {SOKOBAN_ENVS} envs in random mode from "
+            f"a mid-episode state, one launch; launches: phase 6's Sokoban-v0 "
+            f"run (reset + {2 * SOKOBAN_STEPS} steps)",
+  }
+  log(json.dumps({"kernels": [kernel, cond_kernel, counted_kernel, threefry_kernel,
+                              step_kernel]}))
   log(json.dumps({
     "ok": True,
     "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/kernels/<name>.so`` at the root of the
 checkout, at first use, then loaded with ``ctypes``. A library is rebuilt
-when its source is newer. Nothing here runs at import: the CPU tests import
-every module and have no ``nvcc``.
+when its source, or any ``csrc/*.cuh`` header, is newer than it: every
+``.cu`` file rebuilds when any header changes, since the headers are few and
+nvcc is not asked which of them a source includes. Nothing here runs at
+import: the CPU tests import every module and have no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -46,10 +48,13 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+  """Whether ``name``'s library is missing or older than its source or any
+  header of ``csrc/`` (every ``.cu`` rebuilds when any header changes)."""
   lib = _lib_path(name)
-  return not lib.exists() or (
-    lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
-  )
+  if not lib.exists():
+    return True
+  sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+  return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
 def build(names: Optional[Iterable[str]] = None) -> float:

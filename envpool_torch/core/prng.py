@@ -17,16 +17,25 @@ and the networks' own initialisation ``truncated_normal``
 through ``log`` and ``erfinv`` and may differ from XLA's by a few ulps.
 
 Keys are raw ``[..., 2]`` tensors of uint32 values held in ``int64``
-(torch's uint32 has no arithmetic on every device); all arithmetic is done
-in int64 and masked to 32 bits, so the functions run unchanged on CPU and
-CUDA tensors. Every function is batched over leading dimensions: the
-``vmap`` of the JAX package becomes a batch dimension.
+(torch's uint32 has no arithmetic on every device). Every function is
+batched over leading dimensions: the ``vmap`` of the JAX package becomes a
+batch dimension.
+
+Every hash goes through ``split``, ``random_bits`` or ``fold_in``, and each
+of those is one call of the hash over a batch of keys and counters: on a
+CUDA tensor one launch of ``csrc/threefry.cu`` (``threefry_kernel``), on a
+CPU tensor its plain version ``threefry_plain``, the 20 rounds as int64
+tensor ops masked to 32 bits (``threefry2x32``). Every draw built on them
+(``randint``, ``uniform``, ``bernoulli``, ``normal``, ``gumbel``,
+``categorical``, ``permutation``, ``truncated_normal``) reaches the kernel
+through them.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -61,48 +70,144 @@ def prng_key(seed: int, device: Union[str, torch.device] = "cpu") -> torch.Tenso
   return torch.tensor([0, seed & _M32], dtype=torch.int64, device=device)
 
 
-def fold_in(keys: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
-  """``jax.random.fold_in`` batched: keys ``[..., 2]``, data ``[...]``."""
-  if isinstance(data, torch.Tensor):
-    data = data.to(device=keys.device, dtype=torch.int64) & _M32
-  else:
-    # a fill on the device, not a host-to-device copy (it may be captured)
-    data = torch.full_like(keys[..., 0], int(data) & _M32)
-  b1, b2 = threefry2x32(
-    keys[..., 0], keys[..., 1], torch.zeros_like(data), data
-  )
-  return torch.stack([b1, b2], dim=-1)
+def threefry_plain(
+  keys: torch.Tensor, n_ctr: int, pair: bool,
+  data: Optional[torch.Tensor] = None, base: int = 0,
+) -> torch.Tensor:
+  """The plain version of ``threefry_kernel``, the same arguments and output.
 
-
-def _iota_counts(batch: Sequence[int], shape: Sequence[int], device):
-  n = 1
-  for s in shape:
-    n *= int(s)
-  lo = torch.arange(n, dtype=torch.int64, device=device).reshape(tuple(shape))
-  lo = lo.reshape((1,) * len(batch) + tuple(shape))
-  return torch.zeros_like(lo), lo
-
-
-def _bits_pair(keys: torch.Tensor, shape: Sequence[int]):
-  """The two threefry output words for counters 0..prod(shape)-1."""
-  shape = tuple(int(s) for s in shape)
+  Keys ``[..., 2]``; per key, the counters ``(0, c + i)`` for ``i <
+  n_ctr``, where ``c`` is ``data[...]`` (the fold_in form: ``data`` has the
+  keys' batch shape and ``n_ctr`` is 1) or ``base`` (the iota form of
+  ``split`` and ``random_bits``: ``base`` 0). Returns ``[..., n_ctr, 2]``,
+  the two words of each hash (``pair``), or ``[..., n_ctr]``, their xor.
+  """
   batch = keys.shape[:-1]
-  hi, lo = _iota_counts(batch, shape, keys.device)
-  k1 = keys[..., 0].reshape(batch + (1,) * len(shape))
-  k2 = keys[..., 1].reshape(batch + (1,) * len(shape))
-  return threefry2x32(k1, k2, hi, lo)
+  if data is None:
+    lo = (torch.arange(n_ctr, dtype=torch.int64, device=keys.device) + base) & _M32
+    lo = lo.reshape((1,) * len(batch) + (n_ctr,))
+  else:
+    lo = (data.to(torch.int64) & _M32)[..., None]
+  b1, b2 = threefry2x32(keys[..., 0, None], keys[..., 1, None], torch.zeros_like(lo), lo)
+  return torch.stack([b1, b2], dim=-1) if pair else b1 ^ b2
+
+
+def _batch_stride(shape: Sequence[int], strides: Sequence[int]) -> Optional[int]:
+  """The one stride that walks a batch of ``shape`` laid out by ``strides``
+  in row-major order, or None where one stride cannot."""
+  dims = [(n, st) for n, st in zip(shape, strides) if n != 1]
+  for (_, s0), (n1, s1) in zip(dims, dims[1:]):
+    if s0 != s1 * n1:
+      return None
+  return dims[-1][1] if dims else 0
+
+
+def _kernel():
+  """The C entry point of ``csrc/threefry.cu``, built at first use."""
+  from envpool_torch import _build
+
+  fn = _build.load("threefry").threefry_launch
+  if fn.argtypes is None:
+    ll, vp = ctypes.c_longlong, ctypes.c_void_p
+    fn.argtypes = [vp, ll, ll, ll, vp, ctypes.c_int, ll, ll, ll, ctypes.c_int, vp, vp]
+    fn.restype = ctypes.c_int
+  return fn
+
+
+def threefry_kernel(
+  keys: torch.Tensor, n_ctr: int, pair: bool,
+  data: Optional[torch.Tensor] = None, base: int = 0,
+) -> torch.Tensor:
+  """``threefry_plain`` on CUDA tensors, one launch of ``csrc/threefry.cu``.
+
+  Keys are int64 ``[..., 2]``; ``data`` int32 or int64 with the keys'
+  batch shape. A key batch (or ``data``) whose strides cannot be walked by
+  one stride is copied first (one PyTorch copy; the views the port passes,
+  such as ``both[:, 0]`` or a broadcast key, need none). Nothing is
+  launched, or counted, when the output is empty.
+  ``threefry_kernel.launches`` counts kernel launches."""
+  if keys.device.type != "cuda":
+    raise ValueError(f"threefry_kernel takes CUDA tensors, got {keys.device}")
+  if keys.dtype != torch.int64 or keys.ndim < 1 or keys.shape[-1] != 2:
+    raise ValueError(f"keys must be int64 [..., 2], got {keys.dtype} {tuple(keys.shape)}")
+  batch = tuple(keys.shape[:-1])
+  n_keys = math.prod(batch)
+  if not 0 <= n_ctr < 2**32 or n_keys * n_ctr >= 2**31:
+    raise ValueError(f"{n_keys} keys x {n_ctr} counters: the kernel takes "
+                     f"fewer than 2^31 outputs")
+  out = torch.empty(batch + ((n_ctr, 2) if pair else (n_ctr,)),
+                    dtype=torch.int64, device=keys.device)
+  key_stride = _batch_stride(batch, keys.stride()[:-1])
+  if key_stride is None:
+    keys = keys.contiguous()
+    key_stride = 2
+  data_ptr, data_bytes, data_stride = None, 0, 0
+  if data is not None:
+    if data.dtype not in (torch.int32, torch.int64) or tuple(data.shape) != batch:
+      raise ValueError(f"data must be int32 or int64 {batch}, got {data.dtype} "
+                       f"{tuple(data.shape)}")
+    if data.device != keys.device or n_ctr != 1:
+      raise ValueError("data must lie on the keys' device, with n_ctr 1")
+    data_stride = _batch_stride(batch, data.stride())
+    if data_stride is None:
+      data = data.contiguous()
+      data_stride = 1
+    data_ptr, data_bytes = data.data_ptr(), data.element_size()
+  if out.numel() == 0:
+    return out
+  with torch.cuda.device(keys.device):
+    err = _kernel()(
+      keys.data_ptr(), n_keys, key_stride, keys.stride(-1), data_ptr, data_bytes,
+      data_stride, int(base) & _M32, n_ctr, int(pair), out.data_ptr(),
+      torch.cuda.current_stream().cuda_stream,
+    )
+  if err != 0:
+    raise RuntimeError(f"threefry launch failed: CUDA error {err}")
+  threefry_kernel.launches += 1
+  return out
+
+
+threefry_kernel.launches = 0
+
+
+def _threefry(
+  keys: torch.Tensor, n_ctr: int, pair: bool,
+  data: Optional[torch.Tensor] = None, base: int = 0,
+) -> torch.Tensor:
+  """The hash: the kernel for CUDA tensors, the plain version for CPU ones
+  (and for meta tensors, which hold shapes only: the tests step families on
+  them to show that a step reads nothing back)."""
+  if keys.device.type == "cuda":
+    return threefry_kernel(keys, n_ctr, pair, data, base)
+  if keys.device.type not in ("cpu", "meta"):
+    raise ValueError(f"no threefry kernel for device {keys.device}")
+  return threefry_plain(keys, n_ctr, pair, data, base)
+
+
+def fold_in(keys: torch.Tensor, data: Union[torch.Tensor, int]) -> torch.Tensor:
+  """``jax.random.fold_in`` batched: keys ``[..., 2]``, data ``[...]``
+  (broadcast against the keys' batch) or an int."""
+  if not isinstance(data, torch.Tensor):
+    # a constant counter, not a host-to-device copy (it may be captured)
+    return _threefry(keys, 1, True, base=int(data) & _M32)[..., 0, :]
+  data = data.to(device=keys.device)
+  if data.dtype not in (torch.int32, torch.int64):
+    data = data.to(torch.int64)
+  batch = torch.broadcast_shapes(keys.shape[:-1], data.shape)
+  out = _threefry(keys.expand(batch + (2,)), 1, True, data.expand(batch))
+  return out[..., 0, :]
 
 
 def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
   """``jax.random.split(key, num)`` batched: ``[..., 2] -> [..., num, 2]``."""
-  b1, b2 = _bits_pair(keys, (num,))
-  return torch.stack([b1, b2], dim=-1)
+  return _threefry(keys, int(num), True)
 
 
 def random_bits(keys: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
   """32-bit ``jax.random.bits`` batched: ``[..., 2] -> [..., *shape]``."""
-  b1, b2 = _bits_pair(keys, shape)
-  return b1 ^ b2
+  shape = tuple(int(s) for s in shape)
+  out = _threefry(keys, math.prod(shape), False)
+  return out.reshape(keys.shape[:-1] + shape)
 
 
 def randint(

@@ -18,13 +18,19 @@ bit for bit (``tests/test_torch_sokoban_parity.py``):
 
 Where the JAX package works around the TPU (one-hot GEMMs for the level
 fetch, one-hot masks for cell reads and writes, seven mask passes for the
-render), the port uses what a GPU does well: one gather from the
-``[n_levels, D, D]`` bank, three gathers and three masked scatters on the
-flattened worlds, and one palette gather for the render.
+render), the plain version (``step_plain``, ``reset_plain``) uses what a
+GPU does well: one gather from the ``[n_levels, D, D]`` bank, three gathers
+and three masked scatters on the flattened worlds, and one palette gather
+for the render. ``step`` and ``reset`` run it for CPU tensors; for CUDA
+tensors they are one launch each of ``csrc/sokoban_step.cu``, which
+computes the same thing, bit for bit, with its next episodes drawn in the
+kernel from ``csrc/threefry.cuh`` (``SokobanEnv.kernel_launches`` counts
+the launches).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import os
 import tempfile
@@ -33,6 +39,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from envpool_torch import _build
 from envpool_torch.core import prng
 from envpool_torch.core.env import FuncEnv
 from envpool_torch.core.spec import ArraySpec
@@ -128,12 +135,19 @@ def _get_bank(cfg: Any) -> LevelBank:
   )
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=None)
 def _device_bank(
   levels_dir: str, dim_room: int, n_levels_to_load: int, seed: int,
   device: torch.device,
 ) -> Dict[str, torch.Tensor]:
-  """The bank and its tables on ``device``, built once per config."""
+  """The bank and its tables on ``device``, built once per config.
+
+  Kept with the env for the life of the process (an unbounded cache): a
+  captured graph holds the bank's addresses, in the step kernel's arguments
+  or the plain version's gathers, and replays read them for as long as the
+  graph lives, so no bank may be freed while any pool could still replay.
+  A bank is ``n_levels * D * D`` bytes and a few tables (~110 KB for 1024
+  levels of 10 x 10) per (config, device)."""
   bank = _bank_cached(levels_dir, dim_room, n_levels_to_load, seed)
 
   def dev(x: np.ndarray) -> torch.Tensor:
@@ -156,6 +170,53 @@ def _constants(device: torch.device) -> Dict[str, torch.Tensor]:
   }
 
 
+#: the largest ``dim_room`` the step kernel takes (a warp of envs' worlds in
+#: 48 KB of shared memory)
+KERNEL_MAX_DIM = 32
+
+
+class _StepArgs(ctypes.Structure):
+  """``struct SokobanArgs`` of ``csrc/sokoban_step.cu``."""
+
+  _fields_ = [
+    *((name, ctypes.c_void_p) for name in (
+      "world", "player", "unmatched", "steps", "cap", "cursor", "file_idx",
+      "level_idx", "action", "keys",
+    )),
+    ("key_stride", ctypes.c_longlong), ("key_col", ctypes.c_longlong),
+    *((name, ctypes.c_void_p) for name in (
+      "levels", "bank_file_idx", "bank_level_idx", "file_start", "file_len",
+    )),
+    *((name, ctypes.c_int) for name in (
+      "n_files", "n", "dim", "sequential", "n_eff", "num_envs",
+    )),
+    ("cap_lo", ctypes.c_uint), ("cap_span", ctypes.c_uint), ("cap_hi", ctypes.c_int),
+    ("reward_step", ctypes.c_float), ("reward_box", ctypes.c_float),
+    ("reward_finished", ctypes.c_float),
+    *((name, ctypes.c_void_p) for name in (
+      "world_out", "player_out", "unmatched_out", "steps_out", "cap_out",
+      "cursor_out", "file_idx_out", "level_idx_out", "obs", "reward", "done",
+      "trunc", "elapsed",
+    )),
+  ]
+
+
+def _kernel():
+  """The C entry point of ``csrc/sokoban_step.cu``, built at first use."""
+  fn = _build.load("sokoban_step").sokoban_launch
+  if fn.argtypes is None:
+    fn.argtypes = [ctypes.POINTER(_StepArgs), ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+  return fn
+
+
+#: the state's fields in the order ``_fresh_episode`` builds them
+_STATE_KEYS = (
+  "world", "player", "unmatched", "steps", "cap", "cursor", "file_idx",
+  "level_idx",
+)
+
+
 def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
   """int64 values -> int32 with two's-complement wrap (the JAX casts)."""
   x = x & 0xFFFFFFFF
@@ -167,6 +228,8 @@ class SokobanEnv(FuncEnv):
 
   name = "Sokoban"
   env_resets = True
+  #: launches of ``csrc/sokoban_step.cu`` (step and reset together)
+  kernel_launches = 0
 
   @staticmethod
   def default_config() -> Dict[str, Any]:
@@ -296,12 +359,116 @@ class SokobanEnv(FuncEnv):
   def reset(
     cls, cfg: Any, state: Any, keys: torch.Tensor
   ) -> Tuple[Any, Any, Dict]:
+    """``reset_plain`` for CPU (and meta) tensors; one launch of the step
+    kernel in reset mode for CUDA tensors."""
+    if state["world"].device.type in ("cpu", "meta"):
+      return cls.reset_plain(cfg, state, keys)
+    new, obs, _, _, _, elapsed = cls._launch(cfg, state, None, keys)
+    return new, obs, dict(cls._info(new), elapsed_step=elapsed)
+
+  @classmethod
+  def reset_plain(
+    cls, cfg: Any, state: Any, keys: torch.Tensor
+  ) -> Tuple[Any, Any, Dict]:
     new = cls._fresh_episode(cfg, state["cursor"], keys)
     info = dict(cls._info(new), elapsed_step=torch.zeros_like(new["steps"]))
     return new, cls._render(new["world"]), info
 
   @classmethod
   def step(
+    cls, cfg: Any, state: Any, action: torch.Tensor, keys: torch.Tensor
+  ) -> Tuple[Any, Any, torch.Tensor, torch.Tensor, torch.Tensor, Dict]:
+    """``step_plain`` for CPU (and meta) tensors; one launch of
+    ``csrc/sokoban_step.cu`` for CUDA tensors."""
+    if state["world"].device.type in ("cpu", "meta"):
+      return cls.step_plain(cfg, state, action, keys)
+    out, obs, reward, done, trunc, elapsed = cls._launch(cfg, state, action, keys)
+    return out, obs, reward, done, trunc, dict(cls._info(out), elapsed_step=elapsed)
+
+  @classmethod
+  def _launch(cls, cfg: Any, state: Any, action: Any, keys: torch.Tensor):
+    """One launch of the step kernel (reset mode where ``action`` is None):
+    (state, obs, reward, done, trunc, elapsed_step), the three step outputs
+    None in reset mode. Checks dtypes, shapes and devices, allocates the
+    outputs, launches on the current stream and reads nothing back, so it
+    may be captured. A state field that is not contiguous is copied first
+    (the pool's never are)."""
+    world = state["world"]
+    dev = world.device
+    if dev.type != "cuda":
+      raise ValueError(f"no Sokoban step kernel for device {dev}")
+    n, d = world.shape[0], int(cfg.dim_room)
+    if set(state) != set(_STATE_KEYS):
+      raise ValueError(f"Sokoban state fields {sorted(state)}, expected {sorted(_STATE_KEYS)}")
+    if not 0 < d <= KERNEL_MAX_DIM:
+      raise ValueError(f"the step kernel takes dim_room 1..{KERNEL_MAX_DIM}, got {d}")
+    shapes = {"world": (n, d, d), "player": (n, 2)}
+    st = {}
+    for k in _STATE_KEYS:
+      v = state[k]
+      dtype = torch.uint8 if k == "world" else torch.int32
+      if v.dtype != dtype or tuple(v.shape) != shapes.get(k, (n,)) or v.device != dev:
+        raise ValueError(
+          f"state[{k!r}] must be {dtype} {shapes.get(k, (n,))} on {dev}, got "
+          f"{v.dtype} {tuple(v.shape)} on {v.device}"
+        )
+      st[k] = v.contiguous()
+    if keys.dtype != torch.int64 or tuple(keys.shape) != (n, 2) or keys.device != dev:
+      raise ValueError(f"keys must be int64 ({n}, 2) on {dev}, got {keys.dtype} "
+                       f"{tuple(keys.shape)} on {keys.device}")
+    reset = action is None
+    if not reset:
+      if action.device != dev or action.numel() != n:
+        raise ValueError(f"action must hold {n} values on {dev}")
+      action = action.reshape(n).to(torch.int32).contiguous()
+    bank = _device_bank(
+      str(cfg.levels_dir), d, int(cfg.n_levels_to_load), int(cfg.seed), dev
+    )
+    n_levels, n_files = bank["levels"].shape[0], bank["file_start"].shape[0]
+    n_load = int(cfg.n_levels_to_load)
+    lo, hi = int(cfg.min_episode_steps), int(cfg.max_episode_steps)
+    i32 = torch.iinfo(torch.int32)
+    span = (hi - lo + 1) & 0xFFFFFFFF if lo < hi else 0
+    if not i32.min <= hi <= i32.max or (lo < hi and span == 0):
+      raise ValueError(f"episode steps [{lo}, {hi}] outside what the kernel takes")
+
+    def empty(shape, dtype=torch.int32):
+      return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = {k: empty(v.shape, v.dtype) for k, v in st.items()}
+    obs = empty((n, 3, d, d), torch.uint8)
+    elapsed = empty((n,))
+    reward = None if reset else empty((n,), torch.float32)
+    done = None if reset else empty((n,), torch.bool)
+    trunc = None if reset else empty((n,), torch.bool)
+    f32 = np.float32
+
+    def ptr(t):
+      return None if t is None else t.data_ptr()
+
+    args = _StepArgs(
+      *(ptr(st[k]) for k in _STATE_KEYS), ptr(action), keys.data_ptr(),
+      keys.stride(0), keys.stride(1),
+      *(ptr(bank[k]) for k in ("levels", "file_idx", "level_idx", "file_start", "file_len")),
+      n_files, n, d, int(bool(cfg.load_sequentially)),
+      n_load if 0 < n_load <= n_levels else n_levels, int(cfg.num_envs),
+      lo & 0xFFFFFFFF, span, hi,
+      float(f32(cfg.reward_step)), float(f32(cfg.reward_box)),
+      float(f32(cfg.reward_finished)),
+      *(ptr(out[k]) for k in _STATE_KEYS), ptr(obs), ptr(reward), ptr(done),
+      ptr(trunc), ptr(elapsed),
+    )
+    if n > 0:
+      with torch.cuda.device(dev):
+        err = _kernel()(ctypes.byref(args), int(reset), torch.cuda.current_stream().cuda_stream)
+      if err != 0:
+        raise RuntimeError(f"sokoban_step launch failed: CUDA error {err}")
+      SokobanEnv.kernel_launches += 1
+    order = _STATE_KEYS if reset else tuple(state)
+    return {k: out[k] for k in order}, obs, reward, done, trunc, elapsed
+
+  @classmethod
+  def step_plain(
     cls, cfg: Any, state: Any, action: torch.Tensor, keys: torch.Tensor
   ) -> Tuple[Any, Any, torch.Tensor, torch.Tensor, torch.Tensor, Dict]:
     world = state["world"]
