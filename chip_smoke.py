@@ -25,7 +25,16 @@ Phases (any failure exits non-zero before the result lines):
      ``step_plain``/``reset_plain`` on the card and on CPU copies, every
      output bit for bit; both timed warm and cold beside their bound (bytes,
      and threefry blocks at THREEFRY_OPS 32-bit operations) and their plain
-     time;
+     time, threefry also beside an empty kernel of its grid (the launch
+     floor); the same kernel's advance mode (the pool's whole advance, one
+     launch) at 16384 envs in both level modes, from a pool's state after 30
+     steps with the carried done flag set on 2% of the lanes: a full send,
+     a masked send to a quarter of the lanes, a forced reset and a forced
+     masked reset, against the pool's general path over the plain versions
+     (``_advance_ids(..., plain=True)``) on the card and in a CPU pool, the
+     new pool state and every output bit for bit, each timed warm and cold
+     beside the pool step's bound and the plain advance's time; the
+     wrappers' host microseconds per call;
   4. the main path: ``make_gymnasium("CarRacing-v2", num_envs=1024)`` on the
      card, reset + 300 steps; a pool with ``max_episode_steps=64`` over 150
      steps (every lane auto-resets twice); an async pool (batch 256) for 20
@@ -44,10 +53,10 @@ Phases (any failure exits non-zero before the result lines):
      outgrew the time limit), every output field bit for
      bit; one ``torch.profiler`` trace of ``xla()`` steps (device time,
      launches per step, idle share). The headline run is the main path of
-     the threefry and step kernels: their counts start at 0 before it, the
-     step kernel must launch exactly once per ``SokobanEnv.step`` and
-     ``reset`` (1 + 300), and the trace gives each kernel's time and
-     launches per step;
+     the advance kernel: the counts start at 0 before it, the advance kernel
+     must launch exactly once per advance (1 + 300), threefry only at the
+     pool's init (2), the step and reset modes and the set kernel never,
+     and the trace gives each kernel's time and launches per step;
   7. CartPole-v1 at 8192 envs (``bench.py``'s width), the card against the
      CPU port step for step, to float tolerance;
   8. PPO (``envpool_torch.train``): ``examples/ppo_sokoban.py``'s
@@ -263,7 +272,10 @@ Phases (any failure exits non-zero before the result lines):
      that replay launches and the bytes that ``cond``'s operand clones copy
      in it, both counted from the structure recorded during the capture
      (the nodes and the loops they sit in, whether the reset branch ran);
-     the threefry and step kernels' launches recorded into the graphs;
+     the threefry, step and advance kernels' launches recorded into the
+     graphs; Sokoban-v0's step graph must hold no conditional node, and
+     the same cell runs again over the pool's general path (the fused
+     advance off: graph.cond over the step kernel) beside it;
      the masked entry points with a device env_id; CheetahJaxRun-v1
      and PusherJax-v4 with lanes that reset through the IF node (Pusher's
      reset through its WHILE node); then the PPO rollout on Sokoban-v0 at
@@ -600,9 +612,27 @@ def threefry_bound(keys, n_ctr: int, pair: bool, data):
   return 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * ops / INT_OPS_PER_S, n_bytes
 
 
+def empty_grid(torch, total: int):
+  """A launcher of ``csrc/threefry.cu``'s empty kernel on the grid that
+  ``threefry_launch`` gives ``total`` outputs: the launch floor beside the
+  kernel's time."""
+  import ctypes
+  from envpool_torch import _build
+
+  fn = _build.load("threefry").threefry_empty_launch
+  fn.argtypes, fn.restype = [ctypes.c_longlong, ctypes.c_void_p], ctypes.c_int
+
+  def launch():
+    err = fn(total, torch.cuda.current_stream().cuda_stream)
+    if err:
+      raise RuntimeError(f"threefry_empty_launch failed: CUDA error {err}")
+  return launch
+
+
 def check_threefry(torch, device, card: str) -> dict:
   """The threefry kernel against ``threefry_plain`` on every case of
-  ``threefry_cases``, bit for bit; warm and cold times, plain times, bound."""
+  ``threefry_cases``, bit for bit; warm and cold times, plain times, bound,
+  and an empty kernel of the same grid timed the same way."""
   from envpool_torch.core import prng
 
   res = {"max_abs_err": 0, "cases": {}}
@@ -625,9 +655,11 @@ def check_threefry(torch, device, card: str) -> dict:
       r["ms"] = time_cuda(torch, kernel, 50)
       r["ms_cold"] = time_cold(torch, kernel)
       r["plain_ms"] = time_cuda(torch, plain, 10, queue=False)
+      r["empty_ms"] = time_cuda(torch, empty_grid(torch, r["keys"] * n_ctr), 50)
       log(f"threefry {name}: {r['keys']} keys x {n_ctr} counters "
           f"({'pair' if pair else 'xor'}), bit-exact, kernel {r['ms']:.5f} ms warm, "
-          f"{r['ms_cold']:.5f} ms cold, plain {r['plain_ms']:.4f} ms, bound "
+          f"{r['ms_cold']:.5f} ms cold, an empty kernel of its grid "
+          f"{r['empty_ms']:.5f} ms, plain {r['plain_ms']:.4f} ms, bound "
           f"{bound_ms * 1e3:.3f} us ({n_bytes} B, {r['bound_by']}), "
           f"{100 * bound_ms / r['ms']:.1f}% of bound warm, library none [{card}]")
     else:
@@ -738,6 +770,174 @@ def check_sokoban_step(torch, envpool_torch, device, card: str) -> dict:
         f"{r['ms_cold']:.5f} ms cold, plain {r['plain_ms']:.4f} ms, bound "
         f"{r['bound_ms'] * 1e3:.3f} us ({n_bytes} B, {r['bound_by']}), "
         f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound warm, library none [{card}]")
+    res["cases"][name] = r
+  return res
+
+
+# the share of lanes whose carried done flag phase 3's advance cases set
+ADVANCE_DONE_SHARE = 0.02
+# threefry blocks per fresh lane of one advance: random mode's level draws
+# (the level's split, the two randint's splits and their 4 words: 11) and
+# the cap's 2; sequential mode the cap's
+FRESH_BLOCKS = {"random": 13, "sequential": 2}
+
+
+def sokoban_advance_cases(torch, envpool_torch, device) -> dict:
+  """The advance kernel's inputs at SOKOBAN_ENVS envs in both level modes:
+  the pool's state after a reset and 30 steps with the carried done flag
+  set on ADVANCE_DONE_SHARE of the lanes (one advance then resets some lanes
+  and steps the others, some of which finish), actions in [-5, 7]: a full
+  send, a masked send to a random quarter of the lanes (some lanes outside
+  it carry the flag), a forced reset of every lane and a forced reset of
+  the quarter. name -> (mode, card pool, CPU pool, state, action or None,
+  env_id or None, forced)."""
+  modes = {
+    "random": SOKOBAN_KW,
+    "sequential": dict(levels_dir=sokoban_levels_dir(envpool_torch),
+                       load_sequentially=True, max_episode_steps=60),
+  }
+  n = SOKOBAN_ENVS
+  g = np.random.default_rng(SEED + 33)
+  cases = {}
+  for mode, kw in modes.items():
+    env = envpool_torch.make_gymnasium(
+      "Sokoban-v0", num_envs=n, seed=SEED, device=device, **kw
+    )
+    cpu = envpool_torch.make_gymnasium("Sokoban-v0", num_envs=n, seed=SEED,
+                                       device="cpu", **kw)
+    env.reset()
+    for a in sokoban_actions(SEED + 32, 30, n):
+      env.step(a)
+    flags = torch.from_numpy(g.random(n) < ADVANCE_DONE_SHARE).to(device)
+    ps = env._state._replace(done=flags)
+    action = torch.from_numpy(g.integers(-5, 8, n).astype(np.int32)).to(device)
+    ids = torch.from_numpy(np.sort(g.choice(n, n // 4, replace=False))).to(device)
+    outside = torch.ones(n, dtype=torch.bool, device=device).index_fill_(0, ids, False)
+    if not bool((flags & outside).any()):
+      raise AssertionError(f"sokoban_advance {mode}: no lane outside the mask carries done")
+    cases[f"{mode}_full"] = (mode, env, cpu, ps, action, None, False)
+    cases[f"{mode}_masked"] = (mode, env, cpu, ps, action[ids], ids, False)
+    cases[f"{mode}_forced"] = (mode, env, cpu, ps, None, None, True)
+    cases[f"{mode}_forced_masked"] = (mode, env, cpu, ps, None, ids, True)
+  return cases
+
+
+def sokoban_advance_bound(ps, n_mask: int, reset: int, fresh: int, masked: bool,
+                          forced: bool, mode: str):
+  """(byte ms, op ms, bytes) of one pool advance of a Sokoban pool, counting
+  what this advance needs, each byte once. Every lane reads its key and
+  cursor and writes its new state (world, player, six int32 fields), key,
+  elapsed and done flag. A lane outside the mask reads the rest of its
+  state, its elapsed and its done flag; a stepping lane the rest of its
+  state, its action and its done flag; a reset lane its done flag unless
+  the reset is forced; a fresh lane its bank row, the row's two indices
+  and, in random mode, the file's start and length. A lane in the mask
+  writes its obs, reward, done, trunc, step_type and discount
+  (``elapsed_step`` is the pool's elapsed; the ``info:`` outputs are state
+  fields and the pool's env ids, written by no one). The mask is read once.
+  The split's 2 threefry blocks per lane in the mask and FRESH_BLOCKS per
+  fresh lane as 32-bit operations."""
+  n, dd = ps.env["world"].shape[0], ps.env["world"].shape[1] ** 2
+  rest = dd + 8 + 5 * 4  # world, player, the int32 fields but the cursor
+  kept, stepping = n - n_mask, n_mask - reset
+  read = (n * (16 + 4) + kept * (rest + 4 + 1) + stepping * (rest + 4 + 1)
+          + (0 if forced else reset) + fresh * (dd + 8 + (12 if mode == "random" else 0))
+          + (n if masked else 0))
+  write = n * (dd + 8 + 6 * 4 + 16 + 4 + 1) + n_mask * (3 * dd + 4 + 1 + 1 + 4 + 4)
+  ops = (2 * n_mask + FRESH_BLOCKS[mode] * fresh) * THREEFRY_OPS
+  return (1e3 * (read + write) / HBM_BYTES_PER_S, 1e3 * ops / INT_OPS_PER_S,
+          read + write)
+
+
+def host_us(torch, fn, reps: int = 50) -> float:
+  """Host microseconds per call of ``fn`` with the card kept busy ahead of
+  it, so that no call waits for the card: the wrapper's own cost."""
+  fn()
+  queue_ahead(torch, 2 * reps * host_ms(torch, fn) + 1)
+  t0 = time.perf_counter()
+  for _ in range(reps):
+    fn()
+  us = 1e6 * (time.perf_counter() - t0) / reps
+  torch.cuda.synchronize()
+  return us
+
+
+def check_sokoban_advance(torch, envpool_torch, device, card: str) -> dict:
+  """The advance kernel (``TorchEnvPool._advance_ids`` of a Sokoban pool on
+  the card) against the plain advance (the pool's general path over
+  ``step_plain``/``reset_plain``, ``plain=True``) on the card and on CPU
+  copies in a CPU pool, new pool state and every output bit for bit; warm
+  and cold times beside the pool step's bound, the plain advance's time,
+  and the wrappers' host microseconds per call."""
+  from envpool_torch.core.pool import tree_map
+  from envpool_torch.envs.sokoban.sokoban import SokobanEnv
+
+  res = {"max_abs_err": 0, "cases": {}}
+  cpu = lambda t: t.cpu()
+  for name, (mode, env, cpu_env, ps, action, ids, forced) in sokoban_advance_cases(
+    torch, envpool_torch, device
+  ).items():
+    ab = None if action is None else {"action": action}
+
+    def kernel():
+      new, outs = env._advance_ids(ps, ab, ids, forced)
+      return new, tuple(outs)
+
+    def plain():
+      new, outs = env._advance_ids(ps, ab, ids, forced, plain=True)
+      return new, tuple(outs)
+
+    n0 = SokobanEnv.advance_launches
+    got, want = kernel(), plain()
+    if SokobanEnv.advance_launches != n0 + 1:
+      raise AssertionError(f"sokoban_advance {name}: {SokobanEnv.advance_launches - n0} "
+                           f"advance launches in one advance")
+    new_c, outs_c = cpu_env._advance_ids(
+      tree_map(cpu, ps), None if ab is None else tree_map(cpu, ab),
+      None if ids is None else ids.cpu(), forced)
+    err = max(bit_diff(torch, got, want), bit_diff(torch, got, (new_c, tuple(outs_c))))
+    if err:
+      raise AssertionError(f"sokoban_advance {name}: kernel != plain, max err {err}")
+    keys = env._state_keys
+    outs = got[1]
+    in_mask = SOKOBAN_ENVS if ids is None else ids.numel()
+    rows = ps.done if ids is None else ps.done[ids]
+    if forced:
+      fresh = in_mask
+    else:
+      fresh = int(rows.sum()) + int(outs[keys.index("done")].sum())
+    r = {"mode": mode, "in_mask": in_mask, "fresh_lanes": fresh, "forced": forced,
+         "reset_lanes": in_mask if forced else int(rows.sum())}
+    if name.endswith("_full") and not (0 < r["reset_lanes"] < fresh < in_mask):
+      raise AssertionError(f"sokoban_advance {name}: no mix of reset, finishing and "
+                           f"stepping lanes: {r}")
+    byte_ms, op_ms, n_bytes = sokoban_advance_bound(
+      ps, in_mask, r["reset_lanes"], fresh, ids is not None, forced, mode)
+    r["bound_ms"] = max(byte_ms, op_ms)
+    r["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
+    r["ms"] = time_cuda(torch, kernel, 50)
+    r["ms_cold"] = time_cold(torch, kernel)
+    r["plain_ms"] = time_cuda(torch, plain, 5, queue=False)
+    log(f"sokoban_advance {name}: {SOKOBAN_ENVS} envs, {in_mask} in the mask, "
+        f"{r['reset_lanes']} reset and {fresh} fresh lanes, one launch, bit-exact "
+        f"against the plain advance on the card and on the CPU, kernel "
+        f"{r['ms']:.5f} ms warm, {r['ms_cold']:.5f} ms cold, plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.3f} us ({n_bytes} B, "
+        f"{r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% of bound warm, "
+        f"library none [{card}]")
+    if name == "random_full":
+      cfg, a = env._cfg, action
+      sub = env._state.rng  # any [n, 2] keys: the step mode's host cost
+      r["host_us"] = {
+        "fused_advance": host_us(torch, lambda: SokobanEnv.fused_advance(
+          cfg, ps, a, None, False)),
+        "pool_advance": host_us(torch, lambda: env._advance_ids(ps, ab, None, False)),
+        "step_mode": host_us(torch, lambda: SokobanEnv.step(cfg, ps.env, a, sub)),
+      }
+      log(f"sokoban_advance host microseconds per call (the card kept busy "
+          f"ahead): SokobanEnv.fused_advance {r['host_us']['fused_advance']:.1f}, "
+          f"the pool's advance around it {r['host_us']['pool_advance']:.1f}, "
+          f"SokobanEnv.step (step mode) {r['host_us']['step_mode']:.1f} [{card}]")
     res["cases"][name] = r
   return res
 
@@ -4114,8 +4314,8 @@ def trace_replay(torch, sc):
   """One replay of a captured step, traced with CUDA activity only, from
   the state its buffers hold: (launches, device-busy us as the union of
   the launches' intervals, the span us from the first launch's start to the
-  last one's end, launches by name). The fill that resets the step counter
-  before the replay is left out."""
+  last one's end, launches by name, device us by name). The fill that
+  resets the step counter before the replay is left out."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
 
@@ -4126,7 +4326,7 @@ def trace_replay(torch, sc):
   events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                   key=lambda e: e.time_range.start)[1:]
   if not events:  # the profiler recorded nothing: not measured
-    return None, None, None, None
+    return None, None, None, None, None
   busy, start, end = 0.0, None, None
   for e in events:
     if end is None or e.time_range.start > end:
@@ -4136,10 +4336,11 @@ def trace_replay(torch, sc):
       end = max(end, e.time_range.end)
   busy += end - start
   span = max(e.time_range.end for e in events) - events[0].time_range.start
-  names = {}
+  names, us = {}, {}
   for e in events:
     names[e.name] = names.get(e.name, 0) + 1
-  return len(events), busy, span, names
+    us[e.name] = us.get(e.name, 0.0) + e.time_range.end - e.time_range.start
+  return len(events), busy, span, names, us
 
 
 def trace_text(launches, busy_us, step_us, trace_s) -> str:
@@ -4235,13 +4436,16 @@ def body_nodes_per_replay(graph, nodes, if_taken: bool):
   return total
 
 
-def captured_cell(torch, envpool_torch, task_id: str, card) -> dict:
-  """One id's rollout eagerly and captured; see phase 18 in the docstring."""
+def captured_cell(torch, envpool_torch, task_id: str, card, general=False) -> dict:
+  """One id's rollout eagerly and captured; see phase 18 in the docstring.
+  ``general``: the pool's general path, its family's fused advance off."""
   from envpool_torch.core import graph
   from envpool_torch.envs.box2d import sampler
 
   n, steps, kw = CAPTURED[task_id]
   env = envpool_torch.make_gymnasium(task_id, num_envs=n, seed=SEED, device="cuda", **kw)
+  if general:
+    env._fused = None
   env.reset()
   handle, _, send, _ = env.xla()
   acts = torch.from_numpy(captured_actions(envpool_torch, task_id, steps, n)).cuda()
@@ -4311,9 +4515,12 @@ def captured_cell(torch, envpool_torch, task_id: str, card) -> dict:
   t_t = time.perf_counter()
   traced = in_bodies is not None and in_bodies <= TRACE_BODY_NODES
   if traced:
-    launches, busy_us, _, rows = trace_replay(torch, sc)
+    launches, busy_us, _, rows, rows_us = trace_replay(torch, sc)
+    if busy_us is None:  # the tracer recorded nothing: once more
+      sc((handle, t0), 1)
+      launches, busy_us, _, rows, rows_us = trace_replay(torch, sc)
   else:  # the tracer faults on such a replay: not traced
-    launches = busy_us = rows = None
+    launches = busy_us = rows = rows_us = None
   trace_s = time.perf_counter() - t_t
   replay_text = (trace_text(launches, busy_us, step_us, trace_s) if traced else
                  f"{step_us:.1f} us untraced, not traced: its conditional "
@@ -4345,14 +4552,22 @@ def captured_cell(torch, envpool_torch, task_id: str, card) -> dict:
   bg = [c for name, c in (rows or {}).items() if "car_racing_background" in name]
   if bg:
     res["sampler_per_step"] = bg[0]
-  log(f"{task_id} captured: {n} envs x {steps} steps, every output field and "
+  sok_text = ""
+  if task_id == "Sokoban-v0" and rows_us is not None:
+    # the step kernel's own share of the replay, in every mode traced
+    res["sokoban_kernel_us"] = sum(us for name, us in rows_us.items()
+                                   if "sokoban_kernel" in name)
+    sok_text = (f", of it csrc/sokoban_step.cu {res['sokoban_kernel_us']:.1f} us "
+                f"and the rest {busy_us - res['sokoban_kernel_us']:.1f}")
+  log(f"{task_id}{' (general path)' if general else ''} captured: {n} envs x "
+      f"{steps} steps, every output field and "
       f"the final state bit for bit against the eager xla() loop; eager "
       f"{res['eager_sps']:.1f} env-steps/s, captured {res['captured_sps']:.1f} "
       f"(x{res['captured_sps'] / res['eager_sps']:.2f}); capture "
       f"{sc.capture_s:.3f} s, instantiate {sc.instantiate_s:.3f} s, first call "
       f"{first_s:.3f} s; {sc.nodes} nodes ({sc.conditional_nodes} conditional); "
       f"peak {peak_gb:.3f} GiB over the eager outputs; the second step's "
-      f"replay alone: {replay_text}"
+      f"replay alone: {replay_text}{sok_text}"
       f"{' (the trace may miss kernels of WHILE bodies)' if res['while_rounds_in_step'] else ''}; "
       f"set kernels in it, by the captured structure (reset branch "
       f"{'taken' if if_taken else 'skipped'}): {res['set_any_per_step']} `any`, "
@@ -4522,19 +4737,32 @@ def captured_rollouts(torch, envpool_torch, card) -> dict:
   graph.set_conditional.launches = graph.set_counted.launches = 0
   sampler.fused_background.launches = 0
   prng.threefry_kernel.launches = SokobanEnv.kernel_launches = 0
+  SokobanEnv.advance_launches = 0
   for task_id in CAPTURED:
     t0 = time.perf_counter()
     res[task_id] = captured_cell(torch, envpool_torch, task_id, card)
     res[task_id]["seconds"] = time.perf_counter() - t0
     log(f"  {task_id}: {res[task_id]['seconds']:.1f} s")
     torch.cuda.empty_cache()
+  # the fused advance leaves Sokoban's step graph no conditional node; the
+  # same cell over the general path (graph.cond and the step kernel, the
+  # path before the advance was fused) stands beside it
+  sok = res["Sokoban-v0"]
+  if sok["conditional_nodes"] != 0 or sok["set_any_per_step"] != 0:
+    raise AssertionError(f"Sokoban-v0's captured step has conditional nodes: {sok}")
+  t0 = time.perf_counter()
+  res["Sokoban-v0 general path"] = captured_cell(torch, envpool_torch, "Sokoban-v0",
+                                                 card, general=True)
+  log(f"  Sokoban-v0 general path: {time.perf_counter() - t0:.1f} s")
+  torch.cuda.empty_cache()
   res["masked"] = captured_masked(torch, envpool_torch, card)
   res["ppo_sokoban"] = captured_ppo(torch, envpool_torch, card)
   res["launches"] = {"set_conditional": graph.set_conditional.launches,
                      "set_conditional_counted": graph.set_counted.launches,
                      "car_racing_sampler": sampler.fused_background.launches,
                      "threefry": prng.threefry_kernel.launches,
-                     "sokoban_step": SokobanEnv.kernel_launches}
+                     "sokoban_step": SokobanEnv.kernel_launches,
+                     "sokoban_advance": SokobanEnv.advance_launches}
   if not all(res["launches"].values()):
     raise AssertionError(f"phase 18 launched a kernel no time: {res['launches']}")
   return res
@@ -4585,7 +4813,9 @@ def main(argv) -> int:
   t3 = time.perf_counter()
   tf_res = check_threefry(torch, device, card)
   step_res = check_sokoban_step(torch, envpool_torch, device, card)
-  log(f"threefry and sokoban_step checks: {time.perf_counter() - t3:.1f} s")
+  adv_res = check_sokoban_advance(torch, envpool_torch, device, card)
+  log(f"threefry, sokoban_step and sokoban_advance checks: "
+      f"{time.perf_counter() - t3:.1f} s")
 
   # 4. main path
   env, last_action, sps, launches, _ = run_sync(
@@ -4622,25 +4852,32 @@ def main(argv) -> int:
       f"{cmp['obs_equal']:.6f}, reward max err {cmp['reward_max_err']:.3g}, "
       f"pos max err {cmp['pos_max_err']:.3g}, integer fields exact")
 
-  # 6. Sokoban-v0, the headline workload: the main path of the threefry and
-  # step kernels, every count from 0
+  # 6. Sokoban-v0, the headline workload: the main path of the advance
+  # kernel, every count from 0
   t6 = time.perf_counter()
-  from envpool_torch.core import prng
+  from envpool_torch.core import graph, prng
   from envpool_torch.envs.sokoban.sokoban import SokobanEnv
 
   prng.threefry_kernel.launches = SokobanEnv.kernel_launches = 0
+  SokobanEnv.advance_launches = graph.set_conditional.launches = 0
   env, sps, sps_xla, dones, bound = sokoban_headline(torch, envpool_torch, device)
   main_launches = {"threefry": prng.threefry_kernel.launches,
-                   "sokoban_step": SokobanEnv.kernel_launches}
-  # one step kernel per SokobanEnv.step and reset: the reset, then every
-  # step of the step loop and of the xla() loop; the pool's reset branch
-  # never runs (done is carried as 0 by an env-side auto-reset family)
+                   "sokoban_step": SokobanEnv.kernel_launches,
+                   "sokoban_advance": SokobanEnv.advance_launches,
+                   "set_conditional": graph.set_conditional.launches}
+  # one advance kernel per advance: the reset, then every step of the step
+  # loop and of the xla() loop; threefry only at the pool's init (fold_in
+  # and split), the key split is in the advance; no step or reset mode and
+  # no set kernel (no graph.cond)
   want_steps = 1 + 2 * SOKOBAN_STEPS
   log(f"Sokoban-v0 kernel launches in reset + {2 * SOKOBAN_STEPS} steps: "
-      f"sokoban_step {main_launches['sokoban_step']} (expected {want_steps}), "
-      f"threefry {main_launches['threefry']} (the pool's init fold_in and split, "
-      f"then one split per advance)")
-  if main_launches["sokoban_step"] != want_steps or not main_launches["threefry"]:
+      f"sokoban_advance {main_launches['sokoban_advance']} (expected {want_steps}), "
+      f"threefry {main_launches['threefry']} (expected 2: the pool's init fold_in "
+      f"and split), sokoban_step in step or reset mode "
+      f"{main_launches['sokoban_step']} and set_conditional "
+      f"{main_launches['set_conditional']} (expected 0)")
+  if main_launches != {"threefry": 2, "sokoban_step": 0, "sokoban_advance": want_steps,
+                       "set_conditional": 0}:
     raise AssertionError(f"Sokoban-v0 main path launches {main_launches}")
   log(f"Sokoban-v0: {SOKOBAN_ENVS} envs, reset + {SOKOBAN_STEPS} steps of "
       f"actions in [-1, 3]: every lane auto-reset ({int(dones.min())} to "
@@ -4921,10 +5158,13 @@ def main(argv) -> int:
     "library_ms": None,
     "library": "null: no single PyTorch call computes threefry-2x32",
     "ms_cold": tf_main["ms_cold"],
+    "empty_ms": tf_main["empty_ms"],
     "cases": tf_res["cases"],
     "unit": f"the pool's split of {SOKOBAN_ENVS} keys (a strided view), one "
-            f"launch; launches: phase 6's Sokoban-v0 run (reset + "
-            f"{2 * SOKOBAN_STEPS} steps)",
+            f"launch; empty_ms: an empty kernel of the same grid; launches: "
+            f"phase 6's Sokoban-v0 run (reset + {2 * SOKOBAN_STEPS} steps), "
+            f"the pool's init alone: on that path the split runs in the "
+            f"advance kernel",
   }
   st_main = step_res["cases"]["random_step"]
   step_kernel = {
@@ -4935,6 +5175,7 @@ def main(argv) -> int:
                 "(envpool_tpu/envs/sokoban/sokoban.py:289, :240, :173, :394) "
                 "under envpool_tpu/core/pool.py:215",
     "launches": main_launches["sokoban_step"],
+    "phase18_launches": captured["launches"]["sokoban_step"],
     "max_abs_err": step_res["max_abs_err"],
     "ms": st_main["ms"],
     "plain_ms": st_main["plain_ms"],
@@ -4946,11 +5187,40 @@ def main(argv) -> int:
     "cases": step_res["cases"],
     "main_path_trace": sokoban_trace,
     "unit": f"one SokobanEnv.step of {SOKOBAN_ENVS} envs in random mode from "
-            f"a mid-episode state, one launch; launches: phase 6's Sokoban-v0 "
+            f"a mid-episode state, one launch; launches: step and reset mode "
+            f"in phase 6's Sokoban-v0 run (reset + {2 * SOKOBAN_STEPS} steps), "
+            f"none since the pool's advance is fused (sokoban_advance counts "
+            f"that path); phase18_launches: those recorded into phase 18's "
+            f"graphs, its general-path cell",
+  }
+  adv_main = adv_res["cases"]["random_full"]
+  advance_kernel = {
+    "name": "sokoban_advance",
+    "route": "cuda",
+    "source": "envpool_torch/csrc/sokoban_step.cu",
+    "replaces": "none: the XLA fusion of the pool's advance "
+                "(envpool_tpu/core/pool.py:173, its env-resets branch :215 and "
+                "_merge_resets :181) over SokobanEnv.step and reset "
+                "(envpool_tpu/envs/sokoban/sokoban.py:289, :240, :173, :394)",
+    "launches": main_launches["sokoban_advance"],
+    "max_abs_err": adv_res["max_abs_err"],
+    "ms": adv_main["ms"],
+    "plain_ms": adv_main["plain_ms"],
+    "bound_ms": adv_main["bound_ms"],
+    "bound_by": adv_main["bound_by"],
+    "library_ms": None,
+    "library": "null: no single PyTorch call computes a pool's Sokoban advance",
+    "ms_cold": adv_main["ms_cold"],
+    "host_us": adv_main["host_us"],
+    "cases": adv_res["cases"],
+    "unit": f"one full advance of a {SOKOBAN_ENVS}-env Sokoban-v0 pool in random "
+            f"mode, {ADVANCE_DONE_SHARE:.0%} of the lanes carrying done, one "
+            f"launch (mode 2 of the step kernel); plain: the pool's general "
+            f"path over step_plain/reset_plain; launches: phase 6's Sokoban-v0 "
             f"run (reset + {2 * SOKOBAN_STEPS} steps)",
   }
   log(json.dumps({"kernels": [kernel, cond_kernel, counted_kernel, threefry_kernel,
-                              step_kernel]}))
+                              step_kernel, advance_kernel]}))
   log(json.dumps({
     "ok": True,
     "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},

@@ -93,6 +93,18 @@ class FuncEnv:
   #: an ``[N, P]`` reward; the pool masks and compacts the padding.
   multi_player: bool = False
 
+  #: optional fused pool advance for CUDA tensors, None for the general
+  #: path. A family that has one defines the classmethod
+  #: ``fused_advance(cfg, ps, action, mask, force_reset) -> (env state,
+  #: carried keys, elapsed, done flags, outputs)``: everything that
+  #: ``TorchEnvPool._advance`` computes for the family, the key split, the
+  #: reset select, the epilogue and the mask included, with ``outputs`` keyed
+  #: by the pool's output names (all but ``info:env_id`` and
+  #: ``info:players.env_id``, which the pool adds). The pool calls it for
+  #: CUDA tensors and runs the general path, its plain version, otherwise
+  #: (Sokoban, ``csrc/sokoban_step.cu``).
+  fused_advance = None
+
   @staticmethod
   def default_config() -> Dict[str, Any]:
     return {}

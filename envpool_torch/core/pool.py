@@ -34,6 +34,12 @@ Semantics reproduced exactly (see tests/test_torch_*.py):
 - container fields: a padded ``(data, shape)`` pair on the device, a ragged
   object column at ``recv``.
 
+Fused advance. A family with ``FuncEnv.fused_advance`` (Sokoban) does the
+whole advance below, the key split, the reset select, the epilogue and the
+mask, in one kernel launch for CUDA tensors; the general path is its plain
+version (``_advance(..., plain=True)`` runs it on any device over the
+family's ``step_plain`` / ``reset_plain``).
+
 Auto-reset form. As ``TpuEnvPool`` (``_merge_resets``), the step always
 runs and the reset runs under ``graph.cond(any(need_reset), ...)`` with its
 selects: eagerly one device-to-host read of that flag per advance; inside
@@ -184,6 +190,10 @@ class TorchEnvPool:
       k for k in self._action_keys if k not in ("env_id", "players.env_id")
     ]
     self._action_array_spec = spec.action_array_spec
+    self._fused = (
+      None if self._multi_player or self._container_keys
+      else self._env_cls.fused_advance
+    )
     n = self._num_envs
     self._env_ids = (
       torch.arange(n, dtype=torch.int32, device=self.device) if env_ids is None
@@ -230,29 +240,45 @@ class TorchEnvPool:
     action_full: Dict[str, torch.Tensor],
     mask: Optional[torch.Tensor],
     force_reset: bool,
+    plain: bool = False,
   ) -> Tuple[PoolState, List[torch.Tensor]]:
+    """One advance of every lane (a forced reset with ``force_reset``; the
+    lanes outside ``mask`` keep their state). The family's fused advance
+    for CUDA tensors where it has one, which launches its kernel or raises;
+    the general path otherwise, or with ``plain`` (over ``step_plain`` /
+    ``reset_plain`` where the family has them: the fused advance's plain
+    version, on any device)."""
+    if self._fused is not None and not plain and ps.rng.device.type == "cuda":
+      env2, rng, elapsed, done, out = self._fused(
+        self._cfg, ps, self._unpack_action(action_full), mask, force_reset
+      )
+      out["info:env_id"] = out["info:players.env_id"] = self._env_ids
+      return (PoolState(env=env2, rng=rng, elapsed=elapsed, done=done),
+              [out[k] for k in self._state_keys])
     env_cls, cfg, n = self._env_cls, self._cfg, self._num_envs
+    env_step = getattr(env_cls, "step_plain", env_cls.step) if plain else env_cls.step
+    env_reset = getattr(env_cls, "reset_plain", env_cls.reset) if plain else env_cls.reset
     rng, sub = _split_keys(ps.rng)
     st_trunc = None
     if force_reset:
       # every lane that matters resets: the step's values would all be
       # discarded by the selects below, so it is not computed
       need_reset = torch.ones(n, dtype=torch.bool, device=self.device)
-      env2, obs, info = env_cls.reset(cfg, ps.env, sub)
+      env2, obs, info = env_reset(cfg, ps.env, sub)
       rew_shape = (n, self._max_players) if self._multi_player else (n,)
       st_rew = torch.zeros(rew_shape, dtype=torch.float32, device=self.device)
       st_term = torch.zeros(n, dtype=torch.bool, device=self.device)
       st_trunc = st_term
     else:
       need_reset = ps.done
-      res = env_cls.step(cfg, ps.env, self._unpack_action(action_full), sub)
+      res = env_step(cfg, ps.env, self._unpack_action(action_full), sub)
       if self._env_resets:
         st_env, st_obs, st_rew, st_term, st_trunc, st_info = res
       else:
         st_env, st_obs, st_rew, st_term, st_info = res
 
       def do_reset(st3):
-        rs_env, rs_obs, rs_info = env_cls.reset(cfg, ps.env, sub)
+        rs_env, rs_obs, rs_info = env_reset(cfg, ps.env, sub)
         return (
           _select(need_reset, rs_env, st3[0]),
           _select(need_reset, rs_obs, st3[1]),
@@ -357,19 +383,22 @@ class TorchEnvPool:
     ps: PoolState,
     action_b: Dict[str, torch.Tensor],
     env_id: torch.Tensor,
+    plain: bool = False,
   ) -> Tuple[PoolState, List[torch.Tensor]]:
     action_full = {}
     for k in self._env_action_keys:
       action_full[k] = self._zero_action[k].clone()
       action_full[k][env_id] = action_b[k].to(action_full[k].dtype)
-    new_ps, outs = self._advance(ps, action_full, self._mask(env_id), False)
+    new_ps, outs = self._advance(ps, action_full, self._mask(env_id), False, plain)
     return new_ps, _gather(outs, env_id)
 
   def _reset_masked(
-    self, ps: PoolState, env_id: torch.Tensor
+    self, ps: PoolState, env_id: torch.Tensor, plain: bool = False
   ) -> Tuple[PoolState, List[torch.Tensor]]:
     # a forced reset of every lane, of which the mask keeps env_id's
-    new_ps, outs = self._advance(ps, self._zero_action, self._mask(env_id), True)
+    new_ps, outs = self._advance(
+      ps, self._zero_action, self._mask(env_id), True, plain
+    )
     return new_ps, _gather(outs, env_id)
 
   def _advance_ids(
@@ -378,19 +407,21 @@ class TorchEnvPool:
     action_b: Optional[Dict[str, torch.Tensor]],
     env_id: Any,
     reset: bool,
+    plain: bool = False,
   ) -> Tuple[Any, List[Any]]:
     """One advance of ``ps`` -> (new state, outputs): the entry that
     ``_send``, ``_reset`` and ``xla()``'s ``send`` share. ``env_id`` None
     steps every lane (forces every lane's reset with ``reset``); otherwise
     it lists lane ids (host or device), and the outputs are their rows in
-    its order. ``action_b`` None is the zero action."""
+    its order. ``action_b`` None is the zero action. ``plain`` runs the
+    general path where the family has a fused advance (``_advance``)."""
     if env_id is None:
       action = self._zero_action if action_b is None else action_b
-      return self._advance(ps, action, None, reset)
+      return self._advance(ps, action, None, reset, plain)
     env_id = torch.as_tensor(env_id).to(device=self.device, dtype=torch.int64)
     if reset:
-      return self._reset_masked(ps, env_id)
-    return self._advance_masked(ps, action_b, env_id)
+      return self._reset_masked(ps, env_id, plain)
+    return self._advance_masked(ps, action_b, env_id, plain)
 
   # ----------------------------------------------------------- low-level API
 

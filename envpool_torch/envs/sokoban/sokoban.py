@@ -25,7 +25,11 @@ for the render. ``step`` and ``reset`` run it for CPU tensors; for CUDA
 tensors they are one launch each of ``csrc/sokoban_step.cu``, which
 computes the same thing, bit for bit, with its next episodes drawn in the
 kernel from ``csrc/threefry.cuh`` (``SokobanEnv.kernel_launches`` counts
-the launches).
+the launches). ``SokobanEnv.fused_advance`` is the pool's whole advance in
+one launch of the same kernel (the key split, the reset select, the
+epilogue and the mask of ``TorchEnvPool._advance``), taken for CUDA tensors
+(``SokobanEnv.advance_launches`` counts those launches); the pool's general
+path over ``step_plain`` / ``reset_plain`` is its plain version.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import ctypes
 import functools
 import os
 import tempfile
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -170,9 +174,12 @@ def _constants(device: torch.device) -> Dict[str, torch.Tensor]:
   }
 
 
-#: the largest ``dim_room`` the step kernel takes (a warp of envs' worlds in
+#: the largest ``dim_room`` the step kernel takes (a block's 32 worlds in
 #: 48 KB of shared memory)
 KERNEL_MAX_DIM = 32
+
+#: the kernel's modes (``sokoban_launch``'s ``mode``)
+_STEP, _RESET, _ADVANCE = 0, 1, 2
 
 
 class _StepArgs(ctypes.Structure):
@@ -196,8 +203,10 @@ class _StepArgs(ctypes.Structure):
     *((name, ctypes.c_void_p) for name in (
       "world_out", "player_out", "unmatched_out", "steps_out", "cap_out",
       "cursor_out", "file_idx_out", "level_idx_out", "obs", "reward", "done",
-      "trunc", "elapsed",
+      "trunc", "elapsed", "elapsed_in", "done_in", "mask", "rng_out",
+      "step_type", "discount", "done_carry",
     )),
+    ("force_reset", ctypes.c_int),
   ]
 
 
@@ -208,6 +217,43 @@ def _kernel():
     fn.argtypes = [ctypes.POINTER(_StepArgs), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
   return fn
+
+
+@functools.lru_cache(maxsize=64)
+def _pool_args(cfg: Any, n: int, device: torch.device) -> _StepArgs:
+  """The template argument struct of one pool shape (config, width,
+  device), its constant fields filled once. Every pool of that shape shares
+  it, so nothing writes it after this: each launch fills the pointers of
+  its tensors in a copy of its own. It holds the device bank's addresses,
+  which live for the process."""
+  d = int(cfg.dim_room)
+  if not 0 < d <= KERNEL_MAX_DIM:
+    raise ValueError(f"the step kernel takes dim_room 1..{KERNEL_MAX_DIM}, got {d}")
+  lo, hi = int(cfg.min_episode_steps), int(cfg.max_episode_steps)
+  i32 = torch.iinfo(torch.int32)
+  span = (hi - lo + 1) & 0xFFFFFFFF if lo < hi else 0
+  if not i32.min <= hi <= i32.max or (lo < hi and span == 0):
+    raise ValueError(f"episode steps [{lo}, {hi}] outside what the kernel takes")
+  bank = _device_bank(
+    str(cfg.levels_dir), d, int(cfg.n_levels_to_load), int(cfg.seed), device
+  )
+  n_levels, n_load = bank["levels"].shape[0], int(cfg.n_levels_to_load)
+  f32 = np.float32
+  args = _StepArgs()
+  for field, key in (("levels", "levels"), ("bank_file_idx", "file_idx"),
+                     ("bank_level_idx", "level_idx"), ("file_start", "file_start"),
+                     ("file_len", "file_len")):
+    setattr(args, field, bank[key].data_ptr())
+  args.n_files = bank["file_start"].shape[0]
+  args.n, args.dim = n, d
+  args.sequential = int(bool(cfg.load_sequentially))
+  args.n_eff = n_load if 0 < n_load <= n_levels else n_levels
+  args.num_envs = int(cfg.num_envs)
+  args.cap_lo, args.cap_span, args.cap_hi = lo & 0xFFFFFFFF, span, hi
+  args.reward_step = float(f32(cfg.reward_step))
+  args.reward_box = float(f32(cfg.reward_box))
+  args.reward_finished = float(f32(cfg.reward_finished))
+  return args
 
 
 #: the state's fields in the order ``_fresh_episode`` builds them
@@ -228,8 +274,10 @@ class SokobanEnv(FuncEnv):
 
   name = "Sokoban"
   env_resets = True
-  #: launches of ``csrc/sokoban_step.cu`` (step and reset together)
+  #: launches of ``csrc/sokoban_step.cu`` in step and reset mode
   kernel_launches = 0
+  #: launches of ``csrc/sokoban_step.cu`` in advance mode (``fused_advance``)
+  advance_launches = 0
 
   @staticmethod
   def default_config() -> Dict[str, Any]:
@@ -389,83 +437,131 @@ class SokobanEnv(FuncEnv):
   def _launch(cls, cfg: Any, state: Any, action: Any, keys: torch.Tensor):
     """One launch of the step kernel (reset mode where ``action`` is None):
     (state, obs, reward, done, trunc, elapsed_step), the three step outputs
-    None in reset mode. Checks dtypes, shapes and devices, allocates the
-    outputs, launches on the current stream and reads nothing back, so it
-    may be captured. A state field that is not contiguous is copied first
-    (the pool's never are)."""
+    None in reset mode. See ``_run``."""
+    if state["world"].device.type != "cuda":
+      raise ValueError(f"no Sokoban step kernel for device {state['world'].device}")
+    mode = _RESET if action is None else _STEP
+    new, outs = cls._run(cfg, mode, state, action, keys)
+    SokobanEnv.kernel_launches += int(new["world"].shape[0] > 0)
+    if mode == _RESET:
+      return new, outs["obs"], None, None, None, outs["elapsed_step"]
+    return (new, outs["obs"], outs["reward"], outs["done"], outs["trunc"],
+            outs["elapsed_step"])
+
+  @classmethod
+  def fused_advance(
+    cls, cfg: Any, ps: Any, action: torch.Tensor, mask: Optional[torch.Tensor],
+    force_reset: bool,
+  ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor, torch.Tensor,
+             Dict[str, torch.Tensor]]:
+    """The pool's whole advance (``FuncEnv.fused_advance``) in one launch of
+    the step kernel in advance mode: (env state, carried keys, elapsed, done
+    flags, outputs by the pool's output names). ``elapsed`` is also the
+    ``elapsed_step`` output and ``info:level_file_idx`` / ``info:level_idx``
+    are the state's ``file_idx`` / ``level_idx``, as in the general path.
+    CUDA tensors only; see ``_run``."""
+    if ps.rng.device.type != "cuda":
+      raise ValueError(f"no Sokoban step kernel for device {ps.rng.device}")
+    n = ps.rng.shape[0]
+    dev = ps.rng.device
+    for name, v, dtype in (("elapsed", ps.elapsed, torch.int32),
+                           ("done", ps.done, torch.bool),
+                           ("mask", mask, torch.bool)):
+      if v is not None and (v.dtype != dtype or tuple(v.shape) != (n,) or v.device != dev):
+        raise ValueError(f"{name} must be {dtype} ({n},) on {dev}, got {v.dtype} "
+                         f"{tuple(v.shape)} on {v.device}")
+    adv = (ps.elapsed.contiguous(), ps.done.contiguous(),
+           None if mask is None else mask.contiguous(), bool(force_reset))
+    new, outs = cls._run(cfg, _ADVANCE, ps.env, action, ps.rng, adv)
+    SokobanEnv.advance_launches += int(n > 0)
+    outs["info:level_file_idx"] = new["file_idx"]
+    outs["info:level_idx"] = new["level_idx"]
+    return new, outs.pop("rng"), outs["elapsed_step"], outs.pop("done_carry"), outs
+
+  @classmethod
+  def _run(cls, cfg: Any, mode: int, state: Any, action: Any, keys: torch.Tensor,
+           adv: Optional[Tuple] = None):
+    """One launch of ``csrc/sokoban_step.cu`` in ``mode`` -> (state, outputs
+    by name). ``keys``: the step's keys in step and reset mode, the pool's
+    carried keys in advance mode; ``adv`` (advance mode): the pool's
+    (elapsed, done, mask or None, force_reset). Checks dtypes, shapes and
+    devices, allocates the outputs, launches on the device's current
+    stream and reads nothing back, so it may be captured. A state field
+    that is not contiguous is copied first (the pool's never are)."""
     world = state["world"]
     dev = world.device
-    if dev.type != "cuda":
-      raise ValueError(f"no Sokoban step kernel for device {dev}")
     n, d = world.shape[0], int(cfg.dim_room)
     if set(state) != set(_STATE_KEYS):
       raise ValueError(f"Sokoban state fields {sorted(state)}, expected {sorted(_STATE_KEYS)}")
-    if not 0 < d <= KERNEL_MAX_DIM:
-      raise ValueError(f"the step kernel takes dim_room 1..{KERNEL_MAX_DIM}, got {d}")
-    shapes = {"world": (n, d, d), "player": (n, 2)}
+    args = _StepArgs.from_buffer_copy(_pool_args(cfg, n, dev))
     st = {}
     for k in _STATE_KEYS:
       v = state[k]
+      shape = (n, d, d) if k == "world" else (n, 2) if k == "player" else (n,)
       dtype = torch.uint8 if k == "world" else torch.int32
-      if v.dtype != dtype or tuple(v.shape) != shapes.get(k, (n,)) or v.device != dev:
-        raise ValueError(
-          f"state[{k!r}] must be {dtype} {shapes.get(k, (n,))} on {dev}, got "
-          f"{v.dtype} {tuple(v.shape)} on {v.device}"
-        )
+      if v.dtype != dtype or v.shape != shape or v.device != dev:
+        raise ValueError(f"state[{k!r}] must be {dtype} {shape} on {dev}, got "
+                         f"{v.dtype} {tuple(v.shape)} on {v.device}")
       st[k] = v.contiguous()
-    if keys.dtype != torch.int64 or tuple(keys.shape) != (n, 2) or keys.device != dev:
+    if keys.dtype != torch.int64 or keys.shape != (n, 2) or keys.device != dev:
       raise ValueError(f"keys must be int64 ({n}, 2) on {dev}, got {keys.dtype} "
                        f"{tuple(keys.shape)} on {keys.device}")
-    reset = action is None
-    if not reset:
+    if mode != _RESET:
       if action.device != dev or action.numel() != n:
         raise ValueError(f"action must hold {n} values on {dev}")
       action = action.reshape(n).to(torch.int32).contiguous()
-    bank = _device_bank(
-      str(cfg.levels_dir), d, int(cfg.n_levels_to_load), int(cfg.seed), dev
-    )
-    n_levels, n_files = bank["levels"].shape[0], bank["file_start"].shape[0]
-    n_load = int(cfg.n_levels_to_load)
-    lo, hi = int(cfg.min_episode_steps), int(cfg.max_episode_steps)
-    i32 = torch.iinfo(torch.int32)
-    span = (hi - lo + 1) & 0xFFFFFFFF if lo < hi else 0
-    if not i32.min <= hi <= i32.max or (lo < hi and span == 0):
-      raise ValueError(f"episode steps [{lo}, {hi}] outside what the kernel takes")
 
-    def empty(shape, dtype=torch.int32):
-      return torch.empty(shape, dtype=dtype, device=dev)
+    # the [n] outputs of one dtype are rows of one allocation (allocations
+    # are most of the wrapper's host time)
+    i32 = ["unmatched", "steps", "cap", "cursor", "file_idx", "level_idx", "elapsed_step"]
+    f32, b8 = [], []
+    if mode != _RESET:
+      f32, b8 = ["reward"], ["done", "trunc"]
+    if mode == _ADVANCE:
+      i32.append("step_type")
+      f32.append("discount")
+      b8.append("done_carry")
+    outs = {}
+    for names, dtype in ((i32, torch.int32), (f32, torch.float32), (b8, torch.bool)):
+      if names:
+        rows = torch.empty((len(names), n), dtype=dtype, device=dev).unbind(0)
+        outs.update(zip(names, rows))
+    new = {"world": torch.empty((n, d, d), dtype=torch.uint8, device=dev),
+           "player": torch.empty((n, 2), dtype=torch.int32, device=dev)}
+    for k in _STATE_KEYS[2:]:
+      new[k] = outs.pop(k)
+    outs["obs"] = torch.empty((n, 3, d, d), dtype=torch.uint8, device=dev)
+    if mode == _ADVANCE:
+      outs["rng"] = torch.empty((n, 2), dtype=torch.int64, device=dev)
 
-    out = {k: empty(v.shape, v.dtype) for k, v in st.items()}
-    obs = empty((n, 3, d, d), torch.uint8)
-    elapsed = empty((n,))
-    reward = None if reset else empty((n,), torch.float32)
-    done = None if reset else empty((n,), torch.bool)
-    trunc = None if reset else empty((n,), torch.bool)
-    f32 = np.float32
-
-    def ptr(t):
+    def ptr(name):
+      t = outs.get(name)
       return None if t is None else t.data_ptr()
 
-    args = _StepArgs(
-      *(ptr(st[k]) for k in _STATE_KEYS), ptr(action), keys.data_ptr(),
-      keys.stride(0), keys.stride(1),
-      *(ptr(bank[k]) for k in ("levels", "file_idx", "level_idx", "file_start", "file_len")),
-      n_files, n, d, int(bool(cfg.load_sequentially)),
-      n_load if 0 < n_load <= n_levels else n_levels, int(cfg.num_envs),
-      lo & 0xFFFFFFFF, span, hi,
-      float(f32(cfg.reward_step)), float(f32(cfg.reward_box)),
-      float(f32(cfg.reward_finished)),
-      *(ptr(out[k]) for k in _STATE_KEYS), ptr(obs), ptr(reward), ptr(done),
-      ptr(trunc), ptr(elapsed),
-    )
+    for k in _STATE_KEYS:
+      setattr(args, k, st[k].data_ptr())
+      setattr(args, f"{k}_out", new[k].data_ptr())
+    args.action = None if mode == _RESET else action.data_ptr()
+    args.keys, args.key_stride, args.key_col = keys.data_ptr(), keys.stride(0), keys.stride(1)
+    args.obs, args.elapsed = ptr("obs"), ptr("elapsed_step")
+    args.reward, args.done, args.trunc = ptr("reward"), ptr("done"), ptr("trunc")
+    args.rng_out, args.step_type = ptr("rng"), ptr("step_type")
+    args.discount, args.done_carry = ptr("discount"), ptr("done_carry")
+    if mode == _ADVANCE:
+      elapsed, done, mask, force = adv
+      args.elapsed_in, args.done_in = elapsed.data_ptr(), done.data_ptr()
+      args.mask = None if mask is None else mask.data_ptr()
+      args.force_reset = int(force)
+    else:
+      args.elapsed_in = args.done_in = args.mask = None
+      args.force_reset = 0
     if n > 0:
       with torch.cuda.device(dev):
-        err = _kernel()(ctypes.byref(args), int(reset), torch.cuda.current_stream().cuda_stream)
+        err = _kernel()(ctypes.byref(args), mode, torch.cuda.current_stream().cuda_stream)
       if err != 0:
         raise RuntimeError(f"sokoban_step launch failed: CUDA error {err}")
-      SokobanEnv.kernel_launches += 1
-    order = _STATE_KEYS if reset else tuple(state)
-    return {k: out[k] for k in order}, obs, reward, done, trunc, elapsed
+    order = _STATE_KEYS if mode == _RESET else tuple(state)
+    return {k: new[k] for k in order}, outs
 
   @classmethod
   def step_plain(
